@@ -1,0 +1,588 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port (diffsvc_tpu_torch) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py [--out results.json]
+
+Phases, in order; any failure exits non-zero and no result line is printed:
+
+1. The card: ``nvidia-smi`` name and power limit; CUDA is required (there
+   is no CPU fallback); TF32 is turned off for cuDNN and matmuls, so f32
+   comparisons are true f32.
+2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
+3. Kernel vs plain PyTorch version on the card, at the main path's shapes
+   (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
+   geometry on 5 s of 44.1 kHz audio), in f32 and bf16 for K1/K2 and f32
+   for K3: relative-L2 and max-abs error, and both times (CUDA events).
+   Each tolerance must also be exceeded by the same kernel fed inputs that
+   stand for a known bug (a planted fault: K1's last conditioner dropped;
+   K2's skip-projection bias dropped, or its history not pushed; K3's last
+   NSF injection dropped), so a check that cannot see a wrong kernel fails.
+4. The slice: reference-format checkpoints with random weights from a seed
+   at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
+   soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
+   directory; the port's ``Svc`` + ``run_clip`` convert three voiced clips
+   of 6.5-14 s with silences, once with ``diff_compute_dtype: bfloat16`` and
+   once in f32.  Every kernel's launch counter is reset before and read
+   after that run and must be nonzero; outputs must have the input's
+   length, be finite and non-silent; a short clip converted on the card in
+   f32 must agree with the same conversion on the CPU (the plain path),
+   and the card's conversion with a planted fault must not.
+5. Where the time goes: ``torch.profiler`` over one ``run_clip`` of the
+   14 s clip per dtype (wall, device busy share, the top kernels).
+
+The line before the last is the card's ``nvidia-smi`` name and power limit,
+preceded by one JSON line describing every kernel; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Relative-L2 tolerances and why.  Each sits between the sound reading on the
+# H100 and the reading of the planted faults (both printed each run).
+TOL = {
+    # one K1 call, 20 layers: the same f32 products summed in another order
+    ("residual_stack", "f32"): 1e-5,
+    # bf16 operands: kernel and plain round the same values to bf16, but a
+    # different f32 sum can flip a rounding of x/h, which then propagates
+    ("residual_stack", "bf16"): 1e-2,
+    # the ladder is compared on the part of the final state that the
+    # denoiser put there: x_final minus the same ladder run with eps = 0
+    # (the plain version with W_out, b_out zeroed).  The sampler update is
+    # linear in the evaluations' eps, so this is their weighted error; on
+    # x_final itself eps is ~4% of the state and a fault hides behind the
+    # noise term.  51 evaluations x 20 layers, f32 state in both.
+    ("plms_ladder", "f32"): 1e-4,
+    ("plms_ladder", "bf16"): 1e-2,
+    # ~60 f32 convolutions of the tail
+    ("vocoder_tail", "f32"): 1e-4,
+}
+# f32 conversion of a short clip, card vs CPU: relative L2 of the waveform's
+# part that the denoiser put there (see cpu_agreement).  The planted fault
+# is the card's denoiser with its skip-projection bias dropped.
+SLICE_TOL = 1e-2
+KERNELS = {
+    "residual_stack": ("diffsvc_tpu_torch/csrc/diffnet_stack.cu",
+                       "diffsvc_tpu/ops/pallas/diffnet_stack.py:129"),
+    "plms_ladder": ("diffsvc_tpu_torch/csrc/plms_ladder.cu",
+                    "diffsvc_tpu/ops/pallas/plms_ladder.py:196"),
+    "vocoder_tail": ("diffsvc_tpu_torch/csrc/vocoder_tail.cu",
+                     "diffsvc_tpu/ops/pallas/vocoder_tail.py:348"),
+}
+# main-path shapes at config_44k: frames, residual channels, layers, mel
+# bins, conditioner width
+T, C, L, M, H = 1024, 384, 20, 128, 256
+# openvpi 44.1 kHz NSF-HiFiGAN geometry
+VOC_H = dict(num_mels=128, upsample_initial_channel=512,
+             upsample_rates=[8, 8, 2, 2, 2],
+             upsample_kernel_sizes=[16, 16, 4, 4, 4], resblock="1",
+             resblock_kernel_sizes=[3, 7, 11],
+             resblock_dilation_sizes=[[1, 3, 5]] * 3, sampling_rate=44100,
+             n_fft=2048, win_size=2048, hop_size=512, fmin=40, fmax=16000)
+TAIL_FRAMES = 431           # 5.0 s of 44.1 kHz audio
+# (seconds, f0 Hz, silent spans) of the slice's clips
+CLIPS = [(6.5, 196.0, [(2.0, 2.6)]),
+         (9.0, 262.0, [(5.5, 6.4)]),
+         (14.0, 330.0, [(6.0, 7.0), (12.3, 12.6)])]
+ACC = 20
+
+
+class SmokeError(RuntimeError):
+    pass
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` back-to-back runs (CUDA
+    events around the whole run; one warm-up run first)."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_in_turns(kern, plain, reps: int):
+    """(kernel ms, plain ms), each the mean of two measurements taken in
+    the order plain, kernel, kernel, plain, so drift on the card (clocks,
+    power) falls on both sides alike."""
+    p1 = cuda_time_ms(plain, reps)
+    k1 = cuda_time_ms(kern, reps)
+    k2 = cuda_time_ms(kern, reps)
+    p2 = cuda_time_ms(plain, reps)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _dtype(name):
+    import torch
+
+    return torch.bfloat16 if name == "bf16" else torch.float32
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_residual_stack(device, dtype_name):
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(_dtype(dtype_name), device, 1, T, C, L)
+    kern = lambda: ds.residual_stack(**a, cycle=4)              # noqa: E731
+    plain = lambda: ds.residual_stack_plain(**a, cycle=4)       # noqa: E731
+    got, ref = kern(), plain()
+    cp = a["cond_proj"].clone()
+    cp[-1] = 0
+    fault = ds.residual_stack(**dict(a, cond_proj=cp), cycle=4)
+    ms, plain_ms = time_in_turns(kern, plain, reps=10)
+    return {"max_abs_err": float((got - ref).abs().max()),
+            "rel_l2": rel_l2(got, ref),
+            "fault_rel_l2": {"cond dropped": rel_l2(fault, ref)},
+            "ms": ms, "plain_ms": plain_ms}
+
+
+def ladder_inputs(dtype, device):
+    """A DiffNet at the main path's widths with torch's default init (the
+    reference zero-inits the output projection, which would make eps == 0
+    and the comparison vacuous) and the K=1000 PLMS acc=20 tables: J = 51
+    evaluations."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import make_tables
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+
+    torch.manual_seed(0)
+    net = diffnet.DiffNet(M, H, L, C, 4).to(device)
+    p = net.stacked(dtype)
+    ac = make_tables(1000, "linear", 0.02)["alphas_cumprod"]
+    t_eval, scal = pl.plms_eval_tables(ac, 1000, ACC)
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(device), C)
+    sb = diffnet.step_bias(p, step, dtype).transpose(0, 1).contiguous()
+    g = torch.Generator().manual_seed(1)
+    cond = (torch.randn(1, T, H, generator=g) * 0.5).to(device)
+    cp = diffnet.prepare_cond(net, cond).to(dtype).contiguous()
+    x = torch.randn(1, T, M, generator=g).to(device)
+    return dict(x_init=x, scal=torch.from_numpy(np.ascontiguousarray(scal)).to(device),
+                sb_tab=sb, cond_proj=cp, win=p["win"], bin_=p["bin"],
+                wskip=p["wskip"], bskip=p["bskip"], wout=p["wout"],
+                bout=p["bout"], wd=p["wd"], bd=p["bd"], wo=p["wo"],
+                bo=p["bo"])
+
+
+def check_plms_ladder(device, dtype_name):
+    import torch
+
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+
+    a = ladder_inputs(_dtype(dtype_name), device)
+    kern = lambda: pl.plms_ladder(**a, cycle=4)                 # noqa: E731
+    plain = lambda: pl.plms_ladder_plain(**a, cycle=4)          # noqa: E731
+    got, ref = kern(), plain()
+    base = pl.plms_ladder_plain(**dict(a, wout=torch.zeros_like(a["wout"]),
+                                       bout=torch.zeros_like(a["bout"])),
+                                cycle=4)
+    no_push = a["scal"].clone()
+    no_push[:, pl.NS - 1] = 0
+    faults = {"bskip dropped": dict(a, bskip=torch.zeros_like(a["bskip"])),
+              "history not pushed": dict(a, scal=no_push)}
+    ms, plain_ms = time_in_turns(kern, plain, reps=2)
+    return {"max_abs_err": float((got - ref).abs().max()),
+            "rel_l2": rel_l2(got - base, ref - base),
+            "final_x_rel_l2": rel_l2(got, ref),
+            "eps_share": rel_l2(ref, base),
+            "fault_rel_l2": {k: rel_l2(pl.plms_ladder(**f, cycle=4) - base,
+                                       ref - base)
+                             for k, f in faults.items()},
+            "evals": int(a["scal"].shape[0]), "ms": ms, "plain_ms": plain_ms}
+
+
+def check_vocoder_tail(device, dtype_name):
+    """The generator tail's inputs at the openvpi geometry; the prologue and
+    the NSF noise convs run in plain torch."""
+    import math
+
+    import torch
+
+    from diffsvc_tpu_torch.ops.hopper import vocoder_tail as vt
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    torch.manual_seed(0)
+    cfg = gen_mod.HifiGanConfig.from_dict(VOC_H, use_nsf=True)
+    gen = gen_mod.Generator(cfg).to(device).eval()
+    g = torch.Generator().manual_seed(1)
+    mel = (torch.randn(1, TAIL_FRAMES, cfg.num_mels, generator=g) - 4.0
+           ).to(device)
+    f0 = torch.full((1, TAIL_FRAMES), 220.0).to(device)
+    length = TAIL_FRAMES * int(math.prod(cfg.upsample_rates))
+    randoms = gen_mod.draw_randoms(1, length, cfg.harmonic_num, g)
+    randoms = tuple(r.to(device) for r in randoms)
+    s0 = gen_mod.tail_start_stage(cfg)
+    with torch.no_grad():
+        har = gen_mod.harmonic_source(gen, f0, randoms)
+        x = gen_mod.tail_prologue(gen, mel, har, s0)
+        injs = [gen.noise_convs[i](har).transpose(1, 2).contiguous()
+                for i in range(s0 + 1, len(cfg.upsample_rates))]
+        plan = gen.tail_plan(s0)
+        kern = lambda: vt.tail(x, injs, plan)                   # noqa: E731
+        plain = lambda: vt.tail_plain(x, injs, plan)            # noqa: E731
+        got, ref = kern(), plain()
+        fault = vt.tail(x, injs[:-1] + [torch.zeros_like(injs[-1])], plan)
+        ms, plain_ms = time_in_turns(kern, plain, reps=5)
+    return {"max_abs_err": float((got - ref).abs().max()),
+            "rel_l2": rel_l2(got, ref),
+            "fault_rel_l2": {"injection dropped": rel_l2(fault, ref)},
+            "samples": int(got.shape[1]), "ms": ms, "plain_ms": plain_ms}
+
+
+CHECKS = [("residual_stack", "f32", check_residual_stack),
+          ("residual_stack", "bf16", check_residual_stack),
+          ("plms_ladder", "f32", check_plms_ladder),
+          ("plms_ladder", "bf16", check_plms_ladder),
+          ("vocoder_tail", "f32", check_vocoder_tail)]
+
+
+def phase_kernels(device):
+    out = {}
+    for name, dt, fn in CHECKS:
+        res = fn(device, dt)
+        tol = TOL[(name, dt)]
+        res["tol_rel_l2"] = tol
+        faults = " ".join(f"[{k}: {v:.3e}]"
+                          for k, v in res["fault_rel_l2"].items())
+        log(f"[kernel] {name} {dt}: rel_l2={res['rel_l2']:.3e} (tol {tol:g}) "
+            f"max_abs={res['max_abs_err']:.3e} kernel_ms={res['ms']:.3f} "
+            f"plain_ms={res['plain_ms']:.3f}; planted faults {faults}")
+        if name == "plms_ladder":
+            log(f"[kernel] {name} {dt}: final x rel_l2="
+                f"{res['final_x_rel_l2']:.3e}, eps part of x "
+                f"{res['eps_share']:.3e}")
+        if not res["rel_l2"] <= tol:
+            raise SmokeError(f"{name} {dt} disagrees with its plain version: "
+                             f"rel_l2 {res['rel_l2']:.3e} > {tol:g}")
+        for k, v in res["fault_rel_l2"].items():
+            if not v > tol:
+                raise SmokeError(f"{name} {dt}: the planted fault '{k}' reads "
+                                 f"{v:.3e}, within the tolerance {tol:g}")
+        out.setdefault(name, {})[dt] = res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the slice through Svc + run_clip
+# ---------------------------------------------------------------------------
+
+def phase_slice(device, workdir):
+    """Convert the clips through Svc + run_clip in bf16 and f32."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu.utils.audio_io import load_wav, save_wav
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.models.hubert import HubertConfig
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
+                                              vocoder_tail)
+    from diffsvc_tpu_torch.utils import synth
+
+    counters = {"residual_stack": diffnet_stack, "plms_ladder": plms_ladder,
+                "vocoder_tail": vocoder_tail}
+    t0 = time.time()
+    cfg_fn, ckpt = synth.write_project(
+        os.path.join(workdir, "proj"),
+        {"base_config": [os.path.join(ROOT, "configs", "config_44k.yaml")]},
+        VOC_H, hubert_cfg=HubertConfig())
+    log(f"[slice] wrote checkpoints in {time.time() - t0:.2f}s")
+    sr = 44100
+    wavs = []
+    for i, (secs, f0, gaps) in enumerate(CLIPS):
+        fn = os.path.join(workdir, f"clip{i}.wav")
+        save_wav(synth.voiced_wav(secs, sr, f0, gaps, seed=i), fn, sr)
+        wavs.append(fn)
+
+    results = {"clips": []}
+    svcs = {}
+    for dt in ("bfloat16", ""):
+        t0 = time.time()
+        svcs[dt] = Svc("proj", cfg_fn, True, ckpt, device=device)
+        svcs[dt].hp["diff_compute_dtype"] = dt
+        log(f"[slice] Svc({dt or 'float32'}) loaded in {time.time() - t0:.2f}s")
+    # warm up each Svc once on a short clip (cuDNN/cuFFT plans, allocator)
+    for svc in svcs.values():
+        svc.infer(wavs[0], key=0, acc=ACC, use_pe=False, use_crepe=False)
+    torch.cuda.synchronize()
+
+    for mod in counters.values():
+        mod.launches = 0
+    for dt, svc in svcs.items():
+        for fn, (secs, _, _) in zip(wavs, CLIPS):
+            out_fn = fn[:-4] + f"_{dt or 'f32'}_out.wav"
+            t0 = time.time()
+            _, f0_pred, audio = infer_cli.run_clip(
+                svc, key=0, acc=ACC, use_pe=False, use_crepe=False,
+                thre=0.05, use_gt_mel=False, add_noise_step=500,
+                file_path=fn, out_path=out_fn)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            src, _ = load_wav(fn)
+            got, got_sr = load_wav(out_fn)
+            audio = np.asarray(audio, np.float32)
+            rec = {"dtype": dt or "float32", "secs": secs, "wall_s": wall,
+                   "rtf": wall / secs, "out_len": len(got),
+                   "in_len": len(src), "peak": float(np.abs(audio).max()),
+                   "timings_last_chunk": dict(svc.timings)}
+            log(f"[slice] {rec['dtype']} clip {secs:.1f}s: wall={wall:.3f}s "
+                f"rtf={rec['rtf']:.4f} peak={rec['peak']:.3f} "
+                f"phases={ {k: round(v, 4) for k, v in svc.timings.items()} }")
+            if got_sr != sr or len(got) != len(src) or len(audio) != len(src):
+                raise SmokeError(f"output length {len(got)} != input {len(src)}")
+            if not np.isfinite(audio).all():
+                raise SmokeError("non-finite output audio")
+            if rec["peak"] < 1e-3:
+                raise SmokeError("silent output audio")
+            results["clips"].append(rec)
+    launches = {name: mod.launches for name, mod in counters.items()}
+    results["launches"] = launches
+    log(f"[slice] kernel launches on the main path: {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise SmokeError(f"kernel {name} was not launched on the main path")
+    results["cpu_agreement"] = cpu_agreement(svcs[""], cfg_fn, ckpt, wavs[0])
+    results["profile"] = {
+        dt or "float32": profile_clip(svc, wavs[-1], wavs[-1][:-4] + "_prof.wav")
+        for dt, svc in svcs.items()}
+    return results
+
+
+def profile_clip(svc, wav_fn, out_fn):
+    """Where the time goes: torch.profiler over one run_clip.  Device busy
+    time is the union of the card's kernel and copy intervals; the busy
+    share is that over the profiled wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from diffsvc_tpu_torch import infer_cli
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        infer_cli.run_clip(svc, key=0, acc=ACC, use_pe=False,
+                           use_crepe=False, thre=0.05, use_gt_mel=False,
+                           add_noise_step=500, file_path=wav_fn,
+                           out_path=out_fn)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        tot = by_name.setdefault(e.name, [0.0, 0])
+        tot[0] += (e.time_range.end - e.time_range.start) / 1e3
+        tot[1] += 1
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    res = {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+           "busy_share": busy_us / 1e6 / wall, "device_events": len(spans),
+           "top": sorted(([k, v[0], v[1]] for k, v in by_name.items()),
+                         key=lambda r: -r[1])[:8]}
+    log(f"[profile] {svc.hp['diff_compute_dtype'] or 'float32'} "
+        f"run_clip: wall={wall:.3f}s device_busy={res['device_busy_ms']:.1f}ms "
+        f"busy_share={res['busy_share']:.3f} ({len(spans)} device events)")
+    for name, ms, n in res["top"]:
+        log(f"[profile]   {ms:9.2f} ms {n:6d}x {name[:110]}")
+    return res
+
+
+@contextlib.contextmanager
+def zeroed(*params):
+    """Parameters set to zero for the duration of the block."""
+    import torch
+
+    saved = [p.detach().clone() for p in params]
+    with torch.no_grad():
+        for p in params:
+            p.zero_()
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for p, v in zip(params, saved):
+                p.copy_(v)
+
+
+def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
+    """The same short f32 conversion on the card and on the CPU (plain
+    versions), with the sampler noise and the NSF source draws shared.  As
+    for the ladder, the waveforms are compared on what the denoiser put in
+    them: each minus the CPU's conversion with eps = 0 (output projection
+    zeroed).  They must agree to SLICE_TOL (f32 sums in other orders through
+    ~1000 denoiser layers and the vocoder), and the card's conversion with
+    the denoiser's skip-projection bias dropped must not."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu.utils.audio_io import load_wav, save_wav
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    secs = 0.5
+    wav, sr = load_wav(wav_fn)
+    short = wav_fn[:-4] + "_short.wav"
+    save_wav(wav[: int(secs * sr)], short, sr)
+    svc_cpu = Svc("proj", cfg_fn, False, ckpt, device="cpu")
+    batch = svc_cpu.pre(short, ACC, use_crepe=False)
+    t_mel = batch["mels"].shape[1]
+    g = torch.Generator().manual_seed(3)
+    noise = torch.randn(1, t_mel, svc_cpu.mel_bins, generator=g)
+    n_real = int((np.abs(batch["mels"][0]).sum(-1) > 0).sum())
+    hop = int(svc_cpu.hp["hop_size"])
+    randoms = draw_randoms(1, n_real * hop, svc_cpu.vocoder.cfg.harmonic_num, g)
+
+    def convert(svc):
+        dev_randoms = tuple(r.to(svc.device) for r in randoms)
+        _, _, out = svc.infer(short, key=0, acc=ACC, use_pe=False,
+                              use_crepe=False, init_noise=noise,
+                              voc_randoms=dev_randoms)
+        return torch.from_numpy(np.asarray(out, np.float32))
+
+    ref = convert(svc_cpu)
+    out_proj = svc_cpu.model.denoise_fn.output_projection
+    with zeroed(out_proj.weight, out_proj.bias):
+        base = convert(svc_cpu)
+    got = convert(svc_dev)
+    with zeroed(svc_dev.model.denoise_fn.skip_projection.bias):
+        fault = convert(svc_dev)
+    res = {"rel_l2": rel_l2(got - base, ref - base),
+           "wav_rel_l2": rel_l2(got, ref), "eps_share": rel_l2(ref, base),
+           "max_abs_err": float((got - ref).abs().max()),
+           "fault_rel_l2": rel_l2(fault - base, ref - base),
+           "tol_rel_l2": SLICE_TOL, "secs": secs}
+    log(f"[slice] f32 card vs CPU on {secs}s: rel_l2={res['rel_l2']:.3e} "
+        f"(tol {SLICE_TOL:g}; waveform itself {res['wav_rel_l2']:.3e}, eps "
+        f"part of it {res['eps_share']:.3e}) max_abs={res['max_abs_err']:.3e}"
+        f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]")
+    if not res["rel_l2"] <= SLICE_TOL:
+        raise SmokeError(f"card and CPU conversions disagree: {res}")
+    if not res["fault_rel_l2"] > SLICE_TOL:
+        raise SmokeError(f"the planted fault passes the card-vs-CPU check: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0:
+        raise SmokeError(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default="", help="write the full record (JSON)")
+    args = ap.parse_args(argv)
+    if not os.path.isdir(os.path.join(ROOT, "diffsvc_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(diffsvc_tpu_torch/ not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
+              "GPU", file=sys.stderr)
+        return 3
+    record = {}
+    try:
+        card = card_line()
+        log(f"[card] {card}; torch {torch.__version__} cuda "
+            f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        device = torch.device("cuda", 0)
+
+        from diffsvc_tpu_torch.ops.hopper import _build
+
+        t0 = time.time()
+        _build.lib()
+        record["build_s"] = time.time() - t0
+        log(f"[build] kernels ready in {record['build_s']:.2f}s "
+            f"(nvcc {_build.build_seconds})")
+        for line in _build.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas] {line.strip()}")
+
+        record["kernels"] = phase_kernels(device)
+        with tempfile.TemporaryDirectory() as tmp:
+            cwd = os.getcwd()
+            os.chdir(tmp)     # Svc keeps its ./infer_tools caches here
+            try:
+                record["slice"] = phase_slice(device, tmp)
+            finally:
+                os.chdir(cwd)
+        torch.cuda.synchronize()
+    except SmokeError as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    entries = []
+    launches = record["slice"]["launches"]
+    for name, (src, replaces) in KERNELS.items():
+        by_dt = record["kernels"][name]
+        main_dt = "bf16" if "bf16" in by_dt else "f32"
+        main = by_dt[main_dt]
+        measured = ("max_abs_err", "rel_l2", "ms", "plain_ms")
+        entries.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": main["max_abs_err"],
+                        "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "dtype": main_dt,
+                        "by_dtype": {dt: {k: r[k] for k in measured}
+                                     for dt, r in by_dt.items()}})
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump({"card": card, **record}, f, indent=1)
+    print(json.dumps({"kernels": entries}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,244 @@
+"""Svc — the end-to-end inference facade.
+
+Counterpart of ``diffsvc_tpu/infer/svc.py`` (reference
+``infer_tools/infer_tool.py:104-335``): ``Svc(project_name, config_name,
+hubert_gpu, model_path)`` loads the diffusion model, HuBERT-soft and the
+vocoder onto ``device`` (the card when there is one); ``infer(in_path, key,
+acc, ...)`` runs feature extraction -> key shift (+key/12 in log2, ceiling
+zeroing) -> sampling -> vocoder and returns (f0_gt, f0_pred, wav_pred).
+
+Not ported yet: pe and CREPE, so ``use_crepe`` defaults to False here (the
+JAX facade defaults to True).  Asking for CREPE raises NotImplementedError
+unless the md5 f0 cache holds the clip's CREPE track; asking for pe raises
+when pe weights are configured (without them the JAX package, too, keeps
+the conditioner's f0).  Batched and fused serving are not ported either.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from ..config import set_hparams
+from ..data import features
+from ..models.diffusion import GaussianDiffusion
+from ..ops.pitch import denorm_f0
+from ..utils import convert
+from ..vocoders.base import get_vocoder_cls
+from .hubert_encoder import Hubertencoder
+
+F0_CACHE_PATH = "./infer_tools/f0_temp.json"
+
+
+def read_temp(file_name: str) -> dict:
+    """JSON disk cache with 50 MB / 14-day eviction (infer_tool.py:29-49)."""
+    if not os.path.exists(file_name):
+        os.makedirs(os.path.dirname(file_name) or ".", exist_ok=True)
+        with open(file_name, "w") as f:
+            f.write(json.dumps({"info": "temp_dict"}))
+        return {}
+    try:
+        with open(file_name) as f:
+            data_dict = json.loads(f.read())
+        if os.path.getsize(file_name) > 50 * 1024 * 1024:
+            print(f"clean {os.path.basename(file_name)}")
+            for wav_hash in list(data_dict.keys()):
+                item = data_dict[wav_hash]
+                if isinstance(item, dict) and \
+                        int(time.time()) - int(item.get("time", 0)) > 14 * 24 * 3600:
+                    del data_dict[wav_hash]
+    except (OSError, ValueError) as e:
+        print(e, f"{file_name} error, auto rebuild file")
+        data_dict = {"info": "temp_dict"}
+    return data_dict
+
+
+def write_temp(file_name: str, data: dict) -> None:
+    with open(file_name, "w") as f:
+        f.write(json.dumps(data))
+
+
+def get_md5(content) -> str:
+    return hashlib.new("md5", content).hexdigest()
+
+
+def default_device() -> torch.device:
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
+class Svc:
+    def __init__(self, project_name: str, config_name: str, hubert_gpu: bool,
+                 model_path: str, pad_multiple: int = 256, device=None):
+        self.project_name = project_name
+        self.model_path = model_path
+        self.pad_multiple = pad_multiple
+        self.device = torch.device(device) if device is not None \
+            else default_device()
+        self.hp = set_hparams(config=config_name, exp_name=project_name,
+                              infer=True, reset=True, hparams_str="",
+                              print_hparams=False)
+        self.hp["hubert_gpu"] = hubert_gpu
+        self.mel_bins = self.hp["audio_num_mel_bins"]
+        self.model = GaussianDiffusion(self.hp)
+        convert.load_reference_state(
+            self.model, convert.load_ckpt_state_dict(model_path))
+        self.model.to(self.device).eval()
+        self.hubert = Hubertencoder(
+            self.hp["hubert_path"], hp=self.hp,
+            device=self.device if hubert_gpu else "cpu")
+        pe_ckpt = self.hp.get("pe_ckpt", "")
+        # the JAX facade loads pe when its checkpoint directory exists
+        self.pe_configured = bool(pe_ckpt) and os.path.exists(
+            pe_ckpt.split("/model_ckpt")[0])
+        self.vocoder = get_vocoder_cls(self.hp)(self.hp, device=self.device)
+        self.f0_dict = read_temp(F0_CACHE_PATH)
+        self.spk_map = {}
+        if self.hp.get("use_spk_id"):
+            smp = os.path.join(str(self.hp.get("binary_data_dir", "")),
+                               "spk_map.json")
+            if os.path.exists(smp):
+                with open(smp, encoding="utf-8") as f:
+                    self.spk_map = json.load(f)
+        self.timings = {}   # seconds per phase of the last infer()
+
+    # ------------------------------------------------------------------
+    def infer(self, in_path, key: int, acc: int, use_pe=True, use_crepe=False,
+              thre=0.05, singer=False, seed=0, **kwargs):
+        """Convert one clip.  ``init_noise`` ([1, T, M]) and ``voc_randoms``
+        (generator.draw_randoms output) may be passed to fix the sampler's
+        and the NSF source's noise; otherwise both come from ``seed``."""
+        if use_pe and self.pe_configured:
+            raise NotImplementedError("pe is not ported to torch yet; pass "
+                                      "use_pe=False")
+        self.timings = {}
+        batch = self.pre(in_path, acc, use_crepe, thre,
+                         spk_id=kwargs.get("spk_id"))
+        # key shift in log2 with ceiling zeroing (infer_tool.py:149-150)
+        batch["f0"] = batch["f0"] + (key / 12)
+        batch["f0"][batch["f0"] > np.log2(self.hp["f0_max"])] = 0
+
+        dev = self.device
+        tb = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+              for k in ("hubert", "mels", "mel2ph", "energy", "f0", "uv")}
+        if self.hp.get("use_spk_id") and "spk_ids" in batch:
+            tb["spk_embed"] = torch.from_numpy(batch["spk_ids"]).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        init_noise = kwargs.get("init_noise")
+        if init_noise is not None:
+            init_noise = torch.as_tensor(init_noise, dtype=torch.float32)
+        t0 = time.time()
+        outputs = self.model.infer(
+            tb, speedup=int(acc),
+            use_gt_mel=bool(kwargs.get("use_gt_mel", False)),
+            add_noise_step=int(kwargs.get("add_noise_step", 500)),
+            init_noise=init_noise, generator=gen)
+        mel_out = outputs["mel_out"].cpu().numpy()
+        self.timings["diffusion"] = time.time() - t0
+        print(f"executing 'diff_infer' costed {self.timings['diffusion']:.3f}s")
+
+        batch["outputs"] = mel_out
+        batch["f0_gt"] = denorm_f0(
+            batch["f0"], batch["uv"], pitch_norm=self.hp.get("pitch_norm", "log"),
+            use_uv=self.hp.get("use_uv", False),
+            f0_mean=float(self.hp.get("f0_mean", 0.0) or 0.0),
+            f0_std=float(self.hp.get("f0_std", 1.0) or 1.0))
+        batch["f0_pred"] = outputs["f0_denorm"].cpu().numpy()
+        return self.after_infer(batch, singer, in_path, seed=seed,
+                                voc_randoms=kwargs.get("voc_randoms"))
+
+    def after_infer(self, prediction, singer=False, in_path="", seed=0,
+                    voc_randoms=None):
+        """Unpad by the nonzero-mel mask, clip, vocode (infer_tool.py:171-201)."""
+        mel_gt = prediction["mels"][0] if prediction["mels"].ndim == 3 \
+            else prediction["mels"]
+        mel_gt_mask = np.abs(mel_gt).sum(-1) > 0
+        mel_pred = prediction["outputs"][0] if prediction["outputs"].ndim == 3 \
+            else prediction["outputs"]
+        mel_pred_mask = np.abs(mel_pred).sum(-1) > 0
+        mel_pred = np.clip(mel_pred[mel_pred_mask], self.hp["mel_vmin"],
+                           self.hp["mel_vmax"])
+        f0_gt = prediction.get("f0_gt")
+        if f0_gt is not None:
+            f0_gt = (f0_gt[0] if f0_gt.ndim == 2 else f0_gt)[mel_gt_mask]
+        f0_pred = prediction["f0_pred"]
+        f0_pred = f0_pred[0] if f0_pred.ndim == 2 else f0_pred
+        f0_pred = f0_pred[: len(mel_pred_mask)][mel_pred_mask]
+        if singer:
+            data_path = str(in_path).replace("batch", "singer_data")
+            np.save(data_path[:-4] + "_mel.npy", mel_pred)
+            np.save(data_path[:-4] + "_f0.npy", f0_pred)
+        t0 = time.time()
+        wav_pred = self.vocoder.spec2wav(mel_pred, f0=f0_pred, seed=seed,
+                                         randoms=voc_randoms)
+        self.timings["vocoder"] = time.time() - t0
+        print(f"executing 'after_infer' costed {self.timings['vocoder']:.3f}s")
+        return f0_gt, f0_pred, wav_pred
+
+    # ------------------------------------------------------------------
+    def _cached_pitch(self, wav, mel, use_crepe: bool):
+        if use_crepe:
+            md5 = get_md5(wav)
+            if f"{md5}_gt" in self.f0_dict:
+                print("load temp crepe f0")
+                return (np.array(self.f0_dict[f"{md5}_gt"]["f0"]),
+                        np.array(self.f0_dict[f"{md5}_coarse"]["f0"]))
+        return features.get_pitch(wav, mel, self.hp, use_crepe)
+
+    def temporary_dict2processed_input(self, item_name, temp_dict,
+                                       use_crepe=False, thre=0.05):
+        hp = self.hp
+        t0 = time.time()
+        wav, mel = features.wav2spec_for(hp, temp_dict["wav_fn"], self.device)
+        self.timings["mel"] = time.time() - t0
+        processed = {"item_name": item_name, "mel": mel,
+                     "sec": len(wav) / hp["audio_sample_rate"],
+                     "len": mel.shape[0], **temp_dict}
+        ba = hp.get("binarization_args", {})
+        if ba.get("with_f0", True):
+            t0 = time.time()
+            processed["f0"], processed["pitch"] = self._cached_pitch(
+                wav, mel, use_crepe)
+            self.timings["f0"] = time.time() - t0
+            print(f"executing 'get_pitch' costed {self.timings['f0']:.3f}s")
+        if ba.get("with_hubert", True):
+            t0 = time.time()
+            processed["hubert"] = self.hubert.encode(temp_dict["wav_fn"])
+            self.timings["hubert"] = time.time() - t0
+            print(f"hubert time used {self.timings['hubert']:.3f}")
+            if ba.get("with_align", True):
+                processed["mel2ph"] = features.get_align_uniform(
+                    mel.shape[0], processed["hubert"].shape[0])
+        return processed
+
+    def resolve_spk_id(self, spk_id=None) -> int:
+        """Explicit int wins; else project_name / speaker_id through the
+        binarizer's spk_map; else 0."""
+        if spk_id is not None and not isinstance(spk_id, str):
+            return int(spk_id)
+        for name in (spk_id, self.project_name, self.hp.get("speaker_id")):
+            if name is None:
+                continue
+            if isinstance(name, str) and name in self.spk_map:
+                return int(self.spk_map[name])
+            if not isinstance(name, str):
+                return int(name)
+        return 0
+
+    def pre(self, wav_fn, accelerate, use_crepe=False, thre=0.05, spk_id=None):
+        if isinstance(wav_fn, io.BytesIO):
+            item_name = self.project_name
+        else:
+            item_name = os.path.splitext(os.path.basename(str(wav_fn)))[0]
+        temp_dict = {"wav_fn": wav_fn, "spk_id": self.resolve_spk_id(spk_id)}
+        processed = self.temporary_dict2processed_input(
+            item_name, temp_dict, use_crepe, thre)
+        self.hp["pndm_speedup"] = accelerate
+        sample = features.getitem(processed, self.hp)
+        return features.processed_input2batch(
+            [sample], self.hp, pad_multiple=self.pad_multiple)

@@ -1,0 +1,149 @@
+"""Batch inference CLI: slice long audio at silences, convert each chunk,
+concatenate (counterpart of the repository's ``infer.py``; reference
+``infer.py``).
+
+Usage:
+    python -m diffsvc_tpu_torch.infer_cli --project <name> \\
+        --model checkpoints/<name>/model_ckpt_steps_N.ckpt \\
+        --config checkpoints/<name>/config.yaml --files song.wav --key 0
+
+CREPE is not ported yet, so the AC tracker is the default here (infer.py
+defaults to CREPE): ``--no_crepe`` is accepted and changes nothing, and
+``--crepe`` raises NotImplementedError.  Not ported yet either: ``--fused``,
+``--batch_chunks``, ``--crossfade_ms``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import io
+import os
+import time
+from pathlib import Path
+
+import numpy as np
+from scipy.io import wavfile
+
+from diffsvc_tpu.utils.audio_io import format_wav, load_wav, save_wav
+
+from .infer import slicer
+from .infer.svc import Svc, get_md5, read_temp, write_temp
+
+CHUNKS_CACHE = "./infer_tools/new_chunks_temp.json"
+
+
+def run_clip(svc_model, key, acc, use_pe, use_crepe, thre, use_gt_mel,
+             add_noise_step, project_name="", f_name=None, file_path=None,
+             out_path=None, slice_db=-40, audio_format="wav", step=0,
+             seed=0):
+    """Convert one file chunk by chunk; returns (f0_gt, f0_pred, audio) and
+    writes the wav to ``out_path`` (default ./results/...)."""
+    hp = svc_model.hp
+    use_pe = use_pe if hp["audio_sample_rate"] == 24000 else False
+    raw_audio_path = f"./raw/{f_name}" if file_path is None else file_path
+    clean_name = Path(raw_audio_path).stem
+    wav_path = format_wav(raw_audio_path)
+
+    chunks_dict = read_temp(CHUNKS_CACHE)
+    audio, _ = load_wav(wav_path, mono=True)
+    wav_hash = get_md5(audio)
+    if wav_hash in chunks_dict:
+        print("load chunks from temp")
+        chunks = chunks_dict[wav_hash]["chunks"]
+    else:
+        chunks = slicer.cut(wav_path, db_thresh=slice_db)
+    chunks_dict[wav_hash] = {"chunks": chunks, "time": int(time.time())}
+    write_temp(CHUNKS_CACHE, chunks_dict)
+    audio_data, audio_sr = slicer.chunks2audio(wav_path, chunks)
+
+    f0_tst, f0_pred, out_audio = [], [], []
+    for slice_tag, data in audio_data:
+        print(f"#=====segment start, {round(len(data) / audio_sr, 3)}s======")
+        # output samples for this chunk: ceil(len * sr_out / sr_in) in
+        # integers (the float form of infer.py can add a sample per chunk,
+        # e.g. 44000 / 8000 * 8000 = 44000.000000000004)
+        length = -(-len(data) * int(hp["audio_sample_rate"]) // int(audio_sr))
+        if slice_tag:
+            print("jump empty segment")
+            n_frames = int(np.ceil(length / hp["hop_size"]))
+            _f0_tst, _f0_pred, _audio = (np.zeros(n_frames), np.zeros(n_frames),
+                                         np.zeros(length))
+        else:
+            buf = io.BytesIO()
+            wavfile.write(buf, audio_sr, data.astype(np.float32))
+            buf.seek(0)
+            _f0_tst, _f0_pred, _audio = svc_model.infer(
+                buf, key=key, acc=acc, use_pe=use_pe, use_crepe=use_crepe,
+                thre=thre, use_gt_mel=use_gt_mel,
+                add_noise_step=add_noise_step, seed=seed)
+        # mean-fill length fix (reference infer.py:61-66)
+        fix_audio = np.full(length, np.mean(_audio) if len(_audio) else 0.0)
+        fix_audio[: len(_audio)] = _audio[0 if len(_audio) < len(fix_audio)
+                                          else len(_audio) - len(fix_audio):]
+        f0_tst.extend(_f0_tst)
+        f0_pred.extend(_f0_pred)
+        out_audio.extend(list(fix_audio))
+
+    if audio_format != "wav":
+        print(f"| WARNING: only wav output is supported; writing wav "
+              f"(requested {audio_format})")
+        audio_format = "wav"
+    if out_path is None:
+        out_path = (f"./results/{clean_name}_{key}key_{project_name}_"
+                    f"{hp['residual_channels']}_{hp['residual_layers']}_"
+                    f"{int(step / 1000)}k_{acc}x.{audio_format}")
+    save_wav(np.asarray(out_audio), out_path, hp["audio_sample_rate"])
+    print(f"| wrote {out_path}")
+    return np.array(f0_tst), np.array(f0_pred), out_audio
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description="diffsvc_tpu_torch inference")
+    ap.add_argument("--project", required=True)
+    ap.add_argument("--model", default=None)
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--files", nargs="+", required=True,
+                    help="wav files under ./raw or absolute paths")
+    ap.add_argument("--key", type=int, nargs="+", default=[0])
+    ap.add_argument("--acc", type=int, default=None,
+                    help="sampler speedup (default: the config's pndm_speedup)")
+    ap.add_argument("--slice_db", type=float, default=-40)
+    ap.add_argument("--no_pe", action="store_true")
+    crepe = ap.add_mutually_exclusive_group()
+    crepe.add_argument("--crepe", action="store_true",
+                       help="CREPE f0 (not ported yet: raises)")
+    crepe.add_argument("--no_crepe", action="store_true",
+                       help="the AC f0 tracker (the default)")
+    ap.add_argument("--thre", type=float, default=0.05)
+    ap.add_argument("--use_gt_mel", action="store_true")
+    ap.add_argument("--add_noise_step", type=int, default=500)
+    ap.add_argument("--format", default="wav")
+    args = ap.parse_args(argv)
+
+    model_path = args.model or f"./checkpoints/{args.project}/"
+    config_path = args.config or f"./checkpoints/{args.project}/config.yaml"
+    step = 0
+    if args.model and "steps_" in args.model:
+        step = int(args.model.split("_")[-1].split(".")[0])
+    for d in ("./raw", "./results", "./infer_tools"):
+        os.makedirs(d, exist_ok=True)
+    keys = list(args.key)
+    keys.extend([keys[0]] * (len(args.files) - len(keys)))
+
+    model = Svc(args.project, config_path, True, model_path)
+    acc = args.acc if args.acc is not None else int(
+        model.hp.get("pndm_speedup", 20) or 20)
+    for f_name, key in zip(args.files, keys):
+        file_path = f_name if os.path.isabs(f_name) or os.path.exists(f_name) \
+            else None
+        run_clip(model, key=key, acc=acc, use_pe=not args.no_pe,
+                 use_crepe=args.crepe, thre=args.thre,
+                 use_gt_mel=args.use_gt_mel,
+                 add_noise_step=args.add_noise_step,
+                 f_name=os.path.basename(f_name), file_path=file_path,
+                 project_name=args.project, slice_db=args.slice_db,
+                 audio_format=args.format, step=step)
+
+
+if __name__ == "__main__":
+    main()

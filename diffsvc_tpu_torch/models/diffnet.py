@@ -1,0 +1,160 @@
+"""DiffNet — the non-causal WaveNet denoiser.
+
+Counterpart of ``diffsvc_tpu/models/diffnet.py`` (reference
+``network/diff/net.py:58-135``): 1x1 input projection -> ReLU -> L gated
+residual blocks (dilated conv k=3, dilation 2^(i % cycle), diffusion-step
+add, 1x1 conditioner add) -> skip-sum/sqrt(L) -> 1x1 -> ReLU -> 1x1.
+
+The module keeps the reference parameter names
+(``residual_layers.{i}.dilated_conv.weight`` ...), so reference state dicts
+load with ``load_state_dict``.  The math runs on layer-stacked weights in the
+JAX package's layouts (:meth:`DiffNet.stacked`), and the residual stack goes
+through K1 (``ops/hopper/diffnet_stack.py``): the kernel for CUDA tensors,
+its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ..ops.hopper import diffnet_stack
+from . import nn as fnn
+
+
+class ResidualBlock(nn.Module):
+    def __init__(self, encoder_hidden: int, residual_channels: int,
+                 dilation: int):
+        super().__init__()
+        c = residual_channels
+        self.dilated_conv = nn.Conv1d(c, 2 * c, 3, padding=dilation,
+                                      dilation=dilation)
+        self.diffusion_projection = nn.Linear(c, c)
+        self.conditioner_projection = nn.Conv1d(encoder_hidden, 2 * c, 1)
+        self.output_projection = nn.Conv1d(c, 2 * c, 1)
+
+
+class DiffNet(nn.Module):
+    def __init__(self, in_dims: int = 80, encoder_hidden: int = 256,
+                 residual_layers: int = 20, residual_channels: int = 256,
+                 dilation_cycle_length: int = 4):
+        super().__init__()
+        if residual_layers % dilation_cycle_length:
+            raise ValueError("residual_layers must be a multiple of "
+                             "dilation_cycle_length")
+        c = residual_channels
+        self.in_dims = in_dims
+        self.residual_channels = c
+        self.n_layers = residual_layers
+        self.cycle = dilation_cycle_length
+        self.input_projection = nn.Conv1d(in_dims, c, 1)
+        self.mlp = nn.Sequential(nn.Linear(c, c * 4), nn.Mish(),
+                                 nn.Linear(c * 4, c))
+        self.residual_layers = nn.ModuleList([
+            ResidualBlock(encoder_hidden, c, 2 ** (i % dilation_cycle_length))
+            for i in range(residual_layers)])
+        self.skip_projection = nn.Conv1d(c, c, 1)
+        self.output_projection = nn.Conv1d(c, in_dims, 1)
+        self._stacked = {}
+
+    @classmethod
+    def from_hparams(cls, hp) -> "DiffNet":
+        return cls(in_dims=hp["audio_num_mel_bins"],
+                   encoder_hidden=hp["hidden_size"],
+                   residual_layers=hp["residual_layers"],
+                   residual_channels=hp["residual_channels"],
+                   dilation_cycle_length=hp["dilation_cycle_length"])
+
+    @torch.no_grad()
+    def stacked(self, dtype: torch.dtype = torch.float32) -> dict:
+        """Weights in the JAX package's layouts, cast to ``dtype`` and
+        stacked over layers: win [M,C], wd [L,3,C,2C], wc [L,H,2C],
+        wo [L,C,2C], dp_w [L,C,C] (in, out), wskip [C,C], wout [C,M], the
+        step MLP in torch Linear layout.  Cached until a weight changes."""
+        version = tuple(p._version for p in self.parameters())
+        key = (dtype, self.input_projection.weight.device)
+        hit = self._stacked.get(key)
+        if hit is not None and hit[0] == version:
+            return hit[1]
+        rl = self.residual_layers
+
+        def st(get):
+            return torch.stack([get(layer) for layer in rl])
+
+        p = {
+            "win": self.input_projection.weight[:, :, 0].t(),
+            "bin": self.input_projection.bias,
+            "w1": self.mlp[0].weight, "b1": self.mlp[0].bias,
+            "w2": self.mlp[2].weight, "b2": self.mlp[2].bias,
+            "dp_w": st(lambda m: m.diffusion_projection.weight.t()),
+            "dp_b": st(lambda m: m.diffusion_projection.bias),
+            "wd": st(lambda m: m.dilated_conv.weight.permute(2, 1, 0)),
+            "bd": st(lambda m: m.dilated_conv.bias),
+            "wc": st(lambda m: m.conditioner_projection.weight[:, :, 0].t()),
+            "bc": st(lambda m: m.conditioner_projection.bias),
+            "wo": st(lambda m: m.output_projection.weight[:, :, 0].t()),
+            "bo": st(lambda m: m.output_projection.bias),
+            "wskip": self.skip_projection.weight[:, :, 0].t(),
+            "bskip": self.skip_projection.bias,
+            "wout": self.output_projection.weight[:, :, 0].t(),
+            "bout": self.output_projection.bias,
+        }
+        p = {k: v.detach().to(dtype).contiguous() for k, v in p.items()}
+        self._stacked[key] = (version, p)
+        return p
+
+    def forward(self, spec, diffusion_step, cond=None, cond_proj=None):
+        return apply(self, spec, diffusion_step, cond, cond_proj)
+
+
+def prepare_cond(net: DiffNet, cond: torch.Tensor) -> torch.Tensor:
+    """Project the conditioner through every layer's 1x1 conv at once (f32
+    weights): cond [B, T, H] -> [L, B, T, 2C].  Samplers call it once per
+    clip; the result is constant across the sampling loop."""
+    p = net.stacked(torch.float32)
+    return (torch.einsum("bth,lhc->lbtc", cond.float(), p["wc"])
+            + p["bc"][:, None, None, :])
+
+
+def step_embedding(p: dict, t: torch.Tensor, c: int) -> torch.Tensor:
+    """Diffusion-step MLP: [N] int steps -> [N, C] f32, computed in f32 with
+    the compute-dtype weights (as JAX promotes bf16 weights against the f32
+    sinusoidal embedding)."""
+    x = fnn.sinusoidal_pos_emb(t, c)
+    x = fnn.mish(fnn.linear(x, p["w1"].float(), p["b1"].float()))
+    return fnn.linear(x, p["w2"].float(), p["b2"].float())
+
+
+def step_bias(p: dict, step: torch.Tensor, dtype) -> torch.Tensor:
+    """Per-layer step bias: step [N, C] -> [L, N, C] in ``dtype``."""
+    step = step.to(dtype).float()
+    return (torch.einsum("nc,lcd->lnd", step, p["dp_w"].float())
+            + p["dp_b"].float()[:, None, :]).to(dtype)
+
+
+def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None):
+    """Predict noise.  The compute dtype is ``spec.dtype`` (f32 or bf16).
+
+    :param spec: [B, T, M] noisy mel
+    :param diffusion_step: [B] int timestep
+    :param cond: [B, T, H] conditioner, or a precomputed ``cond_proj``
+        [L, B, T, 2C]
+    :return: [B, T, M] noise prediction in the compute dtype
+    """
+    dt = spec.dtype
+    p = net.stacked(dt)
+    c, n_layers = net.residual_channels, net.n_layers
+    x = torch.relu(spec.float() @ p["win"].float() + p["bin"].float()).to(dt)
+    step = step_embedding(p, diffusion_step, c)
+    sb = step_bias(p, step, dt)                                  # [L, B, C]
+    if cond_proj is None:
+        cond_proj = prepare_cond(net, cond)
+    cond_proj = cond_proj.to(dt).contiguous()
+    skip = diffnet_stack.residual_stack(
+        x.contiguous(), sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"],
+        cycle=net.cycle)
+    x = (skip * (1.0 / math.sqrt(n_layers))).to(dt)
+    x = torch.relu(x.float() @ p["wskip"].float() + p["bskip"].float()).to(dt)
+    return (x.float() @ p["wout"].float() + p["bout"].float()).to(dt)

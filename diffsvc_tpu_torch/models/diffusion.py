@@ -1,0 +1,294 @@
+"""Gaussian diffusion over normalized mel spectrograms — inference subset.
+
+Counterpart of ``diffsvc_tpu/models/diffusion.py`` (reference
+``network/diff/diffusion.py``): the beta schedules and derived tables,
+norm/denorm, q_sample, the PLMS and DPM-Solver++(2M) samplers, optional
+``sampler_clip_x0`` and ``GaussianDiffusion.infer``.
+
+Sampling runs through K2 (``ops/hopper/plms_ladder.py``): every denoiser
+evaluation and the sampler update as one table-driven program — the Hopper
+kernels for CUDA tensors, their plain version for CPU tensors.  The
+step-by-step samplers :func:`p_sample_plms_scan` and
+:func:`p_sample_dpmpp_2m_scan` are the same samplers written the way the
+reference writes them; the tests hold the ladder against them.
+DDPM (``acc <= 1``) and training are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.hopper import plms_ladder as _pl
+from . import diffnet
+from .fs2 import FastSpeech2
+
+DPMPP_NAMES = ("dpmpp", "dpm++", "dpm_solver")
+
+
+def linear_beta_schedule(timesteps: int, max_beta: float = 0.01) -> np.ndarray:
+    return np.linspace(1e-4, max_beta, timesteps)
+
+
+def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
+    steps = timesteps + 1
+    x = np.linspace(0, steps, steps)
+    alphas_cumprod = np.cos(((x / steps) + s) / (1 + s) * np.pi * 0.5) ** 2
+    alphas_cumprod = alphas_cumprod / alphas_cumprod[0]
+    betas = 1 - (alphas_cumprod[1:] / alphas_cumprod[:-1])
+    return np.clip(betas, 0, 0.999)
+
+
+def make_tables(timesteps: int, schedule_type: str = "cosine",
+                max_beta: float = 0.01) -> dict:
+    """The derived schedule tables the samplers use, computed in float64
+    and stored float32 (numpy) exactly like the JAX package."""
+    if schedule_type == "linear":
+        betas = linear_beta_schedule(timesteps, max_beta)
+    else:
+        betas = cosine_beta_schedule(timesteps)
+    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    t = {
+        "betas": betas,
+        "alphas_cumprod": alphas_cumprod,
+        "sqrt_alphas_cumprod": np.sqrt(alphas_cumprod),
+        "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - alphas_cumprod),
+    }
+    return {k: v.astype(np.float32) for k, v in t.items()}
+
+
+def norm_spec(x, spec_min, spec_max):
+    return (x - spec_min) / (spec_max - spec_min) * 2.0 - 1.0
+
+
+def denorm_spec(x, spec_min, spec_max):
+    return (x + 1.0) / 2.0 * (spec_max - spec_min) + spec_min
+
+
+def _extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    out = table[t]
+    return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+def q_sample(tables: dict, x_start, t, noise):
+    """tables: torch float32 tensors on x_start's device; t: [B] int."""
+    return (_extract(tables["sqrt_alphas_cumprod"], t, x_start.ndim) * x_start
+            + _extract(tables["sqrt_one_minus_alphas_cumprod"], t,
+                       x_start.ndim) * noise)
+
+
+def _plms_x_pred(ac: torch.Tensor, x, noise_t, t: int, interval: int):
+    """PLMS transfer function (reference diffusion.py:169-177)."""
+    a_t = ac[t]
+    a_prev = ac[max(t - interval, 0)]
+    a_t_sq, a_prev_sq = torch.sqrt(a_t), torch.sqrt(a_prev)
+    x_delta = (a_prev - a_t) * (
+        (1.0 / (a_t_sq * (a_t_sq + a_prev_sq))) * x
+        - 1.0 / (a_t_sq * (torch.sqrt((1 - a_prev) * a_t)
+                           + torch.sqrt((1 - a_t) * a_prev))) * noise_t)
+    return x + x_delta
+
+
+def p_sample_plms_scan(tables: dict, denoise_fn, x, t_start: int,
+                       interval: int):
+    """PLMS/PNDM: steps over reversed(range(0, t_start, interval)) with the
+    Adams-Bashforth order ramp 1->4 and the order-1 double evaluation."""
+    ac = tables["alphas_cumprod"]
+    n_steps = max(-(-t_start // interval), 1)
+    hist = []   # newest first
+    for k in range(n_steps):
+        t = (n_steps - 1 - k) * interval
+        tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+        noise_pred = denoise_fn(x, tb)
+        if not hist:
+            x_pred = _plms_x_pred(ac, x, noise_pred, t, interval)
+            tb_prev = torch.clamp(tb - interval, min=0)
+            noise_prime = (noise_pred + denoise_fn(x_pred, tb_prev)) / 2.0
+        elif len(hist) == 1:
+            noise_prime = (3.0 * noise_pred - hist[0]) / 2.0
+        elif len(hist) == 2:
+            noise_prime = (23.0 * noise_pred - 16.0 * hist[0]
+                           + 5.0 * hist[1]) / 12.0
+        else:
+            noise_prime = (55.0 * noise_pred - 59.0 * hist[0] + 37.0 * hist[1]
+                           - 9.0 * hist[2]) / 24.0
+        x = _plms_x_pred(ac, x, noise_prime, t, interval)
+        hist = [noise_pred] + hist[:2]
+    return x
+
+
+def dpmpp_timesteps(ac_np: np.ndarray, t_start: int, interval: int,
+                    grid: str = "lambda") -> np.ndarray:
+    """The DPM-Solver++ visiting ladder (host numpy): descending timesteps
+    from t_start-1 to 0, on the uniform log-SNR grid or the uniform-t one."""
+    n_steps = max(-(-t_start // interval), 1)
+    if grid == "lambda":
+        lam_np = 0.5 * (np.log(ac_np) - np.log(np.maximum(1.0 - ac_np, 1e-12)))
+        target = np.linspace(lam_np[t_start - 1], lam_np[0], n_steps + 1)
+        ts = np.array([int(np.abs(lam_np[:t_start] - tv).argmin())
+                       for tv in target], np.int32)
+        keep = np.concatenate([[True], ts[1:] != ts[:-1]])
+        ts = ts[keep]
+        ts[-1] = 0
+    else:
+        ts = np.concatenate([np.arange(n_steps - 1, -1, -1) * interval
+                             + (interval - 1), [0]]).astype(np.int32)
+        ts = np.clip(ts, 0, t_start - 1)
+    return ts.astype(np.int32)
+
+
+def p_sample_dpmpp_2m_scan(tables: dict, denoise_fn, x, t_start: int,
+                           interval: int, grid: str = "lambda"):
+    """DPM-Solver++(2M), data-prediction form over log-SNR lambda; the first
+    step is first order and the last evaluation returns x0 at t=0."""
+    ac = tables["alphas_cumprod"]
+    ts = dpmpp_timesteps(ac.cpu().numpy(), t_start, interval, grid)
+    alpha = torch.sqrt(ac)
+    sigma = torch.sqrt(1.0 - ac)
+    lam = torch.log(alpha) - torch.log(torch.clamp(sigma, min=1e-12))
+    x0_prev, h_prev = None, None
+    for t_cur, t_next in zip(ts[:-1].tolist(), ts[1:].tolist()):
+        tb = torch.full((x.shape[0],), t_cur, dtype=torch.long, device=x.device)
+        eps = denoise_fn(x, tb)
+        a_c, s_c = alpha[t_cur], torch.clamp(sigma[t_cur], min=1e-12)
+        x0 = (x - s_c * eps) / torch.clamp(a_c, min=1e-12)
+        h = lam[t_next] - lam[t_cur]
+        if x0_prev is None:
+            d = x0
+        else:
+            r = h / torch.clamp(torch.abs(h_prev), min=1e-12) \
+                * torch.sign(h_prev + 1e-30)
+            d = x0 + (x0 - x0_prev) * (0.5 * r)
+        a_n, s_n = alpha[t_next], torch.clamp(sigma[t_next], min=1e-12)
+        x = (s_n / s_c) * x - a_n * torch.expm1(-h) * d
+        x0_prev, h_prev = x0, h
+    tb0 = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+    eps0 = denoise_fn(x, tb0)
+    return (x - torch.clamp(sigma[0], min=1e-12) * eps0) \
+        / torch.clamp(alpha[0], min=1e-12)
+
+
+def compute_dtype(hp) -> torch.dtype:
+    return torch.bfloat16 if str(hp.get("diff_compute_dtype", "")) in (
+        "bf16", "bfloat16") else torch.float32
+
+
+class GaussianDiffusion(nn.Module):
+    """Conditioner (``fs2``) + denoiser (``denoise_fn``) + samplers.  The
+    submodule names match the reference checkpoint (``model.fs2.*``,
+    ``model.denoise_fn.*``)."""
+
+    def __init__(self, hp):
+        super().__init__()
+        if hp.get("diff_decoder_type", "wavenet") != "wavenet":
+            raise NotImplementedError("only the wavenet decoder is ported")
+        self.hp = hp
+        self.timesteps = int(hp.get("timesteps", 1000))
+        self.K_step = int(hp.get("K_step", 1000))
+        self.pndm_speedup = int(hp.get("pndm_speedup", 0) or 0)
+        self.tables_np = make_tables(self.timesteps,
+                                     hp.get("schedule_type", "cosine"),
+                                     float(hp.get("max_beta", 0.01)))
+        self.fs2 = FastSpeech2(hp)
+        self.denoise_fn = diffnet.DiffNet.from_hparams(hp)
+        m = int(hp["audio_num_mel_bins"])
+        keep = int(hp.get("keep_bins", m))
+        spec_min = np.asarray(hp.get("spec_min", [-6.0]), np.float32)
+        spec_max = np.asarray(hp.get("spec_max", [1.5]), np.float32)
+        if spec_min.size == 1:
+            spec_min = np.full((m,), spec_min.item(), np.float32)
+        if spec_max.size == 1:
+            spec_max = np.full((m,), spec_max.item(), np.float32)
+        self.register_buffer("spec_min", torch.from_numpy(spec_min[:keep]),
+                             persistent=False)
+        self.register_buffer("spec_max", torch.from_numpy(spec_max[:keep]),
+                             persistent=False)
+        self.mel_bins = m
+
+    def tables(self, device) -> dict:
+        return {k: torch.from_numpy(v).to(device)
+                for k, v in self.tables_np.items()}
+
+    def denoise_closure(self, cond: torch.Tensor):
+        """denoise_fn(x f32, t) for the step-by-step samplers: the compute
+        dtype denoiser over the once-projected conditioner, f32 out."""
+        dt = compute_dtype(self.hp)
+        cond_proj = diffnet.prepare_cond(self.denoise_fn, cond).to(dt)
+
+        def fn(x, t):
+            return diffnet.apply(self.denoise_fn, x.to(dt), t,
+                                 cond_proj=cond_proj).float()
+        return fn
+
+    def _ladder(self, cond, x, t_start: int, interval: int, clip_v: float,
+                sampler: str):
+        """Whole-trajectory sampling through K2."""
+        dt = compute_dtype(self.hp)
+        net = self.denoise_fn
+        p = net.stacked(dt)
+        cond_proj = diffnet.prepare_cond(net, cond).to(dt).contiguous()
+        ac = self.tables_np["alphas_cumprod"]
+        if sampler in DPMPP_NAMES:
+            t_eval, scal = _pl.dpmpp_eval_tables(
+                ac, t_start, interval,
+                grid=str(self.hp.get("dpmpp_grid", "lambda")))
+        else:
+            t_eval, scal = _pl.plms_eval_tables(ac, t_start, interval,
+                                                clip=clip_v > 0)
+        dev = x.device
+        step = diffnet.step_embedding(
+            p, torch.from_numpy(t_eval).to(dev), net.residual_channels)
+        sb = diffnet.step_bias(p, step, dt).transpose(0, 1).contiguous()
+        return _pl.plms_ladder(
+            x.float().contiguous(), torch.from_numpy(scal).to(dev), sb,
+            cond_proj, p["win"], p["bin"], p["wskip"], p["bskip"], p["wout"],
+            p["bout"], p["wd"], p["bd"], p["wo"], p["bo"], cycle=net.cycle,
+            clip_v=clip_v)
+
+    @torch.no_grad()
+    def infer(self, batch: dict, *, speedup: Optional[int] = None,
+              use_gt_mel: bool = False, add_noise_step: int = 500,
+              init_noise: Optional[torch.Tensor] = None,
+              generator: Optional[torch.Generator] = None) -> dict:
+        """Full sampling; returns 'mel_out' [B, T, M], 'f0_denorm', 'mel2ph'.
+
+        ``init_noise`` ([B, T, M]) replaces the Gaussian draw — the start x
+        in the default mode, the q_sample noise with ``use_gt_mel`` — so a
+        caller can share noise with another implementation; otherwise the
+        draw comes from ``generator``."""
+        ret = self.fs2(batch["hubert"], batch["mel2ph"], batch["f0"],
+                       batch.get("uv"), batch.get("energy"),
+                       batch.get("spk_embed"))
+        cond = ret["decoder_inp"]
+        b, t_mel, _ = cond.shape
+        dev = cond.device
+        tables = self.tables(dev)
+
+        def noise(shape):
+            if init_noise is not None:
+                return init_noise.to(dev, torch.float32)
+            return torch.randn(shape, generator=generator, device=dev)
+
+        if use_gt_mel:
+            t_start = int(add_noise_step)
+            x0 = norm_spec(batch["mels"], self.spec_min, self.spec_max)
+            tvec = torch.full((b,), t_start - 1, dtype=torch.long, device=dev)
+            x = q_sample(tables, x0, tvec, noise(x0.shape))
+        else:
+            t_start = self.K_step
+            x = noise((b, t_mel, self.mel_bins))
+        speedup = self.pndm_speedup if speedup is None else int(speedup)
+        if not speedup or speedup <= 1:
+            raise NotImplementedError("DDPM sampling (acc <= 1) is not "
+                                      "ported to torch yet; use acc > 1")
+        sampler = str(self.hp.get("sampler", "plms")).lower()
+        clip_v = float(self.hp.get("sampler_clip_x0", 0) or 0)
+        x = self._ladder(cond, x, t_start, speedup, clip_v, sampler)
+        mel_out = denorm_spec(x, self.spec_min, self.spec_max)
+        if batch.get("mel2ph") is not None:
+            mel_out = mel_out * (batch["mel2ph"] > 0).to(mel_out.dtype)[:, :, None]
+        ret["mel_out"] = mel_out
+        return ret

@@ -1,0 +1,80 @@
+"""FastSpeech2-style condition encoder, ``no_fs2`` path.
+
+Counterpart of ``diffsvc_tpu/models/fs2.py`` (reference
+``modules/fastspeech/fs2.py:21-255``) with ``no_fs2: true``::
+
+    cond = gather(pad(hubert, 1), mel2ph)            # frame-aligned units
+         + pitch_embed[f0_to_coarse(denorm_f0(f0, uv))]
+         (+ energy_embed[coarse(energy)])            # if use_energy_embed
+         (+ spk_embed)                               # if use_spk_*
+    cond *= (mel2ph > 0)
+
+The fs2-full transformer (``no_fs2: false``) is not ported yet.  Parameter
+names follow the reference (``pitch_embed.weight``, ``mel_out.*`` ...).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.pitch import denorm_f0, energy_to_coarse, f0_to_coarse
+
+
+class FastSpeech2(nn.Module):
+    def __init__(self, hp):
+        super().__init__()
+        if not bool(hp.get("no_fs2", True)):
+            raise NotImplementedError("no_fs2: false (the FFT-block encoder) "
+                                      "is not ported to torch yet")
+        h = int(hp["hidden_size"])
+        self.use_pitch_embed = bool(hp.get("use_pitch_embed", True))
+        self.use_energy_embed = bool(hp.get("use_energy_embed", False))
+        self.use_spk_id = bool(hp.get("use_spk_id", False))
+        self.use_spk_embed = bool(hp.get("use_spk_embed", False))
+        self.use_uv = bool(hp.get("use_uv", False))
+        self.pitch_norm = hp.get("pitch_norm", "log")
+        self.f0_mean = float(hp.get("f0_mean", 0.0) or 0.0)
+        self.f0_std = float(hp.get("f0_std", 1.0) or 1.0)
+        self.f0_bin = int(hp.get("f0_bin", 256))
+        self.f0_min = float(hp.get("f0_min", 50.0))
+        self.f0_max = float(hp.get("f0_max", 1100.0))
+        self.mel_out = nn.Linear(h, int(hp["audio_num_mel_bins"]))
+        if self.use_pitch_embed:
+            self.pitch_embed = nn.Embedding(300, h, padding_idx=0)
+        if self.use_energy_embed:
+            self.energy_embed = nn.Embedding(256, h, padding_idx=0)
+        if self.use_spk_id:
+            self.spk_embed_proj = nn.Embedding(int(hp.get("num_spk", 1)) + 1, h)
+        elif self.use_spk_embed:
+            self.spk_embed_proj = nn.Linear(256, h)
+
+    def forward(self, hubert, mel2ph, f0, uv=None, energy=None,
+                spk_embed=None) -> dict:
+        """:param hubert: [B, T_ph, H]; mel2ph: [B, T_mel] int (0 = pad);
+        f0: [B, T_mel] log2-normalized; returns 'decoder_inp' [B, T_mel, H],
+        'f0_denorm', 'mel2ph'."""
+        ret = {"mel2ph": mel2ph}
+        padded = nn.functional.pad(hubert, (0, 0, 1, 0))
+        idx = mel2ph.long()[:, :, None].expand(-1, -1, hubert.shape[-1])
+        decoder_inp = torch.gather(padded, 1, idx)
+        tgt_nonpadding = (mel2ph > 0).to(decoder_inp.dtype)[:, :, None]
+        if self.use_pitch_embed:
+            f0_denorm = denorm_f0(f0, uv, pitch_norm=self.pitch_norm,
+                                  use_uv=self.use_uv,
+                                  pitch_padding=mel2ph == 0,
+                                  f0_mean=self.f0_mean, f0_std=self.f0_std)
+            ret["f0_denorm"] = f0_denorm
+            # padded frames carry f0=0 -> coarse bin 1 (not the padding row),
+            # as in the reference; the nonpadding multiply zeroes them
+            pitch = f0_to_coarse(f0_denorm, self.f0_bin, self.f0_min,
+                                 self.f0_max)
+            decoder_inp = decoder_inp + self.pitch_embed(pitch)
+        if self.use_energy_embed and energy is not None:
+            decoder_inp = decoder_inp + self.energy_embed(energy_to_coarse(energy))
+        if self.use_spk_id and spk_embed is not None:
+            decoder_inp = decoder_inp + self.spk_embed_proj(spk_embed)[:, None, :]
+        elif self.use_spk_embed and spk_embed is not None:
+            decoder_inp = decoder_inp + self.spk_embed_proj(spk_embed)[:, None, :]
+        ret["decoder_inp"] = decoder_inp * tgt_nonpadding
+        return ret

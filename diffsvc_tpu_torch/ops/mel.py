@@ -1,0 +1,120 @@
+"""wav -> log10-mel for the 44.1 kHz NSF-HiFiGAN profile.
+
+Counterpart of ``diffsvc_tpu/ops/mel.py`` (``wav2mel_nsf``, ``stft_mag``,
+``mel_filterbank``), parity target ``nvSTFT.get_mel``: reflect pad of
+(n_fft-hop)/2, no centering, ``sqrt(re^2+im^2+1e-9)``, Slaney mel,
+``ln(clip(x, 1e-5))``, converted to log10 (``* 0.434294``).  Runs on the
+wav tensor's device.  The 24 kHz ``pwg`` variant is not ported yet.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+LOG10_E = 0.4342944819032518  # 1/ln(10)
+LN_10 = 2.302585092994046
+
+
+def hz_to_mel(freq, htk: bool = False):
+    freq = np.asarray(freq, dtype=np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + freq / 700.0)
+    f_sp = 200.0 / 3
+    mels = freq / f_sp
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(freq >= min_log_hz,
+                    min_log_mel + np.log(np.maximum(freq, 1e-10) / min_log_hz)
+                    / logstep, mels)
+
+
+def mel_to_hz(mels, htk: bool = False):
+    mels = np.asarray(mels, dtype=np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
+    f_sp = 200.0 / 3
+    freqs = f_sp * mels
+    min_log_hz = 1000.0
+    min_log_mel = min_log_hz / f_sp
+    logstep = np.log(6.4) / 27.0
+    return np.where(mels >= min_log_mel,
+                    min_log_hz * np.exp(logstep * (mels - min_log_mel)), freqs)
+
+
+@functools.lru_cache(maxsize=16)
+def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
+                   htk: bool = False, norm: str = "slaney") -> np.ndarray:
+    """Triangular mel filterbank [n_mels, 1+n_fft//2] (librosa-compatible).
+    Returns a read-only array: the cache hands the same one to every
+    caller."""
+    if fmax is None or fmax <= 0:
+        fmax = sr / 2.0
+    if fmin == -1:
+        fmin = 0.0
+    fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
+    mel_pts = np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk), n_mels + 2)
+    hz_pts = mel_to_hz(mel_pts, htk)
+    fdiff = np.diff(hz_pts)
+    ramps = hz_pts[:, None] - fftfreqs[None, :]
+    lower = -ramps[:-2] / fdiff[:-1, None]
+    upper = ramps[2:] / fdiff[1:, None]
+    weights = np.maximum(0.0, np.minimum(lower, upper))
+    if norm == "slaney":
+        weights *= (2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels]))[:, None]
+    weights = weights.astype(np.float32)
+    weights.setflags(write=False)
+    return weights
+
+
+def hann_window(n: int) -> np.ndarray:
+    """Periodic Hann window (scipy fftbins=True / torch.hann_window)."""
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+def _basis_support(basis: np.ndarray):
+    """[first, last+1) rDFT bins with any filterbank weight (the others
+    multiply zero, so skipping them is exact)."""
+    nz = np.nonzero(basis.sum(axis=0) > 0)[0]
+    if len(nz) == 0:
+        return 0, basis.shape[1]
+    return int(nz[0]), int(nz[-1] + 1)
+
+
+def stft_mag(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
+             mag_eps: float = 0.0, bin_lo: int = 0,
+             bin_hi: int = -1) -> torch.Tensor:
+    """Magnitude STFT [n_frames, bin_hi-bin_lo] of an already padded 1-D
+    signal (no centering); a win_length window is zero-padded centered in
+    the n_fft frame."""
+    if bin_hi < 0:
+        bin_hi = n_fft // 2 + 1
+    win = hann_window(win_length)
+    if win_length < n_fft:
+        lp = (n_fft - win_length) // 2
+        win = np.pad(win, (lp, n_fft - win_length - lp))
+    frames = y.unfold(0, n_fft, hop) * torch.from_numpy(win).to(y.device)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)[:, bin_lo:bin_hi]
+    power = spec.real ** 2 + spec.imag ** 2
+    if mag_eps > 0:
+        return torch.sqrt(power + mag_eps)
+    return torch.sqrt(power)
+
+
+def wav2mel_nsf(wav: torch.Tensor, *, sr: int, n_fft: int, hop: int,
+                win_length: int, n_mels: int, fmin: float, fmax: float,
+                clip_val: float = 1e-5) -> torch.Tensor:
+    """44.1 kHz NSF-style mel [T, n_mels] in the **log10** domain."""
+    pad = (n_fft - hop) // 2
+    y = F.pad(wav.float()[None, None], (pad, pad), mode="reflect")[0, 0]
+    basis_np = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    b_lo, b_hi = _basis_support(basis_np)
+    spc = stft_mag(y, n_fft, hop, win_length, mag_eps=1e-9, bin_lo=b_lo,
+                   bin_hi=b_hi)
+    basis = torch.from_numpy(np.ascontiguousarray(basis_np[:, b_lo:b_hi]))
+    mel = spc @ basis.to(wav.device).T
+    return torch.log(torch.clamp(mel, min=clip_val)) * LOG10_E

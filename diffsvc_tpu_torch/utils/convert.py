@@ -1,0 +1,200 @@
+"""Checkpoint loading and layout conversion.
+
+- Reference checkpoints load straight into the port's modules: the module
+  names are the reference's, so a ``.ckpt`` state dict goes through
+  ``load_state_dict`` after its ``model.`` prefix is stripped.  Weight norm
+  (NSF-HiFiGAN, the HuBERT positional conv) is folded at load, as
+  ``diffsvc_tpu/utils/convert_torch.py`` does.
+- :func:`jax_to_torch` turns the JAX package's parameter pytrees (numpy
+  arrays) into the port's state dicts, inverting the layouts of
+  ``convert_torch.py``: Conv1d HIO [k, in, out] -> [out, in, k]; ConvT
+  [k, out, in] -> [in, out, k]; Linear [in, out] -> [out, in].
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+import re
+from typing import Dict
+
+import numpy as np
+import torch
+
+
+def torch_load(path: str) -> Dict:
+    """Unpickle a reference checkpoint (these files are pickles written by
+    torch; load only files you trust)."""
+    return torch.load(path, map_location="cpu", weights_only=False)
+
+
+def strip_prefix(sd: Dict, prefix: str) -> Dict:
+    n = len(prefix)
+    return {k[n:]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def fold_weight_norm(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Fold weight_g/weight_v pairs into plain ``weight`` entries: the norm
+    runs over every axis where g is broadcast (dim=0 for the usual weight
+    norm, dim=2 for the HuBERT positional conv), in float64."""
+    out = {}
+    for k, v in sd.items():
+        if k.endswith("weight_g"):
+            continue
+        if k.endswith("weight_v"):
+            base = k[: -len("weight_v")]
+            g = sd[base + "weight_g"].double()
+            vv = v.double()
+            axes = tuple(i for i in range(vv.dim())
+                         if i >= g.dim() or g.shape[i] == 1)
+            norm = torch.sqrt((vv ** 2).sum(dim=axes, keepdim=True))
+            out[base + "weight"] = (g * vv / torch.clamp(norm, min=1e-12)).float()
+        else:
+            out[k] = v
+    return out
+
+
+def load_reference_state(module: torch.nn.Module, sd: Dict) -> None:
+    """``load_state_dict`` that requires every module parameter and
+    ignores extra reference entries (buffers such as the diffusion tables,
+    unused heads)."""
+    sd = {k: torch.as_tensor(v) for k, v in sd.items()}
+    missing, _ = module.load_state_dict(sd, strict=False)
+    if missing:
+        raise KeyError(f"checkpoint lacks {len(missing)} parameters of "
+                       f"{type(module).__name__}, e.g. {missing[:3]}")
+
+
+def load_ckpt_state_dict(ckpt_path: str, prefix: str = "model.") -> Dict:
+    """State dict of a reference trainer checkpoint with ``prefix``
+    stripped.  A directory picks its latest ``model_ckpt_steps_*.ckpt``."""
+    if os.path.isdir(ckpt_path):
+        cands = glob.glob(os.path.join(ckpt_path, "model_ckpt_steps_*.ckpt"))
+        if not cands:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_path}")
+        ckpt_path = max(cands, key=lambda x: int(re.findall(r"steps_(\d+)", x)[0]))
+    ckpt = torch_load(ckpt_path)
+    sd = ckpt.get("state_dict", ckpt)
+    if prefix and any(k.startswith(prefix) for k in sd):
+        sd = strip_prefix(sd, prefix)
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# JAX pytree (numpy) -> torch state dict
+# ---------------------------------------------------------------------------
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _linear(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).T)
+    if "b" in p:
+        sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _conv(sd, name, p):
+    sd[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(2, 1, 0))
+    if "b" in p:
+        sd[f"{name}.bias"] = _t(p["b"])
+
+
+def _layer_norm(sd, name, p):
+    sd[f"{name}.weight"] = _t(p["scale"])
+    sd[f"{name}.bias"] = _t(p["bias"])
+
+
+def diffusion_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """{'fs2', 'denoise_fn'} JAX params -> GaussianDiffusion state dict."""
+    sd = {}
+    fs2 = params["fs2"]
+    _linear(sd, "fs2.mel_out", fs2["mel_out"])
+    for name in ("pitch_embed", "energy_embed"):
+        if name in fs2:
+            sd[f"fs2.{name}.weight"] = _t(fs2[name])
+    if "spk_embed_proj" in fs2:
+        if isinstance(fs2["spk_embed_proj"], dict):
+            _linear(sd, "fs2.spk_embed_proj", fs2["spk_embed_proj"])
+        else:
+            sd["fs2.spk_embed_proj.weight"] = _t(fs2["spk_embed_proj"])
+    dn = params["denoise_fn"]
+    _conv(sd, "denoise_fn.input_projection", dn["input_projection"])
+    _linear(sd, "denoise_fn.mlp.0", dn["mlp"]["w1"])
+    _linear(sd, "denoise_fn.mlp.2", dn["mlp"]["w2"])
+    layers = dn["layers"]
+    n_layers = np.asarray(layers["dilated_conv"]["w"]).shape[0]
+    for i in range(n_layers):
+        for name, conv in (("dilated_conv", True),
+                           ("diffusion_projection", False),
+                           ("conditioner_projection", True),
+                           ("output_projection", True)):
+            p = {k: np.asarray(v)[i] for k, v in layers[name].items()}
+            (_conv if conv else _linear)(
+                sd, f"denoise_fn.residual_layers.{i}.{name}", p)
+    _conv(sd, "denoise_fn.skip_projection", dn["skip_projection"])
+    _conv(sd, "denoise_fn.output_projection", dn["output_projection"])
+    return sd
+
+
+def generator_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """HiFi-GAN/NSF generator JAX params -> Generator state dict."""
+    sd = {}
+    _conv(sd, "conv_pre", params["conv_pre"])
+    _conv(sd, "conv_post", params["conv_post"])
+    for i, p in enumerate(params["ups"]):
+        _conv(sd, f"ups.{i}", p)   # [k, out, in] -> [in, out, k]
+    idx = 0
+    for stage in params["resblocks"]:
+        for blk in stage:
+            for key, convs in blk.items():
+                for d, p in enumerate(convs):
+                    _conv(sd, f"resblocks.{idx}.{key}.{d}", p)
+            idx += 1
+    if "m_source" in params:
+        _linear(sd, "m_source.l_linear", params["m_source"]["l_linear"])
+        for i, p in enumerate(params["noise_convs"]):
+            _conv(sd, f"noise_convs.{i}", p)
+    return sd
+
+
+def hubert_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """HuBERT-soft JAX params -> HubertSoft state dict."""
+    sd = {}
+    fe = params["feature_extractor"]
+    for i in range(7):
+        _conv(sd, f"feature_extractor.conv{i}", fe[f"conv{i}"])
+    _layer_norm(sd, "feature_extractor.norm0", fe["norm0"])
+    _layer_norm(sd, "feature_projection.norm",
+                params["feature_projection"]["norm"])
+    _linear(sd, "feature_projection.projection",
+            params["feature_projection"]["projection"])
+    _conv(sd, "positional_embedding.conv",
+          params["positional_embedding"]["conv"])
+    _layer_norm(sd, "norm", params["norm"])
+    for i, layer in enumerate(params["encoder"]):
+        pfx = f"encoder.layers.{i}"
+        att = layer["attn"]
+        sd[f"{pfx}.self_attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(att[k]["w"]).T for k in ("q", "k", "v")]))
+        sd[f"{pfx}.self_attn.in_proj_bias"] = _t(np.concatenate(
+            [np.asarray(att[k]["b"]) for k in ("q", "k", "v")]))
+        _linear(sd, f"{pfx}.self_attn.out_proj", att["out"])
+        _layer_norm(sd, f"{pfx}.norm1", layer["ln1"])
+        _linear(sd, f"{pfx}.linear1", layer["ffn"]["w1"])
+        _linear(sd, f"{pfx}.linear2", layer["ffn"]["w2"])
+        _layer_norm(sd, f"{pfx}.norm2", layer["ln2"])
+    _linear(sd, "proj", params["proj"])
+    return sd
+
+
+def jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """Dispatch on the pytree's structure: diffusion model, generator or
+    HuBERT-soft."""
+    if "denoise_fn" in params:
+        return diffusion_jax_to_torch(params)
+    if "conv_pre" in params:
+        return generator_jax_to_torch(params)
+    if "feature_extractor" in params:
+        return hubert_jax_to_torch(params)
+    raise ValueError(f"unrecognized parameter tree with keys {sorted(params)}")

@@ -1,0 +1,110 @@
+"""The hand-written Hopper kernels against their plain PyTorch versions on
+the card, at ragged shapes the main path does not hit (T, C and channel
+counts that are not tile multiples, B > 1, no NSF injection).  Marked
+``gpu``: they skip without a CUDA device (run them on the card with
+``python -m pytest tests/test_torch_cuda.py -m gpu``).  f32 comparisons run
+with TF32 off."""
+
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda")
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = prev
+
+
+def _rel(a, b):
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_residual_stack_ragged(cuda, dtype, tol):
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(dtype, cuda, b=3, t=77, c=40, layers=6)
+    got = ds.residual_stack(**a, cycle=3)
+    ref = ds.residual_stack_plain(**a, cycle=3)
+    assert _rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize("sampler", ["plms", "plms-clip", "dpmpp"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_plms_ladder_batched(cuda, sampler, dtype, tol):
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import make_tables
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+
+    torch.manual_seed(0)
+    c, m, h, layers, b, t = 48, 20, 24, 4, 2, 70
+    net = diffnet.DiffNet(m, h, layers, c, 2).to(cuda)
+    p = net.stacked(dtype)
+    ac = make_tables(100, "linear", 0.02)["alphas_cumprod"]
+    if sampler == "dpmpp":
+        t_eval, scal = pl.dpmpp_eval_tables(ac, 100, 9)
+    else:
+        t_eval, scal = pl.plms_eval_tables(ac, 100, 9,
+                                           clip=sampler == "plms-clip")
+    clip_v = 1.0 if sampler == "plms-clip" else 0.0
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(cuda), c)
+    sb = diffnet.step_bias(p, step, dtype).transpose(0, 1).contiguous()
+    cond = torch.randn(b, t, h, device=cuda) * 0.5
+    cp = diffnet.prepare_cond(net, cond).to(dtype).contiguous()
+    x = torch.randn(b, t, m, device=cuda)
+    args = (x, torch.from_numpy(scal).to(cuda), sb, cp, p["win"], p["bin"],
+            p["wskip"], p["bskip"], p["wout"], p["bout"], p["wd"], p["bd"],
+            p["wo"], p["bo"])
+    got = pl.plms_ladder(*args, cycle=2, clip_v=clip_v)
+    ref = pl.plms_ladder_plain(*args, cycle=2, clip_v=clip_v)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize("use_f0", [True, False])
+def test_vocoder_tail_ragged(cuda, use_f0):
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    torch.manual_seed(0)
+    cfg = gen_mod.HifiGanConfig(num_mels=16, upsample_initial_channel=160,
+                                upsample_rates=(4, 3, 2),
+                                upsample_kernel_sizes=(8, 7, 4),
+                                resblock_kernel_sizes=(3, 5),
+                                resblock_dilation_sizes=((1, 3), (1, 2)),
+                                sampling_rate=8000, use_nsf=True)
+    gen = gen_mod.Generator(cfg).to(cuda)
+    b, t = 2, 37
+    mel = torch.randn(b, t, 16, device=cuda)
+    f0 = torch.full((b, t), 180.0, device=cuda) if use_f0 else None
+    randoms = gen_mod.draw_randoms(b, t * 24, cfg.harmonic_num,
+                                   torch.Generator().manual_seed(1))
+    randoms = tuple(r.to(cuda) for r in randoms)
+    with torch.no_grad():
+        got = gen_mod.apply_serving(gen, mel, f0, randoms)
+        ref = gen_mod.apply(gen, mel, f0, randoms)
+    assert got.shape == (b, t * 24)
+    assert _rel(got, ref) <= 1e-4
+
+
+def test_wrappers_reject_mixed_devices(cuda):
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(torch.float32, cuda, b=1, t=16, c=32, layers=2)
+    a["wd"] = a["wd"].cpu()
+    with pytest.raises(ValueError):
+        ds.residual_stack(**a, cycle=2)

@@ -1,0 +1,215 @@
+"""The whole conversion slice: the torch port's ``Svc`` against the JAX
+chain on the same reference-format checkpoint files, on the CPU.
+
+Both sides get the same HuBERT units (a deterministic stand-in; HuBERT
+itself is held against JAX in test_torch_frontend.py), the same sampler
+start noise and the same NSF source draws.  The JAX facade draws its own
+noise, so its side calls the functions ``Svc.infer`` calls, with the noise
+passed in.  The port's process must stay free of JAX (checked in a
+subprocess: this test process imports JAX through conftest.py).
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_fixtures import (HOP, SR, TINY_HP, TINY_VOC, fake_units,
+                             voiced_wav, write_project)
+from diffsvc_tpu.infer.svc import Svc as JSvc
+from diffsvc_tpu.ops.mel import LN_10
+from diffsvc_tpu.utils.audio_io import load_wav, save_wav
+from diffsvc_tpu.vocoders import generator as jgen
+from diffsvc_tpu_torch import infer_cli
+from diffsvc_tpu_torch.infer.svc import Svc as TSvc
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def project(tmp_path_factory):
+    root = tmp_path_factory.mktemp("torch_slice")
+    cfg_fn, ckpt = write_project(str(root / "proj"))
+    wav_fn = str(root / "in.wav")
+    save_wav(voiced_wav(secs=1.5, f0=200.0), wav_fn, SR)
+    return root, cfg_fn, ckpt, wav_fn
+
+
+@pytest.fixture
+def in_root(project, monkeypatch):
+    monkeypatch.chdir(project[0])          # Svc keeps ./infer_tools caches
+    monkeypatch.setenv("DIFFSVC_NO_COMPILE_CACHE", "1")
+    return project
+
+
+def _jax_randoms(rng, length, harmonic_num):
+    k1, k2 = jax.random.split(rng)
+    h = harmonic_num + 1
+    return (np.array(jax.random.uniform(k1, (1, h), dtype=jnp.float32)),
+            np.array(jax.random.normal(k2, (1, h, length), jnp.float32)))
+
+
+@pytest.mark.parametrize("dtype", ["", "bfloat16"], ids=["f32", "bf16"])
+def test_svc_infer_matches_jax_chain(in_root, dtype):
+    """f32: waveform within 2e-3 (sampler 2e-4 in the normalized mel, then
+    the vocoder); bf16: the denoiser rounds at other points in each
+    implementation, so the mel is compared with bf16-scaled bounds
+    (mean 0.05) and the waveforms' correlation must exceed 0.99."""
+    _, cfg_fn, ckpt, wav_fn = in_root
+    tsvc = TSvc("proj", cfg_fn, False, ckpt, device="cpu")
+    jsvc = JSvc("proj", cfg_fn, False, ckpt)
+    tsvc.hp["diff_compute_dtype"] = jsvc.hp["diff_compute_dtype"] = dtype
+    tsvc.hubert.encode = fake_units
+    jsvc.hubert.encode = fake_units
+    key, acc = 2, 10
+
+    # --- JAX chain: Svc.infer's steps with the noise passed in
+    batch = jsvc.pre(wav_fn, acc, use_crepe=False)
+    batch["f0"] = batch["f0"] + key / 12
+    batch["f0"][batch["f0"] > np.log2(jsvc.hp["f0_max"])] = 0
+    jb = {k: jnp.asarray(batch[k]) for k in
+          ("hubert", "mels", "mel2ph", "energy", "f0", "uv")}
+    noise = np.random.RandomState(11).randn(
+        *batch["mels"].shape).astype(np.float32)
+    out = jsvc.model.infer(jsvc.params, jb, jax.random.PRNGKey(0),
+                           speedup=acc, init_noise=jnp.asarray(noise))
+    mel = np.asarray(out["mel_out"])[0]
+    mask = np.abs(mel).sum(-1) > 0
+    mel_pred = np.clip(mel[mask], jsvc.hp["mel_vmin"], jsvc.hp["mel_vmax"])
+    f0_pred = np.asarray(out["f0_denorm"])[0][mask]
+    voc = jsvc.vocoder
+    randoms = _jax_randoms(jax.random.PRNGKey(5), len(mel_pred) * HOP,
+                           voc.cfg.harmonic_num)
+    f0_up = jgen.upsample_nearest(jnp.asarray(f0_pred)[None], HOP)
+    har, _ = jgen.source_module_from_randoms(
+        voc.params["m_source"], jnp.asarray(randoms[0]),
+        jnp.asarray(randoms[1]), f0_up, voc.cfg.sampling_rate,
+        voc.cfg.harmonic_num)
+    ref_wav = np.asarray(jgen.apply_conv_stack(
+        voc.params, voc.cfg, jnp.asarray(mel_pred)[None] * LN_10, har))[0]
+
+    # --- the port's facade
+    f0_gt, t_f0_pred, wav = tsvc.infer(
+        wav_fn, key=key, acc=acc, use_pe=False, use_crepe=False,
+        init_noise=noise, voc_randoms=tuple(torch.from_numpy(r)
+                                            for r in randoms))
+    assert wav.shape == ref_wav.shape and np.isfinite(wav).all()
+    assert np.abs(ref_wav).max() > 1e-2
+    np.testing.assert_allclose(t_f0_pred, f0_pred, rtol=1e-5)
+    voiced = f0_gt[f0_gt > 0]
+    assert abs(np.median(voiced) - 200.0 * 2 ** (key / 12)) < 10
+    if not dtype:
+        np.testing.assert_allclose(wav, ref_wav, atol=2e-3)
+    else:
+        assert np.corrcoef(wav, ref_wav)[0, 1] > 0.99
+
+
+def test_run_clip_slices_and_keeps_length(in_root, tmp_path):
+    """run_clip on a clip whose silences the slicer cuts: the output has the
+    input's length and is finite and non-silent."""
+    _, cfg_fn, ckpt, _ = in_root
+    svc = TSvc("proj", cfg_fn, False, ckpt, device="cpu")
+    svc.hubert.encode = fake_units
+    wav = voiced_wav(secs=12.0, f0=180.0, gaps=[(5.5, 6.5)])
+    src = str(tmp_path / "long.wav")
+    save_wav(wav, src, SR)
+    out_fn = str(tmp_path / "out.wav")
+    _, f0_pred, audio = infer_cli.run_clip(
+        svc, key=0, acc=10, use_pe=False, use_crepe=False, thre=0.05,
+        use_gt_mel=False, add_noise_step=500, file_path=src, out_path=out_fn)
+    got, sr = load_wav(out_fn)
+    assert sr == SR and len(got) == len(wav) == len(audio)
+    assert np.isfinite(got).all() and np.abs(got).max() > 1e-3
+    chunks = json.load(open("infer_tools/new_chunks_temp.json"))
+    n_chunks = [len(v["chunks"]) for v in chunks.values()
+                if isinstance(v, dict) and "chunks" in v]
+    assert max(n_chunks) >= 2
+
+
+SCRIPT = r"""
+import json, os, sys
+sys.path.insert(0, {tests!r})
+import numpy as np
+import diffsvc_tpu_torch
+from _torch_fixtures import SR, fake_units, voiced_wav, write_project
+from diffsvc_tpu.utils.audio_io import save_wav
+from diffsvc_tpu_torch.infer.svc import Svc
+cfg_fn, ckpt = write_project("proj")
+save_wav(voiced_wav(secs=1.0), "in.wav", SR)
+svc = Svc("proj", cfg_fn, False, ckpt, device="cpu")
+svc.hubert.encode = fake_units
+_, _, wav = svc.infer("in.wav", key=0, acc=10, use_pe=False, use_crepe=False)
+print(json.dumps({{"jax": "jax" in sys.modules, "n": int(len(wav)),
+                  "finite": bool(np.isfinite(wav).all())}}))
+"""
+
+
+def test_port_never_imports_jax(tmp_path):
+    """``import diffsvc_tpu_torch`` plus a tiny CPU conversion through the
+    port's Svc, in a fresh process: jax must not be in sys.modules."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         SCRIPT.format(tests=os.path.join(REPO, "tests"))],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res == {"jax": False, "n": res["n"], "finite": True}
+    assert res["n"] > 0
+
+
+@pytest.mark.parametrize("f0_flags", [["--no_crepe"], []],
+                         ids=["no_crepe", "default"])
+def test_infer_cli_main_writes_results(in_root, monkeypatch, f0_flags):
+    """``python -m diffsvc_tpu_torch.infer_cli`` end to end (in process):
+    the flags of infer.py, output under ./results with the input's length.
+    The AC tracker is the default, with or without ``--no_crepe``."""
+    from diffsvc_tpu_torch.infer import hubert_encoder
+
+    _, cfg_fn, ckpt, wav_fn = in_root
+    monkeypatch.setattr(hubert_encoder.Hubertencoder, "encode",
+                        lambda self, w: fake_units(w))
+    infer_cli.main(["--project", "proj", "--model", ckpt, "--config", cfg_fn,
+                    "--files", wav_fn, "--key", "3", "--acc", "10",
+                    *f0_flags])
+    out = "results/in_3key_proj_32_4_1k_10x.wav"
+    got, sr = load_wav(out)
+    src, _ = load_wav(wav_fn)
+    assert sr == SR and len(got) == len(src) and np.abs(got).max() > 1e-3
+
+
+def test_crepe_and_pe_requests_raise(in_root, tmp_path):
+    """CREPE and pe are not ported: asking for them raises instead of
+    quietly giving the AC track or the conditioner's f0 (the JAX package
+    would run them where their weights are installed)."""
+    from diffsvc_tpu_torch.data import features
+    from diffsvc_tpu_torch.utils import synth
+
+    _, cfg_fn, ckpt, wav_fn = in_root
+    wav = voiced_wav(secs=0.5)
+    with pytest.raises(NotImplementedError, match="CREPE"):
+        features.get_pitch(wav, np.zeros((1 + len(wav) // HOP, 16)),
+                           dict(TINY_HP), use_crepe=True)
+    svc = TSvc("proj", cfg_fn, False, ckpt, device="cpu")
+    svc.hubert.encode = fake_units
+    with pytest.raises(NotImplementedError, match="CREPE"):
+        svc.infer(wav_fn, key=0, acc=10, use_pe=False, use_crepe=True)
+    with pytest.raises(NotImplementedError, match="CREPE"):
+        infer_cli.main(["--project", "proj", "--model", ckpt, "--config",
+                        cfg_fn, "--files", wav_fn, "--acc", "10", "--crepe"])
+    # pe weights configured: use_pe raises, use_pe=False is allowed
+    os.makedirs(tmp_path / "pe")
+    pe_cfg, pe_ckpt = synth.write_project(
+        str(tmp_path / "proj_pe"),
+        dict(TINY_HP, vocoder="diffsvc_tpu.vocoders.nsf_hifigan.NsfHifiGAN",
+             pe_ckpt=str(tmp_path / "pe" / "model_ckpt_steps_1.ckpt")),
+        TINY_VOC)
+    svc = TSvc("proj_pe", pe_cfg, False, pe_ckpt, device="cpu")
+    with pytest.raises(NotImplementedError, match="pe"):
+        svc.infer(wav_fn, key=0, acc=10, use_pe=True)
