@@ -4,6 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
+(``--deterministic-step BUNDLE`` is phase 5's child process, below.)
+
 Phases, in order; any failure exits non-zero and no result line is printed:
 
 1. The card: ``nvidia-smi`` name and power limit; CUDA is required (there
@@ -12,12 +14,15 @@ Phases, in order; any failure exits non-zero and no result line is printed:
 2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
-   geometry on 5 s of 44.1 kHz audio), in f32 and bf16 for K1/K2 and f32
-   for K3: relative-L2 and max-abs error, and both times (CUDA events).
-   Each tolerance must also be exceeded by the same kernel fed inputs that
-   stand for a known bug (a planted fault: K1's last conditioner dropped;
-   K2's skip-projection bias dropped, or its history not pushed; K3's last
-   NSF injection dropped), so a check that cannot see a wrong kernel fails.
+   geometry on 5 s of 44.1 kHz audio; K4 at the training shape B=24), in
+   f32 and bf16 for K1/K2/K4 and f32 for K3: relative-L2 and max-abs error
+   (K4: of its forward and each of its seven grads), and both times (CUDA
+   events).  Each tolerance must also be exceeded by the same kernel fed
+   inputs that stand for a known bug (a planted fault: K1's last
+   conditioner dropped; K2's skip-projection bias dropped, or its history
+   not pushed; K3's last NSF injection dropped; K4's last sample's
+   cotangent dropped, or one layer's saved x replaced by the next layer's),
+   so a check that cannot see a wrong kernel fails.
 4. The slice: reference-format checkpoints with random weights from a seed
    at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
    soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
@@ -27,9 +32,25 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    after that run and must be nonzero; outputs must have the input's
    length, be finite and non-silent; a short clip converted on the card in
    f32 must agree with the same conversion on the CPU (the plain path),
-   and the card's conversion with a planted fault must not.
-5. Where the time goes: ``torch.profiler`` over one ``run_clip`` of the
-   14 s clip per dtype (wall, device busy share, the top kernels).
+   and the card's conversion with a planted fault must not.  Where the time
+   goes: ``torch.profiler`` over one ``run_clip`` of the 14 s clip per
+   dtype (wall, device busy share, the top kernels).
+5. The training path at the same widths (``diffnet_train_stream_dtype``
+   bf16, ``max_sentences`` 24): 32 synthetic clips of 4-12 s binarized by
+   the port's binarizer (HuBERT-soft on the card), then ``run.py``'s
+   ``run_task`` for 6 steps with validation and a checkpoint every 3 (K4's
+   counter reset before and read after: it must be nonzero; the losses
+   finite, the first in 0.5-2.0); a restart from the step-3 checkpoint must
+   restore params and optimizer state bit for bit and train on to step 6;
+   one step run twice from the same state, batch, t and noise under
+   ``torch.use_deterministic_algorithms`` must give identical params (in a
+   child process: only it sets the ``CUBLAS_WORKSPACE_CONFIG`` that cuBLAS
+   needs for that mode, so phases 3-5 time cuBLAS as it is set up by
+   default); one
+   step through the kernels must agree with the same step through the plain
+   versions on the card, and a planted fault must not; ms per step,
+   samples/s and mel frames/s for both stream dtypes; a profile of one
+   step; and the step-6 checkpoint converts a clip through ``Svc``.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel; the last line is
@@ -67,6 +88,15 @@ TOL = {
     ("plms_ladder", "bf16"): 1e-2,
     # ~60 f32 convolutions of the tail
     ("vocoder_tail", "f32"): 1e-4,
+    # K4 forward + backward at B=24, T=1024, C=384, L=20: the largest rel-L2
+    # over the skip sum and the seven grads.  f32: the same products summed
+    # in another order (sound 1.2e-6 on the H100).  bf16 streams: kernel and
+    # plain round y, h, do and dz at the same points, but another f32 sum
+    # can flip a rounding (sound 3.0e-3).  The planted faults read 0.21 (the
+    # last sample's cotangent dropped) and 0.10 (one layer's saved x taken
+    # from the next layer) in both dtypes.
+    ("residual_stack_train", "f32"): 1e-5,
+    ("residual_stack_train", "bf16"): 1e-2,
 }
 # f32 conversion of a short clip, card vs CPU: relative L2 of the waveform's
 # part that the denoiser put there (see cpu_agreement).  The planted fault
@@ -79,6 +109,9 @@ KERNELS = {
                     "diffsvc_tpu/ops/pallas/plms_ladder.py:196"),
     "vocoder_tail": ("diffsvc_tpu_torch/csrc/vocoder_tail.cu",
                      "diffsvc_tpu/ops/pallas/vocoder_tail.py:348"),
+    # backward _call_bwd_batched; its forward is _call_fwd (:338)
+    "residual_stack_train": ("diffsvc_tpu_torch/csrc/diffnet_stack_train.cu",
+                             "diffsvc_tpu/ops/pallas/diffnet_stack.py:606"),
 }
 # main-path shapes at config_44k: frames, residual channels, layers, mel
 # bins, conditioner width
@@ -91,6 +124,7 @@ VOC_H = dict(num_mels=128, upsample_initial_channel=512,
              resblock_dilation_sizes=[[1, 3, 5]] * 3, sampling_rate=44100,
              n_fft=2048, win_size=2048, hop_size=512, fmin=40, fmax=16000)
 TAIL_FRAMES = 431           # 5.0 s of 44.1 kHz audio
+TRAIN_B = 24                # the training batch (max_sentences) of K4's check
 # (seconds, f0 Hz, silent spans) of the slice's clips
 CLIPS = [(6.5, 196.0, [(2.0, 2.6)]),
          (9.0, 262.0, [(5.5, 6.4)]),
@@ -167,19 +201,21 @@ def check_residual_stack(device, dtype_name):
 
 
 def ladder_inputs(dtype, device):
-    """A DiffNet at the main path's widths with torch's default init (the
-    reference zero-inits the output projection, which would make eps == 0
-    and the comparison vacuous) and the K=1000 PLMS acc=20 tables: J = 51
-    evaluations."""
+    """A DiffNet at the main path's widths with torch's default init drawn
+    from seed 0 (the reference, and DiffNet's own init, zero the output
+    projection, which would make eps == 0 and the comparison vacuous) and
+    the K=1000 PLMS acc=20 tables: J = 51 evaluations."""
     import numpy as np
     import torch
 
     from diffsvc_tpu_torch.models import diffnet
     from diffsvc_tpu_torch.models.diffusion import make_tables
     from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+    from diffsvc_tpu_torch.utils.synth import randomize
 
-    torch.manual_seed(0)
-    net = diffnet.DiffNet(M, H, L, C, 4).to(device)
+    net = diffnet.DiffNet(M, H, L, C, 4)
+    randomize(net, 0)
+    net = net.to(device)
     p = net.stacked(dtype)
     ac = make_tables(1000, "linear", 0.02)["alphas_cumprod"]
     t_eval, scal = pl.plms_eval_tables(ac, 1000, ACC)
@@ -261,11 +297,67 @@ def check_vocoder_tail(device, dtype_name):
             "samples": int(got.shape[1]), "ms": ms, "plain_ms": plain_ms}
 
 
+def train_stack_inputs(device, dtype_name):
+    """K4's operands at the training shape: f32 state and biases, cond /
+    wd / wo in the stream dtype, and a skip cotangent in it."""
+    import torch
+
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    sd = _dtype(dtype_name)
+    a = stack_inputs(torch.float32, device, TRAIN_B, T, C, L)
+    for k in ("cond_proj", "wd", "wo"):
+        a[k] = a[k].to(sd).contiguous()
+    g = torch.Generator().manual_seed(5)
+    dout = torch.randn(TRAIN_B, T, C, generator=g).to(device, sd)
+    return a, dout
+
+
+def check_residual_stack_train(device, dtype_name):
+    """K4's forward with save and backward against their plain versions."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+
+    a, dout = train_stack_inputs(device, dtype_name)
+    ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"])
+
+    def kern(dout=dout, swap=None):
+        skip, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
+        if swap is not None:
+            xsave[swap] = xsave[swap + 1]
+        return (skip, *k4.residual_stack_train_bwd(xsave, *ops, dout,
+                                                    cycle=4))
+
+    def plain():
+        skip, xsave = k4.residual_stack_train_fwd_plain(**a, cycle=4)
+        return (skip, *k4.residual_stack_train_bwd_plain(xsave, *ops, dout,
+                                                          cycle=4))
+
+    names = ("skip", "dx0", "dsb", "dcp", "dwd", "dbd", "dwo", "dbo")
+    got, ref = kern(), plain()
+    per = {n: {"rel_l2": rel_l2(x, y), "max_abs_err": float((x - y).abs()
+                                                            .max())}
+           for n, x, y in zip(names, got, ref)}
+    dropped = dout.clone()
+    dropped[-1] = 0
+    faults = {"last sample's cotangent dropped": kern(dout=dropped),
+              f"layer {L // 2}'s saved x taken from layer {L // 2 + 1}":
+              kern(swap=L // 2)}
+    fault_rel = {k: max(rel_l2(x, y) for x, y in zip(f[1:], ref[1:]))
+                 for k, f in faults.items()}
+    ms, plain_ms = time_in_turns(kern, plain, reps=2)
+    return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
+            "rel_l2": max(v["rel_l2"] for v in per.values()),
+            "per_output": per, "fault_rel_l2": fault_rel, "batch": TRAIN_B,
+            "ms": ms, "plain_ms": plain_ms}
+
+
 CHECKS = [("residual_stack", "f32", check_residual_stack),
           ("residual_stack", "bf16", check_residual_stack),
           ("plms_ladder", "f32", check_plms_ladder),
           ("plms_ladder", "bf16", check_plms_ladder),
-          ("vocoder_tail", "f32", check_vocoder_tail)]
+          ("vocoder_tail", "f32", check_vocoder_tail),
+          ("residual_stack_train", "f32", check_residual_stack_train),
+          ("residual_stack_train", "bf16", check_residual_stack_train)]
 
 
 def phase_kernels(device):
@@ -283,6 +375,9 @@ def phase_kernels(device):
             log(f"[kernel] {name} {dt}: final x rel_l2="
                 f"{res['final_x_rel_l2']:.3e}, eps part of x "
                 f"{res['eps_share']:.3e}")
+        if name == "residual_stack_train":
+            log(f"[kernel] {name} {dt} B={res['batch']} fwd+bwd: " + " ".join(
+                f"{k}={v['rel_l2']:.2e}" for k, v in res["per_output"].items()))
         if not res["rel_l2"] <= tol:
             raise SmokeError(f"{name} {dt} disagrees with its plain version: "
                              f"rel_l2 {res['rel_l2']:.3e} > {tol:g}")
@@ -303,13 +398,13 @@ def phase_slice(device, workdir):
     import numpy as np
     import torch
 
-    from diffsvc_tpu.utils.audio_io import load_wav, save_wav
     from diffsvc_tpu_torch import infer_cli
     from diffsvc_tpu_torch.infer.svc import Svc
     from diffsvc_tpu_torch.models.hubert import HubertConfig
     from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
                                               vocoder_tail)
     from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
 
     counters = {"residual_stack": diffnet_stack, "plms_ladder": plms_ladder,
                 "vocoder_tail": vocoder_tail}
@@ -381,23 +476,30 @@ def phase_slice(device, workdir):
 
 
 def profile_clip(svc, wav_fn, out_fn):
-    """Where the time goes: torch.profiler over one run_clip.  Device busy
-    time is the union of the card's kernel and copy intervals; the busy
-    share is that over the profiled wall time."""
+    """Where the time goes: torch.profiler over one run_clip."""
+    from diffsvc_tpu_torch import infer_cli
+
+    return profile_run(
+        f"{svc.hp['diff_compute_dtype'] or 'float32'} run_clip",
+        lambda: infer_cli.run_clip(svc, key=0, acc=ACC, use_pe=False,
+                                   use_crepe=False, thre=0.05,
+                                   use_gt_mel=False, add_noise_step=500,
+                                   file_path=wav_fn, out_path=out_fn))
+
+
+def profile_run(label, fn):
+    """torch.profiler over one call of ``fn``.  Device busy time is the
+    union of the card's kernel and copy intervals; the busy share is that
+    over the profiled wall time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    from diffsvc_tpu_torch import infer_cli
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        infer_cli.run_clip(svc, key=0, acc=ACC, use_pe=False,
-                           use_crepe=False, thre=0.05, use_gt_mel=False,
-                           add_noise_step=500, file_path=wav_fn,
-                           out_path=out_fn)
+        fn()
         torch.cuda.synchronize()
         wall = time.time() - t0
     spans, by_name = [], {}
@@ -416,8 +518,8 @@ def profile_clip(svc, wav_fn, out_fn):
            "busy_share": busy_us / 1e6 / wall, "device_events": len(spans),
            "top": sorted(([k, v[0], v[1]] for k, v in by_name.items()),
                          key=lambda r: -r[1])[:8]}
-    log(f"[profile] {svc.hp['diff_compute_dtype'] or 'float32'} "
-        f"run_clip: wall={wall:.3f}s device_busy={res['device_busy_ms']:.1f}ms "
+    log(f"[profile] {label}: wall={wall:.3f}s "
+        f"device_busy={res['device_busy_ms']:.1f}ms "
         f"busy_share={res['busy_share']:.3f} ({len(spans)} device events)")
     for name, ms, n in res["top"]:
         log(f"[profile]   {ms:9.2f} ms {n:6d}x {name[:110]}")
@@ -452,8 +554,8 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
     import numpy as np
     import torch
 
-    from diffsvc_tpu.utils.audio_io import load_wav, save_wav
     from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
     from diffsvc_tpu_torch.vocoders.generator import draw_randoms
 
     secs = 0.5
@@ -500,6 +602,354 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: the training path (binarize -> run.py -> checkpoints -> Svc)
+# ---------------------------------------------------------------------------
+
+TRAIN_CLIPS, TRAIN_SR = 32, 44100   # synthetic voiced clips of 4-12 s
+TRAIN_STEPS, VAL_EVERY = 6, 3
+# One step on the card, kernels vs the plain versions on the card (same
+# state, batch, t and noise; bf16 streams; the output head drawn at random
+# so the loss depends on the denoiser): the largest of the relative
+# differences of the loss and of grad_norm and the rel-L2 of the residual
+# layers' grads.  The planted fault drops the last sample's cotangent in
+# K4's backward.  Sound 7.8e-4, fault 3.8e-2 on the H100.
+TRAIN_STEP_TOL = 5e-3
+
+
+def train_config(workdir: str) -> dict:
+    """config_44k at full width with max_sentences 24; 6 steps, validation
+    and a checkpoint every 3; every step logged; no validation plots; the
+    AC f0 tracker (CREPE is not ported)."""
+    return {"base_config": [os.path.join(ROOT, "configs", "config_44k.yaml")],
+            "raw_data_dir": os.path.join(workdir, "raw"),
+            "binary_data_dir": os.path.join(workdir, "bin"),
+            "work_dir": os.path.join(workdir, "work"),
+            "hubert_path": os.path.join(workdir, "hubert", "hubert_soft.pt"),
+            "vocoder_ckpt": os.path.join(workdir, "nsf_hifigan", "model"),
+            "max_sentences": TRAIN_B, "max_updates": TRAIN_STEPS,
+            "val_check_interval": VAL_EVERY, "log_interval": 1,
+            "num_valid_plots": 0, "use_crepe": False}
+
+
+@contextlib.contextmanager
+def k4_swapped(fwd=None, bwd=None):
+    """K4's wrapper functions replaced for the duration of the block (the
+    autograd Function looks them up at call time)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+
+    saved = k4.residual_stack_train_fwd, k4.residual_stack_train_bwd
+    k4.residual_stack_train_fwd = fwd or saved[0]
+    k4.residual_stack_train_bwd = bwd or saved[1]
+    try:
+        yield
+    finally:
+        k4.residual_stack_train_fwd, k4.residual_stack_train_bwd = saved
+
+
+def step_grads(task, batch, t, noise):
+    """(loss, grad_norm, residual layers' grads) of one step, no update."""
+    import torch
+
+    from diffsvc_tpu_torch.training.task import global_norm
+
+    loss, _ = task.model.training_loss(task.prepare_batch(batch), t=t,
+                                       noise=noise)
+    grads = torch.autograd.grad(loss, task.params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(task.params, grads)]
+    inner = torch.cat([g.flatten() for n, g in zip(task.names, grads)
+                       if ".residual_layers." in n])
+    return float(loss), float(global_norm(grads)), inner
+
+
+def card_vs_plain_step(task, batch, t, noise):
+    """One step through the kernels and through the plain versions, both on
+    the card; and through the kernels with a planted fault."""
+    import torch
+
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+
+    head = task.model.denoise_fn.output_projection
+    g = torch.Generator().manual_seed(11)
+    with torch.no_grad():
+        head.weight.copy_(torch.randn(head.weight.shape, generator=g) * 0.05)
+
+    kernel_bwd = k4.residual_stack_train_bwd
+
+    def drop_last(xsave, sb, cp, wd, bd, wo, dout, *, cycle):
+        dout = dout.clone()
+        dout[-1] = 0
+        return kernel_bwd(xsave, sb, cp, wd, bd, wo, dout, cycle=cycle)
+
+    kern = step_grads(task, batch, t, noise)
+    with k4_swapped(k4.residual_stack_train_fwd_plain,
+                    k4.residual_stack_train_bwd_plain):
+        plain = step_grads(task, batch, t, noise)
+    with k4_swapped(bwd=drop_last):
+        fault = step_grads(task, batch, t, noise)
+
+    def diff(a, b):
+        return max(abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / abs(b[1]),
+                   rel_l2(a[2], b[2]))
+
+    res = {"loss": kern[0], "plain_loss": plain[0], "grad_norm": kern[1],
+           "plain_grad_norm": plain[1], "rel": diff(kern, plain),
+           "fault_rel": diff(fault, plain), "tol": TRAIN_STEP_TOL}
+    log(f"[train] one step, card kernels vs plain on the card: loss "
+        f"{kern[0]:.6f}/{plain[0]:.6f} grad_norm {kern[1]:.6f}/{plain[1]:.6f}"
+        f" -> {res['rel']:.3e} (tol {TRAIN_STEP_TOL:g}); planted fault "
+        f"[last sample's cotangent dropped: {res['fault_rel']:.3e}]")
+    if not res["rel"] <= TRAIN_STEP_TOL:
+        raise SmokeError(f"the card's step disagrees with the plain one: {res}")
+    if not res["fault_rel"] > TRAIN_STEP_TOL:
+        raise SmokeError(f"the planted fault passes the step check: {res}")
+    return res
+
+
+def time_train_steps(hp, device, batch, reps: int = 3):
+    """ms per train step (host clock ending in a sync, after one warm-up
+    step), samples/s and mel frames/s, per stream dtype."""
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.training.task import SVCTask
+
+    out = {}
+    frames = int(batch["mel_lengths"].sum())
+    for sd in ("bf16", "f32"):
+        task = SVCTask(HParams(dict(hp, diffnet_train_stream_dtype=sd)),
+                       device=device)
+        torch.cuda.reset_peak_memory_stats()
+        task.train_step(batch)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(reps):
+            task.train_step(batch)
+        torch.cuda.synchronize()
+        step_s = (time.time() - t0) / reps
+        out[sd] = {"ms_per_step": step_s * 1e3,
+                   "samples_per_s": batch["nsamples"] / step_s,
+                   "mel_frames_per_s": frames / step_s,
+                   "padded_frames_per_s": batch["mels"].shape[0]
+                   * batch["mels"].shape[1] / step_s,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[train] {sd} streams, B={batch['nsamples']} T="
+            f"{batch['mels'].shape[1]}: {out[sd]['ms_per_step']:.1f} ms/step,"
+            f" {out[sd]['samples_per_s']:.1f} samples/s, "
+            f"{out[sd]['mel_frames_per_s']:.0f} mel frames/s "
+            f"({frames} real frames), peak memory "
+            f"{out[sd]['peak_mem_gb']:.2f} GB")
+        del task
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(device, workdir):
+    """Binarize synthetic clips with the port's binarizer (HuBERT-soft
+    768 x 12 with random weights, on the card), train through the run.py
+    entry, resume from the step-3 checkpoint, check determinism and the
+    card against the plain versions, time both stream dtypes, profile one
+    step, and convert a clip through Svc with the trained checkpoint."""
+    import copy
+    import glob
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+    from diffsvc_tpu_torch.data.binarizer import binarize
+    from diffsvc_tpu_torch.data.dataset import (BatchIterator,
+                                                FastSpeechDataset,
+                                                build_batches)
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.models.hubert import HubertConfig
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.run import run_task
+    from diffsvc_tpu_torch.training import checkpoint as ckpt_lib
+    from diffsvc_tpu_torch.training.trainer import Trainer
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
+    from diffsvc_tpu_torch.utils.convert import strip_prefix, torch_load
+
+    res = {}
+    cfg = train_config(workdir)
+    cfg_fn = os.path.join(workdir, "train.yaml")
+    with open(cfg_fn, "w") as f:
+        yaml.safe_dump(cfg, f)
+    synth.write_hubert(cfg["hubert_path"], HubertConfig(), seed=2)
+    synth.write_nsf_generator(os.path.dirname(cfg["vocoder_ckpt"]), VOC_H, 1)
+    sr = TRAIN_SR
+    os.makedirs(cfg["raw_data_dir"])
+    secs = np.linspace(4.0, 12.0, TRAIN_CLIPS)
+    for i, s in enumerate(secs):
+        save_wav(synth.voiced_wav(float(s), sr, 150.0 + 8.0 * i, seed=i),
+                 os.path.join(cfg["raw_data_dir"], f"clip{i:02d}.wav"), sr)
+    res["audio_s"] = float(secs.sum())
+
+    t0 = time.time()
+    hp = set_hparams(config=cfg_fn, exp_name="smoke_train", reset=True,
+                     print_hparams=False)
+    binarize(hp, device=device)
+    res["binarize_s"] = time.time() - t0
+    lengths = np.load(os.path.join(cfg["binary_data_dir"],
+                                   "train_lengths.npy"))
+    log(f"[train] binarized {TRAIN_CLIPS} clips ({res['audio_s']:.1f} s) in "
+        f"{res['binarize_s']:.2f}s; train split {len(lengths)} items, "
+        f"{int(lengths.sum())} mel frames")
+    if len(lengths) != TRAIN_CLIPS - 5:
+        raise SmokeError(f"binarizer kept {len(lengths)} train items")
+
+    # --- train through the entry point, K4's counter from the trainer alone
+    hp = set_hparams(config=cfg_fn, exp_name="smoke_train", reset=True,
+                     print_hparams=False)
+    k4.launches = 0
+    t0 = time.time()
+    trainer = run_task(hp)
+    torch.cuda.synchronize()
+    res["fit_s"] = time.time() - t0
+    res["launches"] = k4.launches
+    losses = [h["loss"] for h in trainer.history]
+    res["losses"] = losses
+    log(f"[train] run_task: {trainer.global_step} steps in {res['fit_s']:.2f}s"
+        f", losses {[round(x, 5) for x in losses]}, K4 launches "
+        f"{k4.launches}")
+    ckpts = sorted(os.path.basename(p) for p in
+                   glob.glob(os.path.join(hp["work_dir"], "*.ckpt")))
+    res["checkpoints"] = ckpts
+    if k4.launches <= 0:
+        raise SmokeError("the trainer did not launch K4")
+    if trainer.global_step != TRAIN_STEPS or len(losses) != TRAIN_STEPS \
+            or not np.isfinite(losses).all():
+        raise SmokeError(f"training: {trainer.global_step} steps, losses "
+                         f"{losses}")
+    if not 0.5 < losses[0] < 2.0:
+        raise SmokeError(f"first loss {losses[0]} outside 0.5-2.0 (the zero "
+                         "output head predicts zero noise)")
+    want = [f"model_ckpt_steps_{s}.ckpt" for s in (VAL_EVERY, TRAIN_STEPS)]
+    if ckpts != want:
+        raise SmokeError(f"checkpoints {ckpts}, expected {want}")
+
+    # --- restart from the step-3 checkpoint: state restored bit for bit
+    work2 = os.path.join(workdir, "work_resume")
+    os.makedirs(work2)
+    shutil.copy(os.path.join(hp["work_dir"], want[0]), work2)
+    hp2 = HParams(dict(hp, work_dir=work2))
+    t2 = Trainer(hp2, device=device)
+    if not t2.restore() or t2.global_step != VAL_EVERY \
+            or t2.task.step != VAL_EVERY:
+        raise SmokeError("no resume from the step-3 checkpoint")
+    saved = torch_load(os.path.join(work2, want[0]))
+    now = t2.task.state_dict()
+    same = all(torch.equal(v, now["state_dict"][k])
+               for k, v in saved["state_dict"].items())
+    o_saved = saved["optimizer_states"][0]["state"]
+    o_now = t2.task.optimizer.state_dict()["state"]
+    same = same and all(torch.equal(v.cpu(), o_now[i][k].cpu())
+                        for i, st in o_saved.items() for k, v in st.items())
+    res["restore_bit_exact"] = bool(same)
+    t2.fit()
+    res["resumed_to"] = t2.global_step
+    log(f"[train] resume from step {VAL_EVERY}: params + optimizer state "
+        f"bit-exact {same}; trained on to step {t2.global_step}")
+    if not same or t2.global_step != TRAIN_STEPS:
+        raise SmokeError("resume: state not restored bit for bit, or did not "
+                         "reach the last step")
+
+    # --- one step twice from the same state, batch, t and noise
+    ds = FastSpeechDataset("train", hp, shuffle=False)
+    full = [b for b in build_batches(ds, hp, rng=np.random.RandomState(0))
+            if len(b) == TRAIN_B][0]
+    batch = next(iter(BatchIterator(ds, [full], pad_multiple=int(
+        hp["frames_multiple"]))))
+    task = t2.task
+    g = torch.Generator().manual_seed(7)
+    t = torch.randint(0, task.model.K_step, (TRAIN_B,), generator=g)
+    noise = torch.randn(batch["mels"].shape, generator=g)
+    snap = copy.deepcopy(task.state_dict())
+    snap["global_step"] = task.step
+    bundle = os.path.join(workdir, "det_step.pt")
+    torch.save({"hp": dict(hp), "snap": snap, "batch": batch, "t": t,
+                "noise": noise}, bundle)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+         "--deterministic-step", bundle],
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise SmokeError(f"deterministic step: exit {proc.returncode}\n"
+                         f"{proc.stderr[-3000:]}")
+    det = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["step_deterministic"] = det
+    log(f"[train] one step twice from the same state, batch, t, noise (child "
+        f"process, deterministic algorithms): bit-identical params "
+        f"{det['identical']}, K4 launches {det['launches']}")
+    if not det["identical"] or det["launches"] <= 0:
+        raise SmokeError(f"the same step twice gave different params, or "
+                         f"did not run K4: {det}")
+
+    task.load_state_dict(snap)
+    res["card_vs_plain"] = card_vs_plain_step(task, batch, t, noise)
+    res["timing"] = time_train_steps(hp, device, batch)
+    task.load_state_dict(snap)
+    res["profile"] = profile_run(f"bf16 train step B={TRAIN_B} T="
+                                 f"{batch['mels'].shape[1]}",
+                                 lambda: task.train_step(batch))
+    del task, t2, trainer
+    torch.cuda.empty_cache()
+
+    # --- the trained checkpoint through the port's Svc
+    ckpt = os.path.join(hp["work_dir"], want[1])
+    svc = Svc("smoke_train", cfg_fn, True, ckpt, device=device)
+    sd = strip_prefix(torch_load(ckpt)["state_dict"], "model.")
+    if not all(torch.equal(v.cpu(), sd[k]) for k, v in
+               svc.model.state_dict().items()):
+        raise SmokeError("Svc did not load the trained weights")
+    clip = os.path.join(workdir, "convert.wav")
+    save_wav(synth.voiced_wav(6.0, sr, 220.0, [(2.5, 3.0)], seed=99), clip, sr)
+    _, _, audio = infer_cli.run_clip(
+        svc, key=0, acc=ACC, use_pe=False, use_crepe=False, thre=0.05,
+        use_gt_mel=False, add_noise_step=500, file_path=clip,
+        out_path=clip[:-4] + "_out.wav")
+    src, _ = load_wav(clip)
+    audio = np.asarray(audio, np.float32)
+    res["svc"] = {"in_len": len(src), "out_len": len(audio),
+                  "finite": bool(np.isfinite(audio).all())}
+    log(f"[train] Svc with the step-{TRAIN_STEPS} checkpoint: {res['svc']}")
+    if len(audio) != len(src) or not res["svc"]["finite"]:
+        raise SmokeError(f"trained-checkpoint conversion: {res['svc']}")
+    return res
+
+
+def deterministic_step(bundle_fn: str) -> int:
+    """Phase 5's child: one step twice from the bundle's state, batch, t and
+    noise under ``torch.use_deterministic_algorithms``; prints whether the
+    params came out identical and K4's launches (its parent sets
+    ``CUBLAS_WORKSPACE_CONFIG``, which that mode needs for cuBLAS)."""
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.training.task import SVCTask
+    from diffsvc_tpu_torch.utils.convert import torch_load
+
+    b = torch_load(bundle_fn)
+    task = SVCTask(HParams(b["hp"]), device="cuda")
+    params = []
+    torch.use_deterministic_algorithms(True)
+    for _ in range(2):
+        task.load_state_dict(b["snap"])
+        task.train_step(b["batch"], t=b["t"], noise=b["noise"])
+        params.append([p.detach().clone() for p in task.params])
+    print(json.dumps({"identical": all(torch.equal(x, y)
+                                       for x, y in zip(*params)),
+                      "launches": k4.launches}))
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -513,6 +963,9 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default="", help="write the full record (JSON)")
+    ap.add_argument("--deterministic-step", default="", metavar="BUNDLE",
+                    help="phase 5's child process: run one step twice from "
+                    "BUNDLE under deterministic algorithms")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "diffsvc_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -525,13 +978,15 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available; this test needs an NVIDIA "
               "GPU", file=sys.stderr)
         return 3
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.deterministic_step:
+        return deterministic_step(args.deterministic_step)
     record = {}
     try:
         card = card_line()
         log(f"[card] {card}; torch {torch.__version__} cuda "
             f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
         device = torch.device("cuda", 0)
 
         from diffsvc_tpu_torch.ops.hopper import _build
@@ -551,6 +1006,7 @@ def main(argv=None) -> int:
             os.chdir(tmp)     # Svc keeps its ./infer_tools caches here
             try:
                 record["slice"] = phase_slice(device, tmp)
+                record["train"] = phase_train(device, tmp)
             finally:
                 os.chdir(cwd)
         torch.cuda.synchronize()
@@ -559,7 +1015,8 @@ def main(argv=None) -> int:
         return 1
 
     entries = []
-    launches = record["slice"]["launches"]
+    launches = dict(record["slice"]["launches"],
+                    residual_stack_train=record["train"]["launches"])
     for name, (src, replaces) in KERNELS.items():
         by_dt = record["kernels"][name]
         main_dt = "bf16" if "bf16" in by_dt else "f32"

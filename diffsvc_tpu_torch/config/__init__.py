@@ -1,6 +1,5 @@
-"""Config chain loading: the JAX-free loader of the reference package."""
+"""Config chain loading (a copy of the reference package's JAX-free loader)."""
 
-from diffsvc_tpu.config.hparams import (HParams, hparams, load_config_chain,
-                                        set_hparams)
+from .hparams import HParams, hparams, load_config_chain, set_hparams
 
 __all__ = ["HParams", "set_hparams", "hparams", "load_config_chain"]

@@ -1,0 +1,202 @@
+// One gated residual layer of DiffNet as two tiled SIMT kernels, shared by
+// the serving stack (K1, diffnet_stack.cu) and the training forward with
+// save (K4, diffnet_stack_train.cu).  Per layer, with d = 2^(l mod cycle):
+//   y = x + sb_l                       (rounded to the operand dtype OT)
+//   z = y[t-d] W0 + y[t] W1 + y[t+d] W2 + bd + cond_l   (zeros outside [0,T))
+//   h = sigmoid(z[:C]) * tanh(z[C:])   (rounded to OT)
+//   o = h wo + bo
+//   x <- (x + o[:C]) / sqrt(2)         (rounded to the state dtype XT)
+//   skip += o[C:]                      (f32)
+//
+// gate_kernel runs the three dilated taps as one GEMM with K = 3C, the gate
+// and filter columns of a channel in the same thread, so the gated product
+// never leaves registers; with `zout` it also stores the f32 pre-activations
+// (the training backward recomputes them from the saved x_l).  out_kernel
+// runs the 1x1 output projection, updates x in place, sums skip in f32 and,
+// with `xsave`, stores the layer's input x_l in OT first.  Template
+// parameters: XT the residual state's dtype, OT the dtype of the matmul
+// operands (cond, wd, wo, h), BT the dtype of sb, bd and bo.  Products are
+// f32 FMAs on the CUDA cores (true f32 for f32 operands, exact products of
+// bf16 values for bf16).
+#pragma once
+
+#include "common.cuh"
+
+// Internal linkage: both .cu files include this header and link into one
+// library.
+namespace {
+
+using dsvc::from_f;
+using dsvc::rnd;
+using dsvc::to_f;
+
+constexpr int BM = 64;   // rows (b, t) per block
+constexpr int BN = 32;   // output channels per block (per column half)
+constexpr int BK = 16;   // contraction tile
+constexpr int NT = 256;  // 16 x 16 threads: 4 rows x 2 columns each
+
+template <typename XT, typename OT, typename BT>
+__global__ void __launch_bounds__(NT)
+gate_kernel(const XT* __restrict__ x, const BT* __restrict__ sb, long long sb_b,
+            const OT* __restrict__ cond, const OT* __restrict__ wd,
+            const BT* __restrict__ bd, OT* __restrict__ h,
+            float* __restrict__ zout, int B, int T_, int C, int d) {
+  __shared__ float As[BK][BM];
+  __shared__ float Bg[BK][BN];
+  __shared__ float Bf[BK][BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int rows = B * T_, K = 3 * C, C2 = 2 * C;
+  float ag[4][2] = {}, af[4][2] = {};
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int m = e / BK, kk = e % BK, r = m0 + m, k = k0 + kk;
+      float v = 0.f;
+      if (r < rows && k < K) {
+        const int tap = k / C, c = k - tap * C;
+        const int b = r / T_, t = r - b * T_, ts = t + (tap - 1) * d;
+        if (ts >= 0 && ts < T_)
+          v = rnd<OT>(to_f(x[((long long)b * T_ + ts) * C + c]) +
+                      to_f(sb[b * sb_b + c]));
+      }
+      As[kk][m] = v;
+    }
+    for (int e = tid; e < BK * BN; e += NT) {
+      const int kk = e / BN, n = e % BN, k = k0 + kk, o = n0 + n;
+      const bool ok = k < K && o < C;
+      Bg[kk][n] = ok ? to_f(wd[(long long)k * C2 + o]) : 0.f;
+      Bf[kk][n] = ok ? to_f(wd[(long long)k * C2 + C + o]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], g[2], f[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        g[j] = Bg[kk][tx * 2 + j];
+        f[j] = Bf[kk][tx * 2 + j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          ag[i][j] = fmaf(a[i], g[j], ag[i][j]);
+          af[i][j] = fmaf(a[i], f[j], af[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty * 4 + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o = n0 + tx * 2 + j;
+      if (o >= C) continue;
+      const long long cr = (long long)r * C2;
+      const float zg = ag[i][j] + to_f(bd[o]) + to_f(cond[cr + o]);
+      const float zf = af[i][j] + to_f(bd[C + o]) + to_f(cond[cr + C + o]);
+      h[(long long)r * C + o] = from_f<OT>(dsvc::sigmoidf_(zg) * tanhf(zf));
+      if (zout != nullptr) {
+        zout[cr + o] = zg;
+        zout[cr + C + o] = zf;
+      }
+    }
+  }
+}
+
+template <typename XT, typename OT, typename BT>
+__global__ void __launch_bounds__(NT)
+out_kernel(const OT* __restrict__ h, const OT* __restrict__ wo,
+           const BT* __restrict__ bo, XT* __restrict__ x,
+           float* __restrict__ skip, OT* __restrict__ xsave, int rows, int C,
+           int first) {
+  __shared__ float As[BK][BM];
+  __shared__ float Br[BK][BN];
+  __shared__ float Bs[BK][BN];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int C2 = 2 * C;
+  float ar[4][2] = {}, as[4][2] = {};
+  for (int k0 = 0; k0 < C; k0 += BK) {
+    for (int e = tid; e < BM * BK; e += NT) {
+      const int m = e / BK, kk = e % BK, r = m0 + m, k = k0 + kk;
+      As[kk][m] = (r < rows && k < C) ? to_f(h[(long long)r * C + k]) : 0.f;
+    }
+    for (int e = tid; e < BK * BN; e += NT) {
+      const int kk = e / BN, n = e % BN, k = k0 + kk, o = n0 + n;
+      const bool ok = k < C && o < C;
+      Br[kk][n] = ok ? to_f(wo[(long long)k * C2 + o]) : 0.f;
+      Bs[kk][n] = ok ? to_f(wo[(long long)k * C2 + C + o]) : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[4], p[2], q[2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        p[j] = Br[kk][tx * 2 + j];
+        q[j] = Bs[kk][tx * 2 + j];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          ar[i][j] = fmaf(a[i], p[j], ar[i][j]);
+          as[i][j] = fmaf(a[i], q[j], as[i][j]);
+        }
+    }
+    __syncthreads();
+  }
+  const float inv_sqrt2 = 0.7071067811865476f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty * 4 + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o = n0 + tx * 2 + j;
+      if (o >= C) continue;
+      const long long idx = (long long)r * C + o;
+      const float res = ar[i][j] + to_f(bo[o]);
+      const float sk = as[i][j] + to_f(bo[C + o]);
+      const float xv = to_f(x[idx]);
+      if (xsave != nullptr) xsave[idx] = from_f<OT>(xv);
+      x[idx] = from_f<XT>((xv + res) * inv_sqrt2);
+      skip[idx] = first ? sk : skip[idx] + sk;
+    }
+  }
+}
+
+// The L layers in order: x (state, updated in place), h [rows, C] scratch,
+// skip [rows, C] f32 out; xsave (nullable) [L, rows, C]; sb [L, B, C] with
+// element strides (sb_l, sb_b); cond [L, rows, 2C]; wd [L, 3, C, 2C];
+// bd, bo [L, 2C]; wo [L, C, 2C].
+template <typename XT, typename OT, typename BT>
+int run_stack(XT* x, OT* h, float* skip, OT* xsave, const BT* sb,
+              long long sb_l, long long sb_b, const OT* cond, const OT* wd,
+              const BT* bd, const OT* wo, const BT* bo, int B, int T_, int C,
+              int L, int cycle, cudaStream_t stream) {
+  const int rows = B * T_;
+  const dim3 grid((rows + BM - 1) / BM, (C + BN - 1) / BN);
+  const long long C2 = 2LL * C;
+  for (int l = 0; l < L; ++l) {
+    const int d = 1 << (l % cycle);
+    gate_kernel<XT, OT, BT><<<grid, NT, 0, stream>>>(
+        x, sb + l * sb_l, sb_b, cond + (long long)l * rows * C2,
+        wd + (long long)l * 3 * C * C2, bd + l * C2, h, nullptr, B, T_, C, d);
+    DSVC_LAUNCH_CHECK();
+    out_kernel<XT, OT, BT><<<grid, NT, 0, stream>>>(
+        h, wo + (long long)l * C * C2, bo + l * C2, x, skip,
+        xsave ? xsave + (long long)l * rows * C : nullptr, rows, C, l == 0);
+    DSVC_LAUNCH_CHECK();
+  }
+  return 0;
+}
+
+}  // namespace

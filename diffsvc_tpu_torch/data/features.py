@@ -1,15 +1,16 @@
-"""Per-utterance feature pipeline for inference: file -> sample -> batch.
+"""Per-utterance feature pipeline: file -> processed item -> sample -> batch.
 
-Counterpart of the inference part of ``diffsvc_tpu/data/features.py``
-(reference ``preprocessing/process_pipeline.py`` / ``infer_tool.py``):
-wav2spec through the vocoder, the AC f0 tracker, the uniform ``get_align``
-stretch, ``getitem`` and the pad-to-longest collate.  Host-side numpy except
-the mel, which runs on the given device.
+Counterpart of ``diffsvc_tpu/data/features.py`` (reference
+``preprocessing/process_pipeline.py`` / ``infer_tool.py``): wav2spec through
+the vocoder, the AC f0 tracker, the uniform ``get_align`` stretch, the
+binarizer's ``process_item``, ``getitem`` and the pad-to-longest collate.
+Host-side numpy except the mel, which runs on the given device.  The JAX
+package's batched binarization pipeline is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -48,8 +49,7 @@ def wav2spec_for(hp, wav_fn, device="cpu") -> tuple:
     ``wav_bucket_frames`` (default 128) the wav is zero-padded to a bucket
     multiple first and the mel trimmed to the true frame count, like the
     JAX package."""
-    from diffsvc_tpu.utils.audio_io import load_wav_nsf
-
+    from ..utils.audio_io import load_wav_nsf
     from ..vocoders.base import get_vocoder_cls
 
     cls = get_vocoder_cls(hp)
@@ -67,6 +67,39 @@ def wav2spec_for(hp, wav_fn, device="cpu") -> tuple:
     pad_len = -(-len(wav) // (bucket * hop)) * (bucket * hop)
     _, mel = cls.wav2spec(np.pad(wav, (0, pad_len - len(wav))), hp, device)
     return wav, mel[:true_frames]
+
+
+def process_item(item_name: str, wav_fn, hp, hubert_encode,
+                 binarization_args: Optional[dict] = None, spk_id=None,
+                 device="cpu") -> Optional[Dict]:
+    """One utterance -> the binarizer's item (mel, f0, pitch, hubert,
+    mel2ph, spec_min/max) as ``diffsvc_tpu/data/features.py:147-192`` makes
+    it: uniform mel2ph, the AC tracker, ``hubert_encode(wav_fn)`` units.
+    Returns None (and prints) when the item fails, e.g. an empty f0, as the
+    binarizer skips it.  MFA TextGrid alignment is not ported."""
+    ba = binarization_args or hp.get("binarization_args", {})
+    try:
+        wav, mel = wav2spec_for(hp, wav_fn, device)
+        processed = {
+            "item_name": item_name, "mel": mel, "wav": wav,
+            "sec": len(wav) / hp["audio_sample_rate"], "len": mel.shape[0],
+            "spk_id": spk_id if spk_id is not None else hp.get("speaker_id", 0),
+            "spec_min": np.min(mel, axis=0), "spec_max": np.max(mel, axis=0),
+        }
+        if ba.get("with_f0", True):
+            f0, coarse = get_pitch(wav, mel, hp, hp.get("use_crepe", False))
+            if f0.sum() == 0:
+                raise ValueError("Empty **gt** f0")
+            processed["f0"], processed["pitch"] = f0, coarse
+        if ba.get("with_hubert", True):
+            units = processed["hubert"] = hubert_encode(wav_fn)
+            if ba.get("with_align", True):
+                processed["mel2ph"] = get_align_uniform(mel.shape[0],
+                                                        units.shape[0])
+    except (ValueError, OSError) as e:
+        print(f"| Skip item ({e}). item_name: {item_name}")
+        return None
+    return processed
 
 
 def getitem(item: Dict, hp) -> Dict:

@@ -17,10 +17,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from diffsvc_tpu.utils.audio_io import load_wav
-
 from ..models.hubert import HubertConfig, HubertSoft
 from ..utils import convert
+from ..utils.audio_io import load_wav
 
 BUCKET = 6400  # 0.4 s at 16 kHz = 20 unit frames
 

@@ -17,7 +17,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 from scipy.ndimage import maximum_filter1d, uniform_filter1d
 
-from diffsvc_tpu.utils.audio_io import load_wav
+from ..utils.audio_io import load_wav
 
 
 def _window_maximum(arr: np.ndarray, win_sz: int) -> np.ndarray:

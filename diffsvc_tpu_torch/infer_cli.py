@@ -24,10 +24,9 @@ from pathlib import Path
 import numpy as np
 from scipy.io import wavfile
 
-from diffsvc_tpu.utils.audio_io import format_wav, load_wav, save_wav
-
 from .infer import slicer
 from .infer.svc import Svc, get_md5, read_temp, write_temp
+from .utils.audio_io import format_wav, load_wav, save_wav
 
 CHUNKS_CACHE = "./infer_tools/new_chunks_temp.json"
 

@@ -8,9 +8,12 @@ add, 1x1 conditioner add) -> skip-sum/sqrt(L) -> 1x1 -> ReLU -> 1x1.
 The module keeps the reference parameter names
 (``residual_layers.{i}.dilated_conv.weight`` ...), so reference state dicts
 load with ``load_state_dict``.  The math runs on layer-stacked weights in the
-JAX package's layouts (:meth:`DiffNet.stacked`), and the residual stack goes
-through K1 (``ops/hopper/diffnet_stack.py``): the kernel for CUDA tensors,
-its plain version for CPU tensors.
+JAX package's layouts (:meth:`DiffNet.stacked` for serving, cached and
+detached; :meth:`DiffNet.weights` for training, rebuilt with grad on every
+call).  The residual stack goes through K1 (``ops/hopper/diffnet_stack.py``)
+when serving and through K4 (``ops/hopper/diffnet_stack_train.py``) when
+:func:`apply` is given a ``train_stream``: the kernels for CUDA tensors,
+their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.hopper import diffnet_stack
+from ..ops.hopper import diffnet_stack, diffnet_stack_train
 from . import nn as fnn
 
 
@@ -58,6 +61,20 @@ class DiffNet(nn.Module):
         self.skip_projection = nn.Conv1d(c, c, 1)
         self.output_projection = nn.Conv1d(c, in_dims, 1)
         self._stacked = {}
+        self.init_weights()
+
+    @torch.no_grad()
+    def init_weights(self) -> None:
+        """The JAX package's init (``diffsvc_tpu/models/diffnet.py:53-79``,
+        the reference's ``net.py``): kaiming-normal convolution weights
+        (fan_in, gain sqrt 2) with torch's default uniform biases,
+        torch-default linears, and a zero output projection, so a fresh
+        model predicts zero noise and its first l2 loss is ~1."""
+        for m in self.modules():
+            if isinstance(m, nn.Conv1d):
+                nn.init.kaiming_normal_(m.weight)
+        nn.init.zeros_(self.output_projection.weight)
+        nn.init.zeros_(self.output_projection.bias)
 
     @classmethod
     def from_hparams(cls, hp) -> "DiffNet":
@@ -67,17 +84,12 @@ class DiffNet(nn.Module):
                    residual_channels=hp["residual_channels"],
                    dilation_cycle_length=hp["dilation_cycle_length"])
 
-    @torch.no_grad()
-    def stacked(self, dtype: torch.dtype = torch.float32) -> dict:
+    def weights(self, dtype: torch.dtype = torch.float32) -> dict:
         """Weights in the JAX package's layouts, cast to ``dtype`` and
         stacked over layers: win [M,C], wd [L,3,C,2C], wc [L,H,2C],
         wo [L,C,2C], dp_w [L,C,C] (in, out), wskip [C,C], wout [C,M], the
-        step MLP in torch Linear layout.  Cached until a weight changes."""
-        version = tuple(p._version for p in self.parameters())
-        key = (dtype, self.input_projection.weight.device)
-        hit = self._stacked.get(key)
-        if hit is not None and hit[0] == version:
-            return hit[1]
+        step MLP in torch Linear layout.  Built anew from the parameters on
+        every call, so gradients flow back to them (the training route)."""
         rl = self.residual_layers
 
         def st(get):
@@ -101,7 +113,19 @@ class DiffNet(nn.Module):
             "wout": self.output_projection.weight[:, :, 0].t(),
             "bout": self.output_projection.bias,
         }
-        p = {k: v.detach().to(dtype).contiguous() for k, v in p.items()}
+        return {k: v.to(dtype) for k, v in p.items()}
+
+    @torch.no_grad()
+    def stacked(self, dtype: torch.dtype = torch.float32) -> dict:
+        """:meth:`weights` detached and contiguous, for serving: cached
+        until a weight changes."""
+        version = tuple(p._version for p in self.parameters())
+        key = (dtype, self.input_projection.weight.device)
+        hit = self._stacked.get(key)
+        if hit is not None and hit[0] == version:
+            return hit[1]
+        p = {k: v.detach().contiguous()
+             for k, v in self.weights(dtype).items()}
         self._stacked[key] = (version, p)
         return p
 
@@ -109,13 +133,15 @@ class DiffNet(nn.Module):
         return apply(self, spec, diffusion_step, cond, cond_proj)
 
 
-def prepare_cond(net: DiffNet, cond: torch.Tensor) -> torch.Tensor:
+def prepare_cond(net: DiffNet, cond: torch.Tensor, p: dict | None = None
+                 ) -> torch.Tensor:
     """Project the conditioner through every layer's 1x1 conv at once (f32
-    weights): cond [B, T, H] -> [L, B, T, 2C].  Samplers call it once per
-    clip; the result is constant across the sampling loop."""
-    p = net.stacked(torch.float32)
-    return (torch.einsum("bth,lhc->lbtc", cond.float(), p["wc"])
-            + p["bc"][:, None, None, :])
+    weights; ``p`` from :meth:`DiffNet.weights` when it must carry grad):
+    cond [B, T, H] -> [L, B, T, 2C].  Samplers call it once per clip; the
+    result is constant across the sampling loop."""
+    p = net.stacked(torch.float32) if p is None else p
+    return (torch.einsum("bth,lhc->lbtc", cond.float(), p["wc"].float())
+            + p["bc"].float()[:, None, None, :])
 
 
 def step_embedding(p: dict, t: torch.Tensor, c: int) -> torch.Tensor:
@@ -134,27 +160,39 @@ def step_bias(p: dict, step: torch.Tensor, dtype) -> torch.Tensor:
             + p["dp_b"].float()[:, None, :]).to(dtype)
 
 
-def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None):
+def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
+          train_stream: str | None = None):
     """Predict noise.  The compute dtype is ``spec.dtype`` (f32 or bf16).
 
     :param spec: [B, T, M] noisy mel
     :param diffusion_step: [B] int timestep
     :param cond: [B, T, H] conditioner, or a precomputed ``cond_proj``
         [L, B, T, 2C]
+    :param train_stream: None serves through K1 on the cached weights; a
+        ``diffnet_train_stream_dtype`` ("bf16" or "f32") takes the training
+        route (``diffsvc_tpu/models/diffnet.py:219-295``): K4 with its
+        backward when grad is enabled, K1 on operands rounded through the
+        stream dtype when not (validation's loss)
     :return: [B, T, M] noise prediction in the compute dtype
     """
     dt = spec.dtype
-    p = net.stacked(dt)
+    grad = train_stream is not None and torch.is_grad_enabled()
+    p = net.weights(dt) if grad else net.stacked(dt)
     c, n_layers = net.residual_channels, net.n_layers
     x = torch.relu(spec.float() @ p["win"].float() + p["bin"].float()).to(dt)
     step = step_embedding(p, diffusion_step, c)
     sb = step_bias(p, step, dt)                                  # [L, B, C]
     if cond_proj is None:
-        cond_proj = prepare_cond(net, cond)
+        cond_proj = prepare_cond(net, cond, p if grad else None)
     cond_proj = cond_proj.to(dt).contiguous()
-    skip = diffnet_stack.residual_stack(
-        x.contiguous(), sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"],
-        cycle=net.cycle)
+    if train_stream is None:
+        skip = diffnet_stack.residual_stack(
+            x.contiguous(), sb, cond_proj, p["wd"], p["bd"], p["wo"],
+            p["bo"], cycle=net.cycle)
+    else:
+        skip = diffnet_stack_train.residual_stack_train(
+            x, sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"],
+            cycle=net.cycle, stream=train_stream)
     x = (skip * (1.0 / math.sqrt(n_layers))).to(dt)
     x = torch.relu(x.float() @ p["wskip"].float() + p["bskip"].float()).to(dt)
     return (x.float() @ p["wout"].float() + p["bout"].float()).to(dt)

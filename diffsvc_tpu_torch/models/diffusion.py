@@ -1,9 +1,11 @@
-"""Gaussian diffusion over normalized mel spectrograms — inference subset.
+"""Gaussian diffusion over normalized mel spectrograms.
 
 Counterpart of ``diffsvc_tpu/models/diffusion.py`` (reference
 ``network/diff/diffusion.py``): the beta schedules and derived tables,
-norm/denorm, q_sample, the PLMS and DPM-Solver++(2M) samplers, optional
-``sampler_clip_x0`` and ``GaussianDiffusion.infer``.
+norm/denorm, q_sample, the training loss (``p_losses``,
+``GaussianDiffusion.training_loss``, through K4), the PLMS and
+DPM-Solver++(2M) samplers, optional ``sampler_clip_x0`` and
+``GaussianDiffusion.infer``.
 
 Sampling runs through K2 (``ops/hopper/plms_ladder.py``): every denoiser
 evaluation and the sampler update as one table-driven program — the Hopper
@@ -11,7 +13,7 @@ kernels for CUDA tensors, their plain version for CPU tensors.  The
 step-by-step samplers :func:`p_sample_plms_scan` and
 :func:`p_sample_dpmpp_2m_scan` are the same samplers written the way the
 reference writes them; the tests hold the ladder against them.
-DDPM (``acc <= 1``) and training are not ported yet.
+DDPM (``acc <= 1``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -78,6 +80,33 @@ def q_sample(tables: dict, x_start, t, noise):
     return (_extract(tables["sqrt_alphas_cumprod"], t, x_start.ndim) * x_start
             + _extract(tables["sqrt_one_minus_alphas_cumprod"], t,
                        x_start.ndim) * noise)
+
+
+def p_losses(tables: dict, denoise_fn, x_start, t, noise,
+             loss_type: str = "l2", nonpadding=None, sample_mask=None):
+    """Diffusion training loss (``diffsvc_tpu/models/diffusion.py:116-149``,
+    reference ``diffusion.py:205-225``) with the noise drawn by the caller.
+
+    l1 is time-masked by ``nonpadding`` but not renormalized over it (the
+    reference's semantics); ``sample_mask`` [B] marks real rows of a
+    batch padded on its batch axis and renormalizes over them."""
+    x_recon = denoise_fn(q_sample(tables, x_start, t, noise), t)
+    if loss_type == "l1":
+        err = (noise - x_recon).abs()
+        if nonpadding is not None:
+            err = err * nonpadding[:, :, None]
+        if sample_mask is None:
+            return err.mean()
+        err = err * sample_mask[:, None, None]
+        denom = sample_mask.sum().clamp(min=1.0) * err.shape[1] * err.shape[2]
+        return err.sum() / denom
+    if loss_type == "l2":
+        sq = (noise - x_recon) ** 2
+        if sample_mask is None:
+            return sq.mean()
+        per_row = sq.mean(dim=(1, 2))
+        return (per_row * sample_mask).sum() / sample_mask.sum().clamp(min=1.0)
+    raise NotImplementedError(loss_type)
 
 
 def _plms_x_pred(ac: torch.Tensor, x, noise_t, t: int, interval: int):
@@ -222,6 +251,46 @@ class GaussianDiffusion(nn.Module):
             return diffnet.apply(self.denoise_fn, x.to(dt), t,
                                  cond_proj=cond_proj).float()
         return fn
+
+    def training_loss(self, batch: dict, *, t: Optional[torch.Tensor] = None,
+                      noise: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
+        """Diffusion loss of one batch (``diffsvc_tpu/models/diffusion.py:
+        489-513``): returns (loss, conditioner outputs).
+
+        ``t`` [B] and ``noise`` [B, T, M] may be passed (a test feeds the
+        JAX step's draws); otherwise both are drawn on the batch's device
+        from ``generator`` (which lives there), t first.  The denoiser takes
+        the training route of :func:`diffnet.apply` with
+        ``diffnet_train_stream_dtype``; with grad enabled that is K4 and its
+        backward.  The JAX version also takes ``train`` for the
+        conditioner's dropout; the ported no_fs2 conditioner has none."""
+        ret = self.fs2(batch["hubert"], batch["mel2ph"], batch["f0"],
+                       batch.get("uv"), batch.get("energy"),
+                       batch.get("spk_embed"))
+        cond = ret["decoder_inp"]
+        dev = cond.device
+        if t is None:
+            t = torch.randint(0, self.K_step, (cond.shape[0],),
+                              generator=generator, device=dev)
+        x_start = norm_spec(batch["mels"], self.spec_min, self.spec_max)
+        if noise is None:
+            noise = torch.randn(x_start.shape, generator=generator,
+                                device=dev)
+        dt = compute_dtype(self.hp)
+        stream = str(self.hp.get("diffnet_train_stream_dtype", "bf16"))
+        cond_c = cond.to(dt)
+
+        def denoise_fn(x, tt):
+            return diffnet.apply(self.denoise_fn, x.to(dt), tt, cond_c,
+                                 train_stream=stream).float()
+
+        nonpadding = (batch["mel2ph"] > 0).to(x_start.dtype)
+        loss = p_losses(self.tables(dev), denoise_fn, x_start, t.to(dev),
+                        noise.to(dev, torch.float32),
+                        str(self.hp.get("diff_loss_type", "l1")), nonpadding,
+                        batch.get("sample_mask"))
+        return loss, ret
 
     def _ladder(self, cond, x, t_start: int, interval: int, clip_v: float,
                 sampler: str):

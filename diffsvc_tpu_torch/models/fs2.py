@@ -48,6 +48,18 @@ class FastSpeech2(nn.Module):
             self.spk_embed_proj = nn.Embedding(int(hp.get("num_spk", 1)) + 1, h)
         elif self.use_spk_embed:
             self.spk_embed_proj = nn.Linear(256, h)
+        self.init_weights()
+
+    @torch.no_grad()
+    def init_weights(self) -> None:
+        """Embeddings drawn from N(0, hidden^-0.5) with the padding row zero,
+        as the JAX package's ``normal_embedding`` (the reference's Embedding
+        helper); linears keep torch's default init."""
+        for m in self.modules():
+            if isinstance(m, nn.Embedding):
+                nn.init.normal_(m.weight, 0.0, m.embedding_dim ** -0.5)
+                if m.padding_idx is not None:
+                    m.weight[m.padding_idx].zero_()
 
     def forward(self, hubert, mel2ph, f0, uv=None, energy=None,
                 spk_embed=None) -> dict:

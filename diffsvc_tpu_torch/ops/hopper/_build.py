@@ -42,6 +42,10 @@ SIGNATURES = {
     # diffnet_stack.cu
     "dsvc_residual_stack": [I, P, P, P, P, LL, LL, P, P, P, P, P,
                             I, I, I, I, I, P],
+    # diffnet_stack_train.cu
+    "dsvc_stack_train_fwd": [I, I, P, P, P, P, P, LL, LL, P, P, P, P, P,
+                             I, I, I, I, I, P],
+    "dsvc_stack_train_bwd": [I, *[P] * 20, I, I, I, I, I, I, I, P],
     # plms_ladder.cu
     "dsvc_ladder_in_proj": [I, P, P, P, P, I, I, I, P],
     "dsvc_ladder_epilogue": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],

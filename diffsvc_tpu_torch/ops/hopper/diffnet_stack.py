@@ -75,7 +75,9 @@ def _check(x0, sb, cond_proj, wd, bd, wo, bo):
     for name, a in (("x0", x0), ("sb", sb), *((k, v[0]) for k, v in shapes.items())):
         if a.device != x0.device or a.dtype != x0.dtype:
             raise ValueError(f"residual_stack: {name} is {a.dtype} on "
-                             f"{a.device}, expected {x0.dtype} on {x0.device}")
+                             f"{a.device}, expected {x0.dtype} on {x0.device}"
+                             " (a state in another dtype than the operands "
+                             "goes through diffnet_stack_train)")
     if not x0.is_contiguous():
         raise ValueError("residual_stack: x0 must be contiguous")
 

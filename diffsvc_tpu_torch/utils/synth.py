@@ -30,7 +30,7 @@ from ..models.hubert import HubertConfig, HubertSoft
 from ..vocoders.generator import Generator, HifiGanConfig
 
 
-def _randomize(module: torch.nn.Module, seed: int) -> None:
+def randomize(module: torch.nn.Module, seed: int) -> None:
     """Deterministic weights: torch's default init drawn from ``seed``."""
     torch.manual_seed(seed)
     for m in module.modules():
@@ -56,7 +56,7 @@ def _weight_norm(sd: dict, names, dim: int = 0) -> dict:
 def write_nsf_generator(dirpath: str, voc_h: dict, seed: int = 0) -> Generator:
     """NSF-HiFiGAN ``model`` ({"generator": state dict}) + ``config.json``."""
     gen = Generator(HifiGanConfig.from_dict(voc_h, use_nsf=True))
-    _randomize(gen, seed)
+    randomize(gen, seed)
     wn = ["conv_pre", "conv_post"] + [f"ups.{i}" for i in range(len(gen.ups))]
     for i, blk in enumerate(gen.resblocks):
         for key in ("convs1", "convs2", "convs"):
@@ -73,7 +73,7 @@ def write_nsf_generator(dirpath: str, voc_h: dict, seed: int = 0) -> Generator:
 def write_hubert(path: str, cfg: HubertConfig, seed: int = 0) -> HubertSoft:
     """HuBERT-soft ``.pt`` (bare state dict, weight-normed positional conv)."""
     model = HubertSoft(cfg)
-    _randomize(model, seed)
+    randomize(model, seed)
     sd = _weight_norm(model.state_dict(), ["positional_embedding.conv"],
                       dim=2)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
@@ -103,7 +103,7 @@ def write_project(root: str, config: dict, voc_h: dict,
     with open(cfg_fn, "w") as f:
         yaml.safe_dump(cfg, f)
     model = GaussianDiffusion(load_config_chain(cfg_fn))
-    _randomize(model, 0)
+    randomize(model, 0)
     ckpt = os.path.join(root, "model_ckpt_steps_1000.ckpt")
     torch.save({"state_dict": {f"model.{k}": v.clone()
                                for k, v in model.state_dict().items()},

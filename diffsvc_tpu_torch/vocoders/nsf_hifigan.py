@@ -16,10 +16,9 @@ import os
 import numpy as np
 import torch
 
-from diffsvc_tpu.utils.audio_io import load_wav_nsf
-
 from ..ops import mel as mel_ops
 from ..utils import convert
+from ..utils.audio_io import load_wav_nsf
 from . import generator
 from .base import BaseVocoder, register_vocoder
 from .hifigan import bucket_mel_f0

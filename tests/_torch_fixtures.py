@@ -52,7 +52,7 @@ def write_project(root):
 def fake_units(wav_path, dim=HID):
     """Deterministic stand-in for HuBERT units ([T, dim] at the 320x frame
     rate of the 16 kHz resample), shared by both implementations."""
-    from diffsvc_tpu.utils.audio_io import load_wav
+    from diffsvc_tpu_torch.utils.audio_io import load_wav
 
     if hasattr(wav_path, "seek"):
         wav_path.seek(0)

@@ -42,6 +42,31 @@ def test_residual_stack_ragged(cuda, dtype, tol):
     assert _rel(got, ref) <= tol
 
 
+@pytest.mark.parametrize("stream,tol", [("f32", 1e-5), ("bf16", 1e-2)])
+def test_residual_stack_train_ragged(cuda, stream, tol):
+    """K4's forward with save and backward against their plain versions at
+    B=3, T=77, C=40, L=6: the skip sum and all seven grads, and the same
+    bits when the backward runs twice (no atomics)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    sd = torch.bfloat16 if stream == "bf16" else torch.float32
+    a = stack_inputs(torch.float32, cuda, b=3, t=77, c=40, layers=6)
+    for k in ("cond_proj", "wd", "wo"):
+        a[k] = a[k].to(sd).contiguous()
+    dout = torch.randn(3, 77, 40, device=cuda).to(sd)
+    ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"], dout)
+    skip, xsave = k4.residual_stack_train_fwd(**a, cycle=3)
+    got = k4.residual_stack_train_bwd(xsave, *ops, cycle=3)
+    skip_p, xsave_p = k4.residual_stack_train_fwd_plain(**a, cycle=3)
+    ref = k4.residual_stack_train_bwd_plain(xsave_p, *ops, cycle=3)
+    assert _rel(skip, skip_p) <= tol
+    for x, y in zip(got, ref):
+        assert _rel(x, y) <= tol
+    again = k4.residual_stack_train_bwd(xsave, *ops, cycle=3)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
 @pytest.mark.parametrize("sampler", ["plms", "plms-clip", "dpmpp"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 3e-2)])
@@ -49,10 +74,13 @@ def test_plms_ladder_batched(cuda, sampler, dtype, tol):
     from diffsvc_tpu_torch.models import diffnet
     from diffsvc_tpu_torch.models.diffusion import make_tables
     from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+    from diffsvc_tpu_torch.utils.synth import randomize
 
     torch.manual_seed(0)
     c, m, h, layers, b, t = 48, 20, 24, 4, 2, 70
-    net = diffnet.DiffNet(m, h, layers, c, 2).to(cuda)
+    net = diffnet.DiffNet(m, h, layers, c, 2)
+    randomize(net, 0)   # torch's default init: a nonzero output head
+    net = net.to(cuda)
     p = net.stacked(dtype)
     ac = make_tables(100, "linear", 0.02)["alphas_cumprod"]
     if sampler == "dpmpp":
@@ -108,3 +136,34 @@ def test_wrappers_reject_mixed_devices(cuda):
     a["wd"] = a["wd"].cpu()
     with pytest.raises(ValueError):
         ds.residual_stack(**a, cycle=2)
+
+
+def test_task_draws_on_the_card(cuda):
+    """SVCTask's own draws (a train step's t and noise, validation's, and
+    sampling's) come from generators on the task's device: a step and its
+    repeat from the same state give the same loss, validation repeats, and
+    sampling gives finite mels."""
+    import numpy as np
+
+    from _torch_fixtures import HID, MEL, TINY_HP
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.training.task import TRAIN, SVCTask, draw_generator
+
+    hp = HParams(dict(TINY_HP, lr=1e-3, scheduler="step_lr", decay_steps=100,
+                      diff_loss_type="l1", diffnet_train_stream_dtype="bf16"))
+    task = SVCTask(hp, device=cuda)
+    rng = np.random.RandomState(0)
+    b, t = 2, 64
+    batch = {"hubert": rng.randn(b, t, HID).astype(np.float32),
+             "mels": (rng.randn(b, t, MEL) - 3.0).astype(np.float32),
+             "mel2ph": np.tile(np.arange(1, t + 1), (b, 1)),
+             "f0": np.full((b, t), 200.0, np.float32),
+             "uv": np.zeros((b, t), np.float32)}
+    assert draw_generator(cuda, task.seed, TRAIN, 0).device.type == "cuda"
+    losses = []
+    for _ in range(2):
+        task.init_state()
+        losses.append(float(task.train_step(batch)["loss"]))
+    assert np.isfinite(losses[0]) and losses[0] == losses[1]
+    assert task.val_step(batch) == task.val_step(batch)
+    assert torch.isfinite(task.sample(batch)["mel_out"]).all()

@@ -137,22 +137,29 @@ import json, os, sys
 sys.path.insert(0, {tests!r})
 import numpy as np
 import diffsvc_tpu_torch
+import diffsvc_tpu_torch.binarize, diffsvc_tpu_torch.run
+from diffsvc_tpu_torch.data import batching, binarizer, dataset, indexed_datasets
+from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train
+from diffsvc_tpu_torch.training import checkpoint, scheduler, task, trainer
 from _torch_fixtures import SR, fake_units, voiced_wav, write_project
-from diffsvc_tpu.utils.audio_io import save_wav
+from diffsvc_tpu_torch.utils.audio_io import save_wav
 from diffsvc_tpu_torch.infer.svc import Svc
 cfg_fn, ckpt = write_project("proj")
 save_wav(voiced_wav(secs=1.0), "in.wav", SR)
 svc = Svc("proj", cfg_fn, False, ckpt, device="cpu")
 svc.hubert.encode = fake_units
 _, _, wav = svc.infer("in.wav", key=0, acc=10, use_pe=False, use_crepe=False)
-print(json.dumps({{"jax": "jax" in sys.modules, "n": int(len(wav)),
-                  "finite": bool(np.isfinite(wav).all())}}))
+ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
+print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
+                  "n": int(len(wav)), "finite": bool(np.isfinite(wav).all())}}))
 """
 
 
 def test_port_never_imports_jax(tmp_path):
-    """``import diffsvc_tpu_torch`` plus a tiny CPU conversion through the
-    port's Svc, in a fresh process: jax must not be in sys.modules."""
+    """``import diffsvc_tpu_torch``, its training modules and its two
+    training entry points (``run``, ``binarize``), plus a tiny CPU
+    conversion through the port's Svc, in a fresh process: neither jax nor
+    any module of the JAX package ``diffsvc_tpu`` may be in sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -160,7 +167,7 @@ def test_port_never_imports_jax(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"jax": False, "n": res["n"], "finite": True}
+    assert res == {"jax": False, "ref_pkg": [], "n": res["n"], "finite": True}
     assert res["n"] > 0
 
 
