@@ -14,15 +14,20 @@ Phases, in order; any failure exits non-zero and no result line is printed:
 2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
-   geometry on 5 s of 44.1 kHz audio; K4 at the training shape B=24), in
-   f32 and bf16 for K1/K2/K4 and f32 for K3: relative-L2 and max-abs error
-   (K4: of its forward and each of its seven grads), and both times (CUDA
-   events).  Each tolerance must also be exceeded by the same kernel fed
-   inputs that stand for a known bug (a planted fault: K1's last
-   conditioner dropped; K2's skip-projection bias dropped, or its history
-   not pushed; K3's last NSF injection dropped; K4's last sample's
-   cotangent dropped, or one layer's saved x replaced by the next layer's),
-   so a check that cannot see a wrong kernel fails.
+   geometry on 5 s of 44.1 kHz audio; K4 at the training shape B=24; K5 at
+   B=32, a per-sample shape; K6, one layer, at B=1 and dilations 1-8), in
+   f32 and bf16 for K1/K2/K4/K6 and f32 for K3/K5: relative-L2 and max-abs
+   error (K4/K5: of the forward and each of the seven grads), both times
+   (CUDA events, in turns) and the bound (the larger of the FLOPs over the
+   operand type's peak and the bytes over the memory rate).  K5's batch
+   must equal the in-order sum of its B=1 runs bit for bit, and is printed
+   against K4 at the f32 stream.  Each tolerance must also be exceeded by
+   the same kernel fed inputs that stand for a known bug (a planted fault:
+   K1's last conditioner dropped; K2's skip-projection bias dropped, or its
+   history not pushed; K3's last NSF injection dropped; K4's and K5's last
+   sample's cotangent dropped, K4's layer or K5's sample with the next
+   one's saved x; K6's taps read at 2d), so a check that cannot see a wrong
+   kernel fails.
 4. The slice: reference-format checkpoints with random weights from a seed
    at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
    soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
@@ -45,15 +50,25 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    one step run twice from the same state, batch, t and noise under
    ``torch.use_deterministic_algorithms`` must give identical params (in a
    child process: only it sets the ``CUBLAS_WORKSPACE_CONFIG`` that cuBLAS
-   needs for that mode, so phases 3-5 time cuBLAS as it is set up by
+   needs for that mode, so phases 3-6 time cuBLAS as it is set up by
    default); one
    step through the kernels must agree with the same step through the plain
    versions on the card, and a planted fault must not; ms per step,
-   samples/s and mel frames/s for both stream dtypes; a profile of one
-   step; and the step-6 checkpoint converts a clip through ``Svc``.
+   samples/s and mel frames/s for both stream dtypes, with the route each
+   takes (the f32 stream's batch of 24 exceeds K4's carry: K5); a profile
+   of one step; and the step-6 checkpoint converts a clip through ``Svc``.
+6. Training at config_44k's own batching (``max_sentences`` 88,
+   ``max_tokens`` 128000, bf16 stream): 96 clips of 4-8 s binarized by the
+   port (8 held out for validation), ``run_task`` for 3 steps; every batch
+   is printed with B, T and its route, and the batch of 88 must take the
+   per-sample route: K5's counter (reset before, read after) must equal the
+   steps, K4's backward must not move, validation (B=1) runs K1; ms/step,
+   samples/s, mel frames/s and peak memory at B=88; one step through the
+   kernels against the plain versions on the card, with a planted fault.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
-preceded by one JSON line describing every kernel; the last line is
+preceded by one JSON line describing every kernel (K1-K6: its launches on
+the path that runs it, errors, times, bound); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -95,8 +110,21 @@ TOL = {
     # can flip a rounding (sound 3.0e-3).  The planted faults read 0.21 (the
     # last sample's cotangent dropped) and 0.10 (one layer's saved x taken
     # from the next layer) in both dtypes.
+    ("residual_stack_train_batched", "f32"): 1e-5,
+    ("residual_stack_train_batched", "bf16"): 1e-2,
+    # K5 (K4's forward at the f32 stream, the per-sample backward) at B=32,
+    # T=1024, C=384, L=20, a per-sample shape in JAX: the largest rel-L2 over
+    # the skip sum and the seven grads; the same f32 products as the plain
+    # per-sample loop, summed in another order (sound 1.2e-6 on the H100;
+    # the planted faults read 0.18, the last sample's cotangent dropped, and
+    # 0.16, one sample's saved x taken from the next sample).
     ("residual_stack_train", "f32"): 1e-5,
-    ("residual_stack_train", "bf16"): 1e-2,
+    # K6, one layer at B=1, T=1024, C=384, dilations 1, 2, 4, 8: the largest
+    # rel-L2 over x' and skip.  f32: one layer's products in another order
+    # (sound 6.9e-7); bf16: the same roundings, a few flipped by another f32
+    # sum (sound 9.8e-5).  The taps read at 2d read 0.68 in both dtypes.
+    ("fused_residual_block", "f32"): 1e-5,
+    ("fused_residual_block", "bf16"): 1e-3,
 }
 # f32 conversion of a short clip, card vs CPU: relative L2 of the waveform's
 # part that the denoiser put there (see cpu_agreement).  The planted fault
@@ -110,9 +138,21 @@ KERNELS = {
     "vocoder_tail": ("diffsvc_tpu_torch/csrc/vocoder_tail.cu",
                      "diffsvc_tpu/ops/pallas/vocoder_tail.py:348"),
     # backward _call_bwd_batched; its forward is _call_fwd (:338)
-    "residual_stack_train": ("diffsvc_tpu_torch/csrc/diffnet_stack_train.cu",
-                             "diffsvc_tpu/ops/pallas/diffnet_stack.py:606"),
+    "residual_stack_train_batched": (
+        "diffsvc_tpu_torch/csrc/diffnet_stack_train.cu",
+        "diffsvc_tpu/ops/pallas/diffnet_stack.py:606"),
+    # backward _call_bwd, vmapped; its forward is K4's (_call_fwd)
+    "residual_stack_train": (
+        "diffsvc_tpu_torch/csrc/diffnet_stack_per_sample.cu",
+        "diffsvc_tpu/ops/pallas/diffnet_stack.py:378"),
+    # on no path of the JAX package: launched by phase 3 alone
+    "fused_residual_block": ("diffsvc_tpu_torch/csrc/diffnet_block.cu",
+                             "diffsvc_tpu/ops/pallas/diffnet_block.py:93"),
 }
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by
+# operand type (f32 outside the tensor cores) and device-memory bytes/s.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_BYTES = 3.35e12
 # main-path shapes at config_44k: frames, residual channels, layers, mel
 # bins, conditioner width
 T, C, L, M, H = 1024, 384, 20, 128, 256
@@ -125,6 +165,8 @@ VOC_H = dict(num_mels=128, upsample_initial_channel=512,
              n_fft=2048, win_size=2048, hop_size=512, fmin=40, fmax=16000)
 TAIL_FRAMES = 431           # 5.0 s of 44.1 kHz audio
 TRAIN_B = 24                # the training batch (max_sentences) of K4's check
+PS_B = 32                   # K5's check: per-sample in JAX at T=1024 (f32)
+DILATIONS = (1, 2, 4, 8)    # K6's check
 # (seconds, f0 Hz, silent spans) of the slice's clips
 CLIPS = [(6.5, 196.0, [(2.0, 2.6)]),
          (9.0, 262.0, [(5.5, 6.4)]),
@@ -178,6 +220,26 @@ def _dtype(name):
     return torch.bfloat16 if name == "bf16" else torch.float32
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops: float, moved: int, dtype_name: str) -> dict:
+    """The least time the card could take: the larger of the operations
+    over the peak rate of their operand type and the bytes (each input read
+    once, each output written once) over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], moved / PEAK_BYTES
+    return {"flops": flops, "bytes": moved, "bound_ms": max(t_ops, t_bytes)
+            * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def stack_flops(rows: int, layers: int, per_row: int) -> float:
+    """``per_row`` C^2 FLOPs per row and layer: 16 for a forward layer
+    (gate 12 + output 4), 60 for forward and backward (the backward's
+    recomputed gate 12, dh 4, dy 12, dWo 4, dW_j 12)."""
+    return float(per_row) * rows * C * C * layers
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -197,7 +259,9 @@ def check_residual_stack(device, dtype_name):
     return {"max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got, ref),
             "fault_rel_l2": {"cond dropped": rel_l2(fault, ref)},
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms,
+            **bound(stack_flops(T, L, 16), nbytes(*a.values(), got),
+                    dtype_name)}
 
 
 def ladder_inputs(dtype, device):
@@ -256,7 +320,10 @@ def check_plms_ladder(device, dtype_name):
             "fault_rel_l2": {k: rel_l2(pl.plms_ladder(**f, cycle=4) - base,
                                        ref - base)
                              for k, f in faults.items()},
-            "evals": int(a["scal"].shape[0]), "ms": ms, "plain_ms": plain_ms}
+            "evals": int(a["scal"].shape[0]), "ms": ms, "plain_ms": plain_ms,
+            **bound(int(a["scal"].shape[0]) * (stack_flops(T, L, 16)
+                                               + 2.0 * T * (2 * M * C + C * C)),
+                    nbytes(*a.values(), got), dtype_name)}
 
 
 def check_vocoder_tail(device, dtype_name):
@@ -291,10 +358,37 @@ def check_vocoder_tail(device, dtype_name):
         got, ref = kern(), plain()
         fault = vt.tail(x, injs[:-1] + [torch.zeros_like(injs[-1])], plan)
         ms, plain_ms = time_in_turns(kern, plain, reps=5)
+        flops = tail_flops(vt, x, injs, plan)
+    weights = [t for cp in [plan.post] + [c for st in plan.stages for br in
+                                          st.branches for c in br]
+               for t in (cp.w, cp.b)]
+    weights += [t for st in plan.stages if st.convt is not None
+                for t in (st.convt.w, st.convt.b)]
     return {"max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got, ref),
             "fault_rel_l2": {"injection dropped": rel_l2(fault, ref)},
-            "samples": int(got.shape[1]), "ms": ms, "plain_ms": plain_ms}
+            "samples": int(got.shape[1]), "ms": ms, "plain_ms": plain_ms,
+            **bound(flops, nbytes(x, *injs, *weights, got), dtype_name)}
+
+
+def tail_flops(vt, x, injs, plan) -> float:
+    """The tail's convolution FLOPs, counted while its plain version walks
+    the plan: 2 Cin Cout k per output sample of a conv, per input sample of
+    a transposed conv."""
+    total = [0.0]
+
+    def conv(xx, cp, *args, **kw):
+        k, cin, cout = cp.w.shape
+        total[0] += 2.0 * xx.shape[0] * xx.shape[1] * cin * cout * k
+        return vt._conv_plain(xx, cp, *args, **kw)
+
+    def convt(xx, tp, *args, **kw):
+        k, cin, cout = tp.w.shape
+        total[0] += 2.0 * xx.shape[0] * xx.shape[1] * cin * cout * k
+        return vt._convt_plain(xx, tp, *args, **kw)
+
+    vt._run(plan, x, injs, conv, convt)
+    return total[0]
 
 
 def train_stack_inputs(device, dtype_name):
@@ -313,7 +407,16 @@ def train_stack_inputs(device, dtype_name):
     return a, dout
 
 
-def check_residual_stack_train(device, dtype_name):
+GRAD_NAMES = ("skip", "dx0", "dsb", "dcp", "dwd", "dbd", "dwo", "dbo")
+
+
+def per_output(got, ref) -> dict:
+    return {n: {"rel_l2": rel_l2(x, y), "max_abs_err": float((x - y).abs()
+                                                             .max())}
+            for n, x, y in zip(GRAD_NAMES, got, ref)}
+
+
+def check_residual_stack_train_batched(device, dtype_name):
     """K4's forward with save and backward against their plain versions."""
     from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
 
@@ -324,19 +427,16 @@ def check_residual_stack_train(device, dtype_name):
         skip, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
         if swap is not None:
             xsave[swap] = xsave[swap + 1]
-        return (skip, *k4.residual_stack_train_bwd(xsave, *ops, dout,
-                                                    cycle=4))
+        return (skip, *k4.residual_stack_train_batched_bwd(xsave, *ops, dout,
+                                                            cycle=4))
 
     def plain():
         skip, xsave = k4.residual_stack_train_fwd_plain(**a, cycle=4)
-        return (skip, *k4.residual_stack_train_bwd_plain(xsave, *ops, dout,
-                                                          cycle=4))
+        return (skip, *k4.residual_stack_train_batched_bwd_plain(
+            xsave, *ops, dout, cycle=4))
 
-    names = ("skip", "dx0", "dsb", "dcp", "dwd", "dbd", "dwo", "dbo")
     got, ref = kern(), plain()
-    per = {n: {"rel_l2": rel_l2(x, y), "max_abs_err": float((x - y).abs()
-                                                            .max())}
-           for n, x, y in zip(names, got, ref)}
+    per = per_output(got, ref)
     dropped = dout.clone()
     dropped[-1] = 0
     faults = {"last sample's cotangent dropped": kern(dout=dropped),
@@ -348,7 +448,112 @@ def check_residual_stack_train(device, dtype_name):
     return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
             "rel_l2": max(v["rel_l2"] for v in per.values()),
             "per_output": per, "fault_rel_l2": fault_rel, "batch": TRAIN_B,
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms,
+            **bound(stack_flops(TRAIN_B * T, L, 60),
+                    nbytes(*a.values(), dout, *got), dtype_name)}
+
+
+def check_residual_stack_train(device, dtype_name):
+    """K5: K4's forward with save at the f32 stream and the per-sample
+    backward against their plain versions at B=32, a batch JAX routes
+    per-sample; the batch against the in-order sum of its B=1 runs (bit for
+    bit); and K5 against K4 at the f32 stream on the same inputs."""
+    import torch
+
+    from diffsvc_tpu_torch.models.diffnet import train_route
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_per_sample as k5
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    route = train_route(L, 4, T, C, PS_B, dtype_name)
+    if route != "per_sample":
+        raise SmokeError(f"K5's check shape routes to {route}")
+    a = stack_inputs(torch.float32, device, PS_B, T, C, L)
+    g = torch.Generator().manual_seed(6)
+    dout = torch.randn(PS_B, T, C, generator=g).to(device)
+    ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"])
+
+    def kern(dout=dout, mix=None):
+        skip, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
+        if mix is not None:
+            xsave[:, mix] = xsave[:, mix + 1]
+        return (skip, *k5.residual_stack_train_bwd(xsave, *ops, dout,
+                                                   cycle=4))
+
+    def plain():
+        skip, xsave = k4.residual_stack_train_fwd_plain(**a, cycle=4)
+        return (skip, *k5.residual_stack_train_bwd_plain(xsave, *ops, dout,
+                                                         cycle=4))
+
+    got, ref = kern(), plain()
+    per = per_output(got, ref)
+    dropped = dout.clone()
+    dropped[-1] = 0
+    mix = PS_B // 2
+    faults = {"last sample's cotangent dropped": kern(dout=dropped),
+              f"sample {mix}'s saved x taken from sample {mix + 1}":
+              kern(mix=mix)}
+    fault_rel = {k: max(rel_l2(x, y) for x, y in zip(f[1:], ref[1:]))
+                 for k, f in faults.items()}
+    del faults
+    # the batch against its B=1 runs, and against K4 at the f32 stream
+    _, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
+    full = got[1:]
+    exact = True
+    sums = [torch.zeros_like(x) for x in full[3:]]
+    for i in range(PS_B):
+        one = k5.residual_stack_train_bwd(
+            xsave[:, i:i + 1].contiguous(), a["sb"][:, i:i + 1],
+            a["cond_proj"][:, i:i + 1].contiguous(), a["wd"], a["bd"],
+            a["wo"], dout[i:i + 1], cycle=4)
+        exact = exact and torch.equal(full[0][i:i + 1], one[0]) \
+            and torch.equal(full[1][:, i:i + 1], one[1]) \
+            and torch.equal(full[2][:, i:i + 1], one[2])
+        sums = [s + x for s, x in zip(sums, one[3:])]
+    exact = exact and all(torch.equal(x, s) for x, s in zip(full[3:], sums))
+    vs_k4 = per_output(got, (got[0], *k4.residual_stack_train_batched_bwd(
+        xsave, *ops, dout, cycle=4)))
+    ms, plain_ms = time_in_turns(kern, plain, reps=2)
+    return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
+            "rel_l2": max(v["rel_l2"] for v in per.values()),
+            "per_output": per, "fault_rel_l2": fault_rel, "batch": PS_B,
+            "route": route, "batch_is_sum_of_b1": bool(exact),
+            "vs_k4_f32": {k: v["rel_l2"] for k, v in vs_k4.items()},
+            "ms": ms, "plain_ms": plain_ms,
+            **bound(stack_flops(PS_B * T, L, 60),
+                    nbytes(*a.values(), dout, *got), dtype_name)}
+
+
+def check_fused_residual_block(device, dtype_name):
+    """K6 at B=1, T=1024, C=384 for each dilation of a cycle against its
+    plain version; the planted fault reads the taps at 2d.  Times are per
+    call (the four dilations' total over four)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(_dtype(dtype_name), device, 1, T, C, 1)
+    args = (a["x0"], a["sb"][0].contiguous(), a["cond_proj"][0], a["wd"][0],
+            a["bd"][0], a["wo"][0], a["bo"][0])
+
+    def run(fn, stretch=1):
+        return [fn(*args, dilation=stretch * d) for d in DILATIONS]
+
+    got = run(k6.fused_residual_block)
+    ref = run(k6.fused_residual_block_plain)
+    fault = run(k6.fused_residual_block, stretch=2)
+    pairs = [(x, y) for g, r in zip(got, ref) for x, y in zip(g, r)]
+    ms, plain_ms = time_in_turns(lambda: run(k6.fused_residual_block),
+                                 lambda: run(k6.fused_residual_block_plain),
+                                 reps=10)
+    n = len(DILATIONS)
+    return {"max_abs_err": max(float((x - y).abs().max()) for x, y in pairs),
+            "rel_l2": max(rel_l2(x, y) for x, y in pairs),
+            "fault_rel_l2": {"taps read at 2d": min(
+                max(rel_l2(x, y) for x, y in zip(f, r))
+                for f, r in zip(fault, ref))},
+            "ms": ms / n, "plain_ms": plain_ms / n,
+            **bound(stack_flops(T, 1, 16), nbytes(*args, *got[0]),
+                    dtype_name)}
 
 
 CHECKS = [("residual_stack", "f32", check_residual_stack),
@@ -356,8 +561,13 @@ CHECKS = [("residual_stack", "f32", check_residual_stack),
           ("plms_ladder", "f32", check_plms_ladder),
           ("plms_ladder", "bf16", check_plms_ladder),
           ("vocoder_tail", "f32", check_vocoder_tail),
+          ("residual_stack_train_batched", "f32",
+           check_residual_stack_train_batched),
+          ("residual_stack_train_batched", "bf16",
+           check_residual_stack_train_batched),
           ("residual_stack_train", "f32", check_residual_stack_train),
-          ("residual_stack_train", "bf16", check_residual_stack_train)]
+          ("fused_residual_block", "f32", check_fused_residual_block),
+          ("fused_residual_block", "bf16", check_fused_residual_block)]
 
 
 def phase_kernels(device):
@@ -370,14 +580,24 @@ def phase_kernels(device):
                           for k, v in res["fault_rel_l2"].items())
         log(f"[kernel] {name} {dt}: rel_l2={res['rel_l2']:.3e} (tol {tol:g}) "
             f"max_abs={res['max_abs_err']:.3e} kernel_ms={res['ms']:.3f} "
-            f"plain_ms={res['plain_ms']:.3f}; planted faults {faults}")
+            f"plain_ms={res['plain_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
+            f"({res['bound_by']}); planted faults {faults}")
         if name == "plms_ladder":
             log(f"[kernel] {name} {dt}: final x rel_l2="
                 f"{res['final_x_rel_l2']:.3e}, eps part of x "
                 f"{res['eps_share']:.3e}")
-        if name == "residual_stack_train":
+        if "per_output" in res:
             log(f"[kernel] {name} {dt} B={res['batch']} fwd+bwd: " + " ".join(
                 f"{k}={v['rel_l2']:.2e}" for k, v in res["per_output"].items()))
+        if name == "residual_stack_train":
+            log(f"[kernel] {name} {dt}: route {res['route']}; batch of "
+                f"{res['batch']} equals the in-order sum of its B=1 runs bit "
+                f"for bit: {res['batch_is_sum_of_b1']}; against K4 at the f32 "
+                "stream: " + " ".join(f"{k}={v:.2e}" for k, v in
+                                      res["vs_k4_f32"].items()))
+            if not res["batch_is_sum_of_b1"]:
+                raise SmokeError("K5's batch differs from the in-order sum of "
+                                 "its B=1 runs")
         if not res["rel_l2"] <= tol:
             raise SmokeError(f"{name} {dt} disagrees with its plain version: "
                              f"rel_l2 {res['rel_l2']:.3e} > {tol:g}")
@@ -632,18 +852,17 @@ def train_config(workdir: str) -> dict:
 
 
 @contextlib.contextmanager
-def k4_swapped(fwd=None, bwd=None):
-    """K4's wrapper functions replaced for the duration of the block (the
-    autograd Function looks them up at call time)."""
-    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
-
-    saved = k4.residual_stack_train_fwd, k4.residual_stack_train_bwd
-    k4.residual_stack_train_fwd = fwd or saved[0]
-    k4.residual_stack_train_bwd = bwd or saved[1]
+def swapped(mod, **attrs):
+    """Module attributes replaced for the duration of the block (the
+    autograd Functions look their wrappers up at call time)."""
+    saved = {k: getattr(mod, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(mod, k, v)
     try:
         yield
     finally:
-        k4.residual_stack_train_fwd, k4.residual_stack_train_bwd = saved
+        for k, v in saved.items():
+            setattr(mod, k, v)
 
 
 def step_grads(task, batch, t, noise):
@@ -659,22 +878,24 @@ def step_grads(task, batch, t, noise):
              for p, g in zip(task.params, grads)]
     inner = torch.cat([g.flatten() for n, g in zip(task.names, grads)
                        if ".residual_layers." in n])
-    return float(loss), float(global_norm(grads)), inner
+    return float(loss.detach()), float(global_norm(grads)), inner
 
 
-def card_vs_plain_step(task, batch, t, noise):
+def card_vs_plain_step(task, batch, t, noise, mod, plain, bwd_name, tol,
+                       tag="train"):
     """One step through the kernels and through the plain versions, both on
-    the card; and through the kernels with a planted fault."""
+    the card (``plain``: (module, attributes) pairs, the wrappers that the
+    route's autograd Function calls replaced by their plain versions); and
+    through the kernels with a planted fault, the last sample's cotangent
+    dropped in ``mod.<bwd_name>``."""
     import torch
-
-    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
 
     head = task.model.denoise_fn.output_projection
     g = torch.Generator().manual_seed(11)
     with torch.no_grad():
         head.weight.copy_(torch.randn(head.weight.shape, generator=g) * 0.05)
 
-    kernel_bwd = k4.residual_stack_train_bwd
+    kernel_bwd = getattr(mod, bwd_name)
 
     def drop_last(xsave, sb, cp, wd, bd, wo, dout, *, cycle):
         dout = dout.clone()
@@ -682,10 +903,11 @@ def card_vs_plain_step(task, batch, t, noise):
         return kernel_bwd(xsave, sb, cp, wd, bd, wo, dout, cycle=cycle)
 
     kern = step_grads(task, batch, t, noise)
-    with k4_swapped(k4.residual_stack_train_fwd_plain,
-                    k4.residual_stack_train_bwd_plain):
+    with contextlib.ExitStack() as stack:
+        for m, attrs in plain:
+            stack.enter_context(swapped(m, **attrs))
         plain = step_grads(task, batch, t, noise)
-    with k4_swapped(bwd=drop_last):
+    with swapped(mod, **{bwd_name: drop_last}):
         fault = step_grads(task, batch, t, noise)
 
     def diff(a, b):
@@ -694,51 +916,74 @@ def card_vs_plain_step(task, batch, t, noise):
 
     res = {"loss": kern[0], "plain_loss": plain[0], "grad_norm": kern[1],
            "plain_grad_norm": plain[1], "rel": diff(kern, plain),
-           "fault_rel": diff(fault, plain), "tol": TRAIN_STEP_TOL}
-    log(f"[train] one step, card kernels vs plain on the card: loss "
+           "fault_rel": diff(fault, plain), "tol": tol}
+    log(f"[{tag}] one step, card kernels vs plain on the card: loss "
         f"{kern[0]:.6f}/{plain[0]:.6f} grad_norm {kern[1]:.6f}/{plain[1]:.6f}"
-        f" -> {res['rel']:.3e} (tol {TRAIN_STEP_TOL:g}); planted fault "
+        f" -> {res['rel']:.3e} (tol {tol:g}); planted fault "
         f"[last sample's cotangent dropped: {res['fault_rel']:.3e}]")
-    if not res["rel"] <= TRAIN_STEP_TOL:
+    if not res["rel"] <= tol:
         raise SmokeError(f"the card's step disagrees with the plain one: {res}")
-    if not res["fault_rel"] > TRAIN_STEP_TOL:
+    if not res["fault_rel"] > tol:
         raise SmokeError(f"the planted fault passes the step check: {res}")
     return res
 
 
-def time_train_steps(hp, device, batch, reps: int = 3):
+def time_steps(task, batch, reps: int) -> dict:
     """ms per train step (host clock ending in a sync, after one warm-up
-    step), samples/s and mel frames/s, per stream dtype."""
+    step), samples/s, mel frames/s and the peak of allocated memory."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    task.train_step(batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        task.train_step(batch)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / reps
+    return {"ms_per_step": step_s * 1e3,
+            "samples_per_s": batch["nsamples"] / step_s,
+            "mel_frames_per_s": int(batch["mel_lengths"].sum()) / step_s,
+            "padded_frames_per_s": batch["mels"].shape[0]
+            * batch["mels"].shape[1] / step_s,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def log_steps(tag: str, label: str, batch, r: dict) -> None:
+    log(f"[{tag}] {label}, B={batch['nsamples']} T={batch['mels'].shape[1]}"
+        f": {r['ms_per_step']:.1f} ms/step, {r['samples_per_s']:.1f} "
+        f"samples/s, {r['mel_frames_per_s']:.0f} mel frames/s "
+        f"({int(batch['mel_lengths'].sum())} real frames), peak memory "
+        f"{r['peak_mem_gb']:.2f} GB")
+
+
+def batch_route(hp, b: int, t: int) -> str:
+    """The training route ``diffnet.apply`` takes for a [B, T] batch."""
+    from diffsvc_tpu_torch.models.diffnet import train_route
+
+    return train_route(int(hp["residual_layers"]),
+                       int(hp["dilation_cycle_length"]), t,
+                       int(hp["residual_channels"]), b,
+                       str(hp["diffnet_train_stream_dtype"]))
+
+
+def time_train_steps(hp, device, batch, reps: int = 3):
+    """ms per train step, samples/s and mel frames/s, per stream dtype, with
+    the route each takes (at B=24, T=1024 the f32 stream exceeds K4's
+    carry, so JAX and the port take the per-sample route, K5)."""
     import torch
 
     from diffsvc_tpu_torch.config import HParams
     from diffsvc_tpu_torch.training.task import SVCTask
 
     out = {}
-    frames = int(batch["mel_lengths"].sum())
     for sd in ("bf16", "f32"):
-        task = SVCTask(HParams(dict(hp, diffnet_train_stream_dtype=sd)),
-                       device=device)
-        torch.cuda.reset_peak_memory_stats()
-        task.train_step(batch)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        for _ in range(reps):
-            task.train_step(batch)
-        torch.cuda.synchronize()
-        step_s = (time.time() - t0) / reps
-        out[sd] = {"ms_per_step": step_s * 1e3,
-                   "samples_per_s": batch["nsamples"] / step_s,
-                   "mel_frames_per_s": frames / step_s,
-                   "padded_frames_per_s": batch["mels"].shape[0]
-                   * batch["mels"].shape[1] / step_s,
-                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-        log(f"[train] {sd} streams, B={batch['nsamples']} T="
-            f"{batch['mels'].shape[1]}: {out[sd]['ms_per_step']:.1f} ms/step,"
-            f" {out[sd]['samples_per_s']:.1f} samples/s, "
-            f"{out[sd]['mel_frames_per_s']:.0f} mel frames/s "
-            f"({frames} real frames), peak memory "
-            f"{out[sd]['peak_mem_gb']:.2f} GB")
+        hp_sd = HParams(dict(hp, diffnet_train_stream_dtype=sd))
+        task = SVCTask(hp_sd, device=device)
+        out[sd] = dict(time_steps(task, batch, reps),
+                       route=batch_route(hp_sd, *batch["mels"].shape[:2]))
+        log_steps("train", f"{sd} streams ({out[sd]['route']} route)", batch,
+                  out[sd])
         del task
         torch.cuda.empty_cache()
     return out
@@ -891,7 +1136,14 @@ def phase_train(device, workdir):
                          f"did not run K4: {det}")
 
     task.load_state_dict(snap)
-    res["card_vs_plain"] = card_vs_plain_step(task, batch, t, noise)
+    if batch_route(hp, *batch["mels"].shape[:2]) != "batched":
+        raise SmokeError("phase 5's step batch does not take K4's route")
+    res["card_vs_plain"] = card_vs_plain_step(
+        task, batch, t, noise, k4,
+        [(k4, {"residual_stack_train_fwd": k4.residual_stack_train_fwd_plain,
+               "residual_stack_train_batched_bwd":
+               k4.residual_stack_train_batched_bwd_plain})],
+        "residual_stack_train_batched_bwd", TRAIN_STEP_TOL)
     res["timing"] = time_train_steps(hp, device, batch)
     task.load_state_dict(snap)
     res["profile"] = profile_run(f"bf16 train step B={TRAIN_B} T="
@@ -920,6 +1172,149 @@ def phase_train(device, workdir):
     log(f"[train] Svc with the step-{TRAIN_STEPS} checkpoint: {res['svc']}")
     if len(audio) != len(src) or not res["svc"]["finite"]:
         raise SmokeError(f"trained-checkpoint conversion: {res['svc']}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: training at config_44k's own batch (max_sentences 88): K5's route
+# ---------------------------------------------------------------------------
+
+OWN_CLIPS, OWN_HELD_OUT = 96, 8   # 4-8 s clips; 88 train items: one batch
+OWN_STEPS = 3
+# One step at B=88 on the per-sample route (f32 streams), kernels vs plain
+# versions on the card, as phase 5's check: sound 9.7e-6 on the H100; the
+# planted fault, the last sample's cotangent dropped in K5's backward,
+# reads 2.1e-2.
+OWN_STEP_TOL = 1e-4
+
+
+def own_batch_config(workdir: str, hubert_path: str, vocoder_ckpt: str):
+    """config_44k at full width with base.yaml's batching (max_sentences 88,
+    max_tokens 128000) and its default bf16 stream; every 12th clip held out
+    for validation (B=1), so the train split is one batch of 88."""
+    raw = os.path.join(workdir, "own_raw")
+    return {"base_config": [os.path.join(ROOT, "configs", "config_44k.yaml")],
+            "raw_data_dir": raw,
+            "binary_data_dir": os.path.join(workdir, "own_bin"),
+            "work_dir": os.path.join(workdir, "own_work"),
+            "hubert_path": hubert_path, "vocoder_ckpt": vocoder_ckpt,
+            "max_sentences": 88, "max_tokens": 128000,
+            "diffnet_train_stream_dtype": "bf16",
+            "max_updates": OWN_STEPS, "val_check_interval": 1000,
+            "log_interval": 1, "num_valid_plots": 0, "use_crepe": False,
+            "choose_test_manually": True,
+            "test_prefixes": [os.path.join(raw, f"own{i:02d}") for i in
+                              range(0, OWN_CLIPS, OWN_CLIPS // OWN_HELD_OUT)]}
+
+
+def phase_train_own_batch(device, workdir, hubert_path, vocoder_ckpt):
+    """96 synthetic clips of 4-8 s binarized by the port, then ``run_task``
+    for 3 steps at config_44k's own batching: the batch of 88 must take the
+    per-sample route (K5), K5's counter must equal the steps and K4's
+    backward must not move, validation (B=1) runs K1; then ms/step,
+    samples/s, mel frames/s and peak memory at B=88, and one step through
+    the kernels against the plain versions on the card."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from diffsvc_tpu_torch.config import set_hparams
+    from diffsvc_tpu_torch.data.binarizer import binarize
+    from diffsvc_tpu_torch.data.dataset import (BatchIterator,
+                                                FastSpeechDataset,
+                                                build_batches)
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as k1
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_per_sample as k5
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.run import run_task
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import save_wav
+
+    res = {}
+    cfg = own_batch_config(workdir, hubert_path, vocoder_ckpt)
+    cfg_fn = os.path.join(workdir, "own.yaml")
+    with open(cfg_fn, "w") as f:
+        yaml.safe_dump(cfg, f)
+    os.makedirs(cfg["raw_data_dir"])
+    secs = np.linspace(4.0, 8.0, OWN_CLIPS)
+    for i, sec in enumerate(secs):
+        save_wav(synth.voiced_wav(float(sec), TRAIN_SR, 150.0 + 3.0 * i,
+                                  seed=100 + i),
+                 os.path.join(cfg["raw_data_dir"], f"own{i:02d}.wav"),
+                 TRAIN_SR)
+    t0 = time.time()
+    hp = set_hparams(config=cfg_fn, exp_name="smoke_own", reset=True,
+                     print_hparams=False)
+    binarize(hp, device=device)
+    res["binarize_s"] = time.time() - t0
+    hp = set_hparams(config=cfg_fn, exp_name="smoke_own", reset=True,
+                     print_hparams=False)
+    ds = FastSpeechDataset("train", hp, shuffle=True)
+    log(f"[own] binarized {OWN_CLIPS} clips ({float(secs.sum()):.1f} s) in "
+        f"{res['binarize_s']:.2f}s; train split {len(ds)} items")
+    if len(ds) != 88:
+        raise SmokeError(f"train split of {len(ds)} items, expected 88")
+
+    # the batches the trainer draws in its epochs, with their routes
+    pad = int(hp["frames_multiple"])
+    res["batches"] = []
+    for epoch in range(OWN_STEPS):
+        for idx in build_batches(ds, hp, rng=np.random.RandomState(
+                int(hp["seed"]) + epoch)):
+            b = len(idx)
+            t = -(-int(max(ds.num_tokens(i) for i in idx)) // pad) * pad
+            route = batch_route(hp, b, t)
+            res["batches"].append({"epoch": epoch, "B": b, "T": t,
+                                   "route": route})
+            log(f"[own] epoch {epoch} batch: B={b} T={t} route {route}")
+            if b != 88 or route != "per_sample":
+                raise SmokeError(f"a batch of {b} on the {route} route; "
+                                 "expected 88 on the per-sample route")
+
+    # --- train through the entry point: K5 once per step, K4's backward
+    # never, K1 for validation's primal
+    k1.launches = k5.launches = k4.bwd_launches = 0
+    t0 = time.time()
+    trainer = run_task(hp, device=device)
+    torch.cuda.synchronize()
+    res["fit_s"] = time.time() - t0
+    res["launches"] = {"residual_stack_train": k5.launches,
+                       "residual_stack_train_batched (backward)":
+                       k4.bwd_launches, "residual_stack": k1.launches}
+    losses = [h["loss"] for h in trainer.history]
+    res["losses"] = losses
+    log(f"[own] run_task: {trainer.global_step} steps in {res['fit_s']:.2f}s"
+        f", losses {[round(x, 5) for x in losses]}, launches "
+        f"{res['launches']}")
+    if trainer.global_step != OWN_STEPS or len(losses) != OWN_STEPS \
+            or not np.isfinite(losses).all():
+        raise SmokeError(f"training: {trainer.global_step} steps, losses "
+                         f"{losses}")
+    if k5.launches != OWN_STEPS or k4.bwd_launches != 0 or k1.launches <= 0:
+        raise SmokeError(f"launches on the per-sample route: "
+                         f"{res['launches']}")
+
+    # --- the step's cost at B=88, and the card against the plain versions
+    task = trainer.task
+    batch = next(iter(BatchIterator(ds, [list(range(len(ds)))],
+                                    pad_multiple=pad)))
+    res["timing"] = dict(time_steps(task, batch, reps=2),
+                         route=batch_route(hp, *batch["mels"].shape[:2]))
+    log_steps("own", f"bf16 config, {res['timing']['route']} route", batch,
+              res["timing"])
+    res["profile"] = profile_run(f"train step B={len(ds)} T="
+                                 f"{batch['mels'].shape[1]} (K5)",
+                                 lambda: task.train_step(batch))
+    g = torch.Generator().manual_seed(8)
+    t = torch.randint(0, task.model.K_step, (len(ds),), generator=g)
+    noise = torch.randn(batch["mels"].shape, generator=g)
+    res["card_vs_plain"] = card_vs_plain_step(
+        task, batch, t, noise, k5,
+        [(k4, {"residual_stack_train_fwd": k4.residual_stack_train_fwd_plain}),
+         (k5, {"residual_stack_train_bwd": k5.residual_stack_train_bwd_plain})],
+        "residual_stack_train_bwd", OWN_STEP_TOL, tag="own")
+    del task, trainer
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1001,38 +1396,61 @@ def main(argv=None) -> int:
                 log(f"[ptxas] {line.strip()}")
 
         record["kernels"] = phase_kernels(device)
+        from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
+
+        k6.launches = 0     # K6 is on no path: phases 4-6 must not launch it
         with tempfile.TemporaryDirectory() as tmp:
             cwd = os.getcwd()
             os.chdir(tmp)     # Svc keeps its ./infer_tools caches here
             try:
                 record["slice"] = phase_slice(device, tmp)
                 record["train"] = phase_train(device, tmp)
+                cfg = train_config(tmp)
+                record["own_batch"] = phase_train_own_batch(
+                    device, tmp, cfg["hubert_path"], cfg["vocoder_ckpt"])
             finally:
                 os.chdir(cwd)
         torch.cuda.synchronize()
+        record["k6_path_launches"] = k6.launches
+        log(f"[paths] K6 launches over phases 4-6: {k6.launches}")
+        if k6.launches != 0:
+            raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
+                             "no path of the port runs it")
     except SmokeError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
     entries = []
+    # each kernel's launches on the path that runs it: K1-K3 the conversions
+    # (phase 4), K4 the trainer at max_sentences 24 (phase 5), K5 the trainer
+    # at the config's own batch (phase 6); K6 is on no path, so its count over
+    # phases 4-6, which must be 0
     launches = dict(record["slice"]["launches"],
-                    residual_stack_train=record["train"]["launches"])
+                    residual_stack_train_batched=record["train"]["launches"],
+                    residual_stack_train=record["own_batch"]["launches"][
+                        "residual_stack_train"],
+                    fused_residual_block=record["k6_path_launches"])
     for name, (src, replaces) in KERNELS.items():
         by_dt = record["kernels"][name]
         main_dt = "bf16" if "bf16" in by_dt else "f32"
         main = by_dt[main_dt]
-        measured = ("max_abs_err", "rel_l2", "ms", "plain_ms")
+        measured = ("max_abs_err", "rel_l2", "ms", "plain_ms", "bound_ms",
+                    "bound_by")
         entries.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": main["max_abs_err"],
                         "ms": main["ms"], "plain_ms": main["plain_ms"],
+                        "bound_ms": main["bound_ms"],
+                        "bound_by": main["bound_by"], "library_ms": None,
                         "dtype": main_dt,
+                        "main_path": name != "fused_residual_block",
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"card": card, **record}, f, indent=1)
+            json.dump({"card": card, **record}, f, indent=1,
+                      default=lambda o: o.item())   # numpy scalars
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

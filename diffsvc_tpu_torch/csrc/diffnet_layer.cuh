@@ -1,6 +1,7 @@
 // One gated residual layer of DiffNet as two tiled SIMT kernels, shared by
-// the serving stack (K1, diffnet_stack.cu) and the training forward with
-// save (K4, diffnet_stack_train.cu).  Per layer, with d = 2^(l mod cycle):
+// the serving stack (K1, diffnet_stack.cu), the training forward with save
+// (K4, diffnet_stack_train.cu; also K5's forward) and the single residual
+// block (K6, diffnet_block.cu, with its own output epilogue).  Per layer, with d = 2^(l mod cycle):
 //   y = x + sb_l                       (rounded to the operand dtype OT)
 //   z = y[t-d] W0 + y[t] W1 + y[t+d] W2 + bd + cond_l   (zeros outside [0,T))
 //   h = sigmoid(z[:C]) * tanh(z[C:])   (rounded to OT)
@@ -108,19 +109,19 @@ gate_kernel(const XT* __restrict__ x, const BT* __restrict__ sb, long long sb_b,
   }
 }
 
-template <typename XT, typename OT, typename BT>
-__global__ void __launch_bounds__(NT)
-out_kernel(const OT* __restrict__ h, const OT* __restrict__ wo,
-           const BT* __restrict__ bo, XT* __restrict__ x,
-           float* __restrict__ skip, OT* __restrict__ xsave, int rows, int C,
-           int first) {
+// The output projection's two column halves for one 64 x 32 tile: ar[i][j]
+// = sum_k h[m0 + 4 ty + i, k] wo[k, n0 + 2 tx + j] (residual half) and as
+// the same with wo[k, C + ...] (skip half); f32 accumulation.
+template <typename OT>
+__device__ __forceinline__ void out_gemm(const OT* __restrict__ h,
+                                         const OT* __restrict__ wo, int rows,
+                                         int C, int m0, int n0,
+                                         float (&ar)[4][2], float (&as)[4][2]) {
   __shared__ float As[BK][BM];
   __shared__ float Br[BK][BN];
   __shared__ float Bs[BK][BN];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int C2 = 2 * C;
-  float ar[4][2] = {}, as[4][2] = {};
   for (int k0 = 0; k0 < C; k0 += BK) {
     for (int e = tid; e < BM * BK; e += NT) {
       const int m = e / BK, kk = e % BK, r = m0 + m, k = k0 + kk;
@@ -153,6 +154,18 @@ out_kernel(const OT* __restrict__ h, const OT* __restrict__ wo,
     }
     __syncthreads();
   }
+}
+
+template <typename XT, typename OT, typename BT>
+__global__ void __launch_bounds__(NT)
+out_kernel(const OT* __restrict__ h, const OT* __restrict__ wo,
+           const BT* __restrict__ bo, XT* __restrict__ x,
+           float* __restrict__ skip, OT* __restrict__ xsave, int rows, int C,
+           int first) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float ar[4][2] = {}, as[4][2] = {};
+  out_gemm(h, wo, rows, C, m0, n0, ar, as);
   const float inv_sqrt2 = 0.7071067811865476f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -169,6 +182,38 @@ out_kernel(const OT* __restrict__ h, const OT* __restrict__ wo,
       if (xsave != nullptr) xsave[idx] = from_f<OT>(xv);
       x[idx] = from_f<XT>((xv + res) * inv_sqrt2);
       skip[idx] = first ? sk : skip[idx] + sk;
+    }
+  }
+}
+
+// The single residual block's epilogue (K6, diffnet_block.cu): everything
+// in T, rounded where the TPU kernel rounds with .astype(x.dtype):
+// x_out = rnd(rnd(x + rnd(o[:C])) * rnd(1/sqrt2)) (the Python scalar takes
+// x's dtype, as a weak-typed constant does in JAX), skip = rnd(o[C:]) per
+// layer.  x is read, x_out written (no in-place update).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+block_out_kernel(const T* __restrict__ h, const T* __restrict__ wo,
+                 const T* __restrict__ bo, const T* __restrict__ x,
+                 T* __restrict__ x_out, T* __restrict__ skip, int rows,
+                 int C) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float ar[4][2] = {}, as[4][2] = {};
+  out_gemm(h, wo, rows, C, m0, n0, ar, as);
+  const float inv_sqrt2 = rnd<T>(0.7071067811865476f);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty * 4 + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int o = n0 + tx * 2 + j;
+      if (o >= C) continue;
+      const long long idx = (long long)r * C + o;
+      const float res = rnd<T>(ar[i][j] + to_f(bo[o]));
+      x_out[idx] = from_f<T>(rnd<T>(to_f(x[idx]) + res) * inv_sqrt2);
+      skip[idx] = from_f<T>(as[i][j] + to_f(bo[C + o]));
     }
   }
 }

@@ -5,343 +5,21 @@
 // (forward _fwd_kernel via _call_fwd, backward _bwd_kernel_b via
 // _call_bwd_batched).  The forward is K1's two kernels per layer
 // (diffnet_layer.cuh) with an f32 (or bf16) residual state, operands in the
-// stream dtype OT and x_l stored into xsave [L, B, T, C].  The backward walks
-// the layers in reverse; per layer l, with d = 2^(l mod cycle):
-//   1. gate_kernel recomputes z = conv(y) + bd + cond from the saved, rounded
-//      x_l (f32 z into scratch) and h = rnd(sigmoid(z_g) tanh(z_f));
-//   2. make_do:   do = [dx / sqrt2 | dout]                    (f32 scratch)
-//   3. dh_kernel: dh = rnd(do) wo^T; dz = [dh s(1-s)tf | dh s(1-tf^2)]
-//      (f32, in place of z) and dcp_l = rnd(dz);
-//   4. dy_kernel: dy = sum_j shiftback_j(dcp_l) W_j^T; dx <- dy + dx / sqrt2;
-//   5. weight grads contracted over all B*T rows: dWo = h^T rnd(do),
-//      dW_j = y_shift(j)^T dcp_l, in row chunks (one partial per chunk) and
-//      then summed over the chunks in order;
-//   6. dbo = sum do, dbd = sum dz, dsb[b] = sum_t dy[b]: two-pass column sums.
-// No atomics anywhere: every output element is written by one thread, and
-// every reduction sums in a fixed order, so two runs give the same bits.
+// stream dtype OT and x_l stored into xsave [L, B, T, C]; K5 (the per-sample
+// route) uses the same forward at an f32 stream.  The backward
+// (diffnet_train_bwd.cuh, shared with K5) walks the layers in reverse; here
+// its weight and bias grads are contracted over all B*T rows as one
+// segment, dcp is stored in OT and the cotangent arrives in OT.
 // The TPU kernel keeps the [B, T, C] dx carry and the weight-grad
 // accumulators in VMEM; here dx lives in device memory (f32) and is handed
 // back as dx0 after the last layer (written once, not per layer).
 //
 // Rounding points follow the TPU kernel: y, h, do, dz rounded to OT before
 // the products; z, dx, dz sums and all weight/bias grads f32; dcp stored in
-// OT.  What bounds it on the H100: FLOPs on the CUDA cores, ~160 GFLOP per
-// layer backward at B=24, T=1024, C=384 (five GEMMs of K = 2C..6C or of
-// K = B*T).  Tensor-core tiles are later work.
-#include "diffnet_layer.cuh"
-
-namespace {
-
-constexpr float kInvSqrt2 = 0.7071067811865476f;
-
-// acc[i][j] += sum_{k in [k_begin, k_end)} A(m0 + 4 ty + i, k) B(k, n0 + 2 tx + j)
-// la(m, k) / lb(k, n) return the f32 operand, 0 outside the matrix.
-// A_M_FAST / B_N_FAST name the index that is contiguous in memory, so that
-// neighbouring threads load neighbouring addresses.
-template <bool A_M_FAST, bool B_N_FAST, class LA, class LB>
-__device__ __forceinline__ void tile_gemm(const LA& la, const LB& lb,
-                                          int k_begin, int k_end, int m0,
-                                          int n0, float (&acc)[4][2]) {
-  __shared__ float As[BK][BM];
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
-    for (int e = tid; e < BM * BK; e += NT) {
-      const int m = A_M_FAST ? e % BM : e / BK;
-      const int kk = A_M_FAST ? e / BM : e % BK;
-      const int k = k0 + kk;
-      As[kk][m] = k < k_end ? la(m0 + m, k) : 0.f;
-    }
-    for (int e = tid; e < BK * BN; e += NT) {
-      const int n = B_N_FAST ? e % BN : e / BK;
-      const int kk = B_N_FAST ? e / BN : e % BK;
-      const int k = k0 + kk;
-      Bs[kk][n] = k < k_end ? lb(k, n0 + n) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) b[j] = Bs[kk][tx * 2 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
-// do [rows, 2C] = [dx / sqrt2 | dout]
-template <typename OT>
-__global__ void make_do_kernel(const float* __restrict__ dx,
-                               const OT* __restrict__ dout,
-                               float* __restrict__ do_, long long rows, int C) {
-  const long long n = rows * 2 * C;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long r = i / (2 * C);
-    const int c = static_cast<int>(i - r * 2 * C);
-    do_[i] = c < C ? dx[r * C + c] * kInvSqrt2 : to_f(dout[r * C + c - C]);
-  }
-}
-
-// dh = rnd(do) wo_l^T (K = 2C); epilogue: z -> dz in place, dcp_l = rnd(dz)
-template <typename OT>
-__global__ void __launch_bounds__(NT)
-dh_kernel(const float* __restrict__ do_, const OT* __restrict__ wo,
-          float* __restrict__ z, OT* __restrict__ dcp, int rows, int C) {
-  const int C2 = 2 * C;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  auto la = [&](int r, int k) {
-    return r < rows ? rnd<OT>(do_[(long long)r * C2 + k]) : 0.f;
-  };
-  auto lb = [&](int k, int c) {
-    return c < C ? to_f(wo[(long long)c * C2 + k]) : 0.f;
-  };
-  float acc[4][2] = {};
-  tile_gemm<false, false>(la, lb, 0, C2, m0, n0, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = n0 + tx * 2 + j;
-      if (c >= C) continue;
-      const long long ig = (long long)r * C2 + c, ifl = ig + C;
-      const float dh = acc[i][j];
-      const float s = dsvc::sigmoidf_(z[ig]);
-      const float tf = tanhf(z[ifl]);
-      const float dg = dh * s * (1.f - s) * tf;
-      const float df = dh * s * (1.f - tf * tf);
-      z[ig] = dg;
-      z[ifl] = df;
-      dcp[ig] = from_f<OT>(dg);
-      dcp[ifl] = from_f<OT>(df);
-    }
-  }
-}
-
-// dy[t] = dz[t+d] W0^T + dz[t] W1^T + dz[t-d] W2^T (K = 6C, zeros outside
-// the sample); epilogue: dy out, dx <- dy + dx / sqrt2
-template <typename OT>
-__global__ void __launch_bounds__(NT)
-dy_kernel(const OT* __restrict__ dcp, const OT* __restrict__ wd,
-          float* __restrict__ dy, float* __restrict__ dx, int B, int T_,
-          int C, int d) {
-  const int C2 = 2 * C, rows = B * T_;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  auto la = [&](int r, int k) {
-    if (r >= rows) return 0.f;
-    const int j = k / C2, n = k - j * C2;
-    const int b = r / T_, t = r - b * T_, ts = t - (j - 1) * d;
-    if (ts < 0 || ts >= T_) return 0.f;
-    return to_f(dcp[((long long)b * T_ + ts) * C2 + n]);
-  };
-  auto lb = [&](int k, int c) {
-    if (c >= C) return 0.f;
-    const int j = k / C2, n = k - j * C2;
-    return to_f(wd[((long long)j * C + c) * C2 + n]);
-  };
-  float acc[4][2] = {};
-  tile_gemm<false, false>(la, lb, 0, 3 * C2, m0, n0, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = n0 + tx * 2 + j;
-      if (c >= C) continue;
-      const long long idx = (long long)r * C + c;
-      dy[idx] = acc[i][j];
-      dx[idx] = acc[i][j] + dx[idx] * kInvSqrt2;
-    }
-  }
-}
-
-// partial dWo over the row chunk blockIdx.z: part[z][k][n] = sum_r h[r,k] rnd(do[r,n])
-template <typename OT>
-__global__ void __launch_bounds__(NT)
-wgrad_out_kernel(const OT* __restrict__ h, const float* __restrict__ do_,
-                 float* __restrict__ part, int rows, int C, int rch) {
-  const int C2 = 2 * C;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int r0 = blockIdx.z * rch, r1 = min(rows, r0 + rch);
-  auto la = [&](int m, int r) {
-    return m < C ? to_f(h[(long long)r * C + m]) : 0.f;
-  };
-  auto lb = [&](int r, int n) {
-    return n < C2 ? rnd<OT>(do_[(long long)r * C2 + n]) : 0.f;
-  };
-  float acc[4][2] = {};
-  tile_gemm<true, true>(la, lb, r0, r1, m0, n0, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* out = part + (long long)blockIdx.z * C * C2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= C) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + tx * 2 + j;
-      if (n < C2) out[(long long)m * C2 + n] = acc[i][j];
-    }
-  }
-}
-
-// partial dW over the row chunk blockIdx.z:
-// part[z][j*C + c][n] = sum_r y[r + (j-1) d, c] dcp[r, n], y = rnd(x_l + sb)
-template <typename OT>
-__global__ void __launch_bounds__(NT)
-wgrad_dil_kernel(const OT* __restrict__ xs, const float* __restrict__ sb,
-                 const OT* __restrict__ dcp, float* __restrict__ part, int B,
-                 int T_, int C, int d, int rch) {
-  const int C2 = 2 * C, rows = B * T_, M = 3 * C;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int r0 = blockIdx.z * rch, r1 = min(rows, r0 + rch);
-  auto la = [&](int m, int r) {
-    if (m >= M) return 0.f;
-    const int j = m / C, c = m - j * C;
-    const int b = r / T_, t = r - b * T_, ts = t + (j - 1) * d;
-    if (ts < 0 || ts >= T_) return 0.f;
-    return rnd<OT>(to_f(xs[((long long)b * T_ + ts) * C + c]) +
-                   sb[(long long)b * C + c]);
-  };
-  auto lb = [&](int r, int n) {
-    return n < C2 ? to_f(dcp[(long long)r * C2 + n]) : 0.f;
-  };
-  float acc[4][2] = {};
-  tile_gemm<true, true>(la, lb, r0, r1, m0, n0, acc);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  float* out = part + (long long)blockIdx.z * M * C2;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int n = n0 + tx * 2 + j;
-      if (n < C2) out[(long long)m * C2 + n] = acc[i][j];
-    }
-  }
-}
-
-// out[i] = sum_c part[c][i], c in order
-__global__ void sum_chunks_kernel(const float* __restrict__ part, int nch,
-                                  long long n, float* __restrict__ out) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < nch; ++c) s += part[c * n + i];
-    out[i] = s;
-  }
-}
-
-// Column sums of src [G * group_rows, N] per group of rows, in two passes:
-// part[g][c][n] = sum over chunk c (cch rows) of group g, then
-// out[g][n] = sum_c part[g][c][n].
-__global__ void colsum_part_kernel(const float* __restrict__ src, int N,
-                                   int group_rows, int cch,
-                                   float* __restrict__ part) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  const int c = blockIdx.y, g = blockIdx.z, nch = gridDim.y;
-  if (n >= N) return;
-  const long long r0 = (long long)g * group_rows + (long long)c * cch;
-  const long long r1 = min((long long)(g + 1) * group_rows, r0 + cch);
-  float s = 0.f;
-  for (long long r = r0; r < r1; ++r) s += src[r * N + n];
-  part[((long long)g * nch + c) * N + n] = s;
-}
-
-__global__ void colsum_final_kernel(const float* __restrict__ part, int N,
-                                    int nch, int G, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= G * N) return;
-  const int g = i / N, n = i - g * N;
-  float s = 0.f;
-  for (int c = 0; c < nch; ++c) s += part[((long long)g * nch + c) * N + n];
-  out[i] = s;
-}
-
-int colsum(const float* src, int rows, int N, int group_rows, int cch,
-           float* cpart, float* out, cudaStream_t s) {
-  const int G = rows / group_rows, nch = (group_rows + cch - 1) / cch;
-  colsum_part_kernel<<<dim3((N + 255) / 256, nch, G), 256, 0, s>>>(
-      src, N, group_rows, cch, cpart);
-  DSVC_LAUNCH_CHECK();
-  colsum_final_kernel<<<(G * N + 255) / 256, 256, 0, s>>>(cpart, N, nch, G,
-                                                          out);
-  DSVC_LAUNCH_CHECK();
-  return 0;
-}
-
-// blocks of 256 threads for a grid-stride loop over n elements
-int grid1d(long long n) {
-  const long long blocks = (n + 255) / 256, cap = 65535LL * 8;
-  return static_cast<int>(blocks < cap ? blocks : cap);
-}
-
-template <typename OT>
-int run_bwd(const OT* xs, const float* sb, const OT* cond, const OT* wd,
-            const float* bd, const OT* wo, const OT* dout, float* dx,
-            float* dsb, OT* dcp, float* dwd, float* dbd, float* dwo,
-            float* dbo, float* z, OT* h, float* do_, float* dy, float* wpart,
-            float* cpart, int B, int T_, int C, int L, int cycle, int rch,
-            int cch, cudaStream_t s) {
-  const int rows = B * T_, C2 = 2 * C;
-  const long long RC = (long long)rows * C, RC2 = (long long)rows * C2;
-  const int nchw = (rows + rch - 1) / rch;
-  const dim3 grid_rc((rows + BM - 1) / BM, (C + BN - 1) / BN);
-  const dim3 grid_wo((C + BM - 1) / BM, (C2 + BN - 1) / BN, nchw);
-  const dim3 grid_wd((3 * C + BM - 1) / BM, (C2 + BN - 1) / BN, nchw);
-  cudaError_t e = cudaMemsetAsync(dx, 0, RC * sizeof(float), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  for (int l = L - 1; l >= 0; --l) {
-    const int d = 1 << (l % cycle);
-    const OT* xs_l = xs + l * RC;
-    const float* sb_l = sb + (long long)l * B * C;
-    const OT* wd_l = wd + (long long)l * 3 * C * C2;
-    const OT* wo_l = wo + (long long)l * C * C2;
-    OT* dcp_l = dcp + l * RC2;
-    gate_kernel<OT, OT, float><<<grid_rc, NT, 0, s>>>(
-        xs_l, sb_l, C, cond + l * RC2, wd_l, bd + (long long)l * C2, h, z, B,
-        T_, C, d);
-    DSVC_LAUNCH_CHECK();
-    make_do_kernel<OT><<<grid1d(RC2), 256, 0, s>>>(dx, dout, do_, rows, C);
-    DSVC_LAUNCH_CHECK();
-    dh_kernel<OT><<<grid_rc, NT, 0, s>>>(do_, wo_l, z, dcp_l, rows, C);
-    DSVC_LAUNCH_CHECK();
-    dy_kernel<OT><<<grid_rc, NT, 0, s>>>(dcp_l, wd_l, dy, dx, B, T_, C, d);
-    DSVC_LAUNCH_CHECK();
-    wgrad_out_kernel<OT><<<grid_wo, NT, 0, s>>>(h, do_, wpart, rows, C, rch);
-    DSVC_LAUNCH_CHECK();
-    sum_chunks_kernel<<<grid1d((long long)C * C2), 256, 0, s>>>(
-        wpart, nchw, (long long)C * C2, dwo + (long long)l * C * C2);
-    DSVC_LAUNCH_CHECK();
-    wgrad_dil_kernel<OT><<<grid_wd, NT, 0, s>>>(xs_l, sb_l, dcp_l, wpart, B,
-                                                T_, C, d, rch);
-    DSVC_LAUNCH_CHECK();
-    sum_chunks_kernel<<<grid1d(3LL * C * C2), 256, 0, s>>>(
-        wpart, nchw, 3LL * C * C2, dwd + (long long)l * 3 * C * C2);
-    DSVC_LAUNCH_CHECK();
-    int err = colsum(do_, rows, C2, rows, cch, cpart, dbo + (long long)l * C2, s);
-    if (err) return err;
-    err = colsum(z, rows, C2, rows, cch, cpart, dbd + (long long)l * C2, s);
-    if (err) return err;
-    err = colsum(dy, rows, C, T_, cch, cpart, dsb + (long long)l * B * C, s);
-    if (err) return err;
-  }
-  return 0;
-}
-
-}  // namespace
+// OT.  What bounds it on the H100: FLOPs on the CUDA cores, 60 C^2 FLOPs
+// per row and layer for the forward and backward together (~4.4 TFLOP at
+// B=24, T=1024, C=384, L=20).  Tensor-core tiles are later work.
+#include "diffnet_train_bwd.cuh"
 
 extern "C" {
 
@@ -385,9 +63,8 @@ int dsvc_stack_train_fwd(int xdt, int odt, void* x, void* h, void* skip,
 // Batch-fused backward.  In: xsave [L,B,T,C], sb [L,B,C] f32 (contiguous),
 // cond [L,B,T,2C], wd, wo, dout [B,T,C] (odt), bd [L,2C] f32.  Out: dx
 // [B,T,C] f32 (= dx0), dsb [L,B,C] f32, dcp [L,B,T,2C] odt, dwd [L,3,C,2C],
-// dbd [L,2C], dwo [L,C,2C], dbo [L,2C] f32.  Scratch: z, do_ [B*T,2C] f32,
-// h [B*T,C] odt, dy [B*T,C] f32, wpart [ceil(B*T/rch),3C,2C] f32, cpart
-// [max(ceil(B*T/cch)*2C, B*ceil(T/cch)*C)] f32.
+// dbd [L,2C], dwo [L,C,2C], dbo [L,2C] f32.  Scratch as run_bwd states with
+// one segment of B*T rows (no gsum).
 int dsvc_stack_train_bwd(int odt, const void* xsave, const void* sb,
                          const void* cond, const void* wd, const void* bd,
                          const void* wo, const void* dout, void* dx, void* dsb,
@@ -406,23 +83,20 @@ int dsvc_stack_train_bwd(int odt, const void* xsave, const void* sb,
                 static_cast<float*>(cpart)};
   if (odt == DSVC_BF16) {
     using bf = __nv_bfloat16;
-    return run_bwd<bf>(static_cast<const bf*>(xsave), sbf,
-                       static_cast<const bf*>(cond), static_cast<const bf*>(wd),
-                       bdf, static_cast<const bf*>(wo),
-                       static_cast<const bf*>(dout), f[0], f[1],
-                       static_cast<bf*>(dcp), f[2], f[3], f[4], f[5], f[6],
-                       static_cast<bf*>(h), f[7], f[8], f[9], f[10], B, T, C,
-                       L, cycle, rch, cch, s);
+    return run_bwd<bf, bf, bf>(
+        static_cast<const bf*>(xsave), sbf, static_cast<const bf*>(cond),
+        static_cast<const bf*>(wd), bdf, static_cast<const bf*>(wo),
+        static_cast<const bf*>(dout), f[0], f[1], static_cast<bf*>(dcp), f[2],
+        f[3], f[4], f[5], f[6], static_cast<bf*>(h), f[7], f[8], f[9], f[10],
+        nullptr, B, T, C, L, cycle, B * T, rch, cch, s);
   }
   if (odt != DSVC_F32) return static_cast<int>(cudaErrorInvalidValue);
-  return run_bwd<float>(static_cast<const float*>(xsave), sbf,
-                        static_cast<const float*>(cond),
-                        static_cast<const float*>(wd), bdf,
-                        static_cast<const float*>(wo),
-                        static_cast<const float*>(dout), f[0], f[1],
-                        static_cast<float*>(dcp), f[2], f[3], f[4], f[5], f[6],
-                        static_cast<float*>(h), f[7], f[8], f[9], f[10], B, T,
-                        C, L, cycle, rch, cch, s);
+  return run_bwd<float, float, float>(
+      static_cast<const float*>(xsave), sbf, static_cast<const float*>(cond),
+      static_cast<const float*>(wd), bdf, static_cast<const float*>(wo),
+      static_cast<const float*>(dout), f[0], f[1], static_cast<float*>(dcp),
+      f[2], f[3], f[4], f[5], f[6], static_cast<float*>(h), f[7], f[8], f[9],
+      f[10], nullptr, B, T, C, L, cycle, B * T, rch, cch, s);
 }
 
 }  // extern "C"

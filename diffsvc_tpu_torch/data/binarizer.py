@@ -132,11 +132,14 @@ class SVCBinarizer:
               f"({len(lengths)} items)")
 
 
-def binarize(hp, device="cpu") -> None:
+def binarize(hp, device=None) -> None:
     """CLI body (reference ``preprocessing/binarize.py``): the configured
-    ``binarizer_cls`` must be the SVC binarizer, the one that is ported."""
+    ``binarizer_cls`` must be the SVC binarizer, the one that is ported.
+    Features run on ``device``, by default the card (``default_device``)."""
     name = str(hp.get("binarizer_cls", "SVCBinarizer"))
     if not name.endswith("SVCBinarizer"):
         raise NotImplementedError(f"binarizer_cls {name} is not ported to "
                                   "torch (SVCBinarizer is)")
-    SVCBinarizer(hp, device=device).process()
+    from ..infer.svc import default_device
+
+    SVCBinarizer(hp, device=default_device(device)).process()

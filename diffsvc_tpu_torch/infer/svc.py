@@ -68,8 +68,18 @@ def get_md5(content) -> str:
     return hashlib.new("md5", content).hexdigest()
 
 
-def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def default_device(asked=None) -> torch.device:
+    """The device an entry point runs on: the one the caller ``asked`` for
+    (``device="cpu"``, ``--device cpu``), else the card.  Asking for the
+    card, by name or by default, raises when there is none: the port never
+    falls back to the CPU."""
+    if asked is not None and torch.device(asked).type != "cuda":
+        return torch.device(asked)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU; "
+                           "ask for the CPU with device='cpu' (--device cpu "
+                           "on the command line)")
+    return torch.device(asked if asked is not None else "cuda")
 
 
 class Svc:
@@ -78,8 +88,7 @@ class Svc:
         self.project_name = project_name
         self.model_path = model_path
         self.pad_multiple = pad_multiple
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = default_device(device)
         self.hp = set_hparams(config=config_name, exp_name=project_name,
                               infer=True, reset=True, hparams_str="",
                               print_hparams=False)

@@ -7,7 +7,8 @@ Usage:
         --model checkpoints/<name>/model_ckpt_steps_N.ckpt \\
         --config checkpoints/<name>/config.yaml --files song.wav --key 0
 
-CREPE is not ported yet, so the AC tracker is the default here (infer.py
+The model runs on the card; ``--device cpu`` asks for the CPU (there is no
+fallback).  CREPE is not ported yet, so the AC tracker is the default here (infer.py
 defaults to CREPE): ``--no_crepe`` is accepted and changes nothing, and
 ``--crepe`` raises NotImplementedError.  Not ported yet either: ``--fused``,
 ``--batch_chunks``, ``--crossfade_ms``.
@@ -117,6 +118,8 @@ def main(argv=None):
     ap.add_argument("--use_gt_mel", action="store_true")
     ap.add_argument("--add_noise_step", type=int, default=500)
     ap.add_argument("--format", default="wav")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="where the model runs (default: the card)")
     args = ap.parse_args(argv)
 
     model_path = args.model or f"./checkpoints/{args.project}/"
@@ -129,7 +132,8 @@ def main(argv=None):
     keys = list(args.key)
     keys.extend([keys[0]] * (len(args.files) - len(keys)))
 
-    model = Svc(args.project, config_path, True, model_path)
+    model = Svc(args.project, config_path, True, model_path,
+                device=args.device)
     acc = args.acc if args.acc is not None else int(
         model.hp.get("pndm_speedup", 20) or 20)
     for f_name, key in zip(args.files, keys):

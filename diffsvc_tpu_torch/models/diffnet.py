@@ -11,9 +11,11 @@ load with ``load_state_dict``.  The math runs on layer-stacked weights in the
 JAX package's layouts (:meth:`DiffNet.stacked` for serving, cached and
 detached; :meth:`DiffNet.weights` for training, rebuilt with grad on every
 call).  The residual stack goes through K1 (``ops/hopper/diffnet_stack.py``)
-when serving and through K4 (``ops/hopper/diffnet_stack_train.py``) when
-:func:`apply` is given a ``train_stream``: the kernels for CUDA tensors,
-their plain versions for CPU tensors.
+when serving; when :func:`apply` is given a ``train_stream`` it takes the
+route :func:`train_route` picks, as the JAX package does: K4
+(``ops/hopper/diffnet_stack_train.py``) or K5
+(``ops/hopper/diffnet_stack_per_sample.py``).  The kernels run for CUDA
+tensors, their plain versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -23,8 +25,38 @@ import math
 import torch
 from torch import nn
 
-from ..ops.hopper import diffnet_stack, diffnet_stack_train
+from ..ops.hopper import (diffnet_stack, diffnet_stack_per_sample,
+                          diffnet_stack_train)
 from . import nn as fnn
+
+_MIB = 2 ** 20
+
+
+def train_route(n_layers: int, cycle: int, t: int, c: int, b: int,
+                stream: str = "bf16") -> str:
+    """The training route of ``diffsvc_tpu/models/diffnet.py:219-295`` for
+    a batch of ``b`` samples of ``t`` frames: the port's own copy of the
+    shape arithmetic of ``supported_train_batched`` and ``supported_train``
+    (``diffsvc_tpu/ops/pallas/diffnet_stack.py:663-686``, ``:426-439``).
+
+    It is carried over as a route rule, not as a check of this card's
+    memory: the route decides the numbers.  "batched" is K4 at the
+    configured ``stream`` (bf16 or f32) with weight grads summed over the
+    whole batch; "per_sample" is K5 with f32 streams and per-sample sums;
+    "scan" is the JAX package's f32 XLA scan, which the port computes
+    with K4 at the f32 stream (the scan's math in exact f32)."""
+    if not (c % 128 == 0 and t % 128 == 0 and cycle >= 1
+            and n_layers % cycle == 0 and 2 ** (cycle - 1) < t):
+        return "scan"
+    e = 2 if stream == "bf16" else 4
+    streams = 2 * (t * c * e + t * 2 * c * e + 3 * c * 2 * c * e
+                   + c * 2 * c * e + t * c * e + t * 2 * c * e + t * c * 4)
+    accum = (3 * c * 2 * c + c * 2 * c + 4 * 2 * c) * 4
+    if b >= 1 and streams + accum + b * t * c * 4 <= 60 * _MIB:
+        return "batched"
+    streamed = 2 * (t * 2 * c + 3 * c * 2 * c + c * 2 * c) * 4
+    resident = 8 * t * c * 4 + 2 * t * 2 * c * 4
+    return "per_sample" if streamed + resident <= 64 * _MIB else "scan"
 
 
 class ResidualBlock(nn.Module):
@@ -170,9 +202,11 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
         [L, B, T, 2C]
     :param train_stream: None serves through K1 on the cached weights; a
         ``diffnet_train_stream_dtype`` ("bf16" or "f32") takes the training
-        route (``diffsvc_tpu/models/diffnet.py:219-295``): K4 with its
-        backward when grad is enabled, K1 on operands rounded through the
-        stream dtype when not (validation's loss)
+        route that :func:`train_route` picks for the batch's shape
+        (``diffsvc_tpu/models/diffnet.py:219-295``): K4 at that stream, K5,
+        or K4 at the f32 stream, with their backward when grad is enabled;
+        K1 on operands rounded through the route's stream when not
+        (validation's loss)
     :return: [B, T, M] noise prediction in the compute dtype
     """
     dt = spec.dtype
@@ -190,9 +224,16 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
             x.contiguous(), sb, cond_proj, p["wd"], p["bd"], p["wo"],
             p["bo"], cycle=net.cycle)
     else:
-        skip = diffnet_stack_train.residual_stack_train(
-            x, sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"],
-            cycle=net.cycle, stream=train_stream)
+        b, t = spec.shape[:2]
+        route = train_route(n_layers, net.cycle, t, c, b, train_stream)
+        ops = (x, sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"])
+        if route == "per_sample":
+            skip = diffnet_stack_per_sample.residual_stack_train(
+                *ops, cycle=net.cycle)
+        else:
+            skip = diffnet_stack_train.residual_stack_train_batched(
+                *ops, cycle=net.cycle,
+                stream=train_stream if route == "batched" else "f32")
     x = (skip * (1.0 / math.sqrt(n_layers))).to(dt)
     x = torch.relu(x.float() @ p["wskip"].float() + p["bskip"].float()).to(dt)
     return (x.float() @ p["wout"].float() + p["bout"].float()).to(dt)

@@ -262,8 +262,8 @@ class GaussianDiffusion(nn.Module):
         JAX step's draws); otherwise both are drawn on the batch's device
         from ``generator`` (which lives there), t first.  The denoiser takes
         the training route of :func:`diffnet.apply` with
-        ``diffnet_train_stream_dtype``; with grad enabled that is K4 and its
-        backward.  The JAX version also takes ``train`` for the
+        ``diffnet_train_stream_dtype``; with grad enabled that is K4 or K5
+        and its backward (``diffnet.train_route``).  The JAX version also takes ``train`` for the
         conditioner's dropout; the ported no_fs2 conditioner has none."""
         ret = self.fs2(batch["hubert"], batch["mel2ph"], batch["f0"],
                        batch.get("uv"), batch.get("energy"),

@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``csrc/*.cu``).
 
-Every ``.cu`` file under ``diffsvc_tpu_torch/csrc`` is compiled by ``nvcc``
-for ``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``.  The library goes to ``build/diffsvc_tpu_torch/<hash>/`` at the
+Every ``.cu`` file under ``diffsvc_tpu_torch/csrc`` is compiled by its own
+``nvcc`` for ``sm_90a`` (all started together), and the objects are linked
+into ONE shared library with a plain C interface, loaded with ``ctypes``.
+The library goes to ``build/diffsvc_tpu_torch/<hash>/`` at the
 repository root, keyed by a hash of the sources and the flags, so a fresh
 checkout builds at first use and an unchanged tree reuses its build.
 
@@ -25,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "diffsvc_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -46,6 +47,10 @@ SIGNATURES = {
     "dsvc_stack_train_fwd": [I, I, P, P, P, P, P, LL, LL, P, P, P, P, P,
                              I, I, I, I, I, P],
     "dsvc_stack_train_bwd": [I, *[P] * 20, I, I, I, I, I, I, I, P],
+    # diffnet_stack_per_sample.cu
+    "dsvc_stack_train_bwd_per_sample": [I, *[P] * 21, I, I, I, I, I, I, I, P],
+    # diffnet_block.cu
+    "dsvc_residual_block": [I, *[P] * 10, I, I, I, I, P],
     # plms_ladder.cu
     "dsvc_ladder_in_proj": [I, P, P, P, P, I, I, I, P],
     "dsvc_ladder_epilogue": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
@@ -95,12 +100,28 @@ def build() -> str:
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cus = [fn for fn in _sources() if fn.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, *cus]
+    objs = [f"{tmp}.{os.path.basename(fn)}.o" for fn in cus]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    try:
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-c",
+                                   "-o", obj, fn], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for fn, obj in zip(cus, objs)]
+        build_log = "".join(f"== {os.path.basename(fn)}\n{p.communicate()[0]}"
+                            for fn, p in zip(cus, procs))
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                               tmp, *objs],
+                              capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{build_log}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(os.path.join(os.path.dirname(out), "build.log"), "w") as f:
         f.write(build_log)
     os.replace(tmp, out)   # atomic: a concurrent build sees all or nothing

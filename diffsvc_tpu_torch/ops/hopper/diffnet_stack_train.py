@@ -5,7 +5,10 @@ Replaces ``diffsvc_tpu/ops/pallas/diffnet_stack.py:residual_stack_train_batched`
 (forward ``_fwd_kernel`` via ``_call_fwd``, backward ``_bwd_kernel_b`` via
 ``_call_bwd_batched``, custom VJP ``_rstb_fwd``/``_rstb_bwd``).  CUDA source:
 ``csrc/diffnet_stack_train.cu`` (+ the layer kernels of
-``csrc/diffnet_layer.cuh``, shared with K1).
+``csrc/diffnet_layer.cuh``, shared with K1, and the backward of
+``csrc/diffnet_train_bwd.cuh``, shared with K5).  The forward with save is
+also K5's forward (``diffnet_stack_per_sample``), as ``_call_fwd`` serves
+both JAX routes.
 
 - Forward: K1's layer math with the residual state x in x0's dtype (f32 in
   training) and every matmul operand in the *stream* dtype (``wd.dtype``:
@@ -36,7 +39,8 @@ import torch.nn.functional as F
 from . import _build
 from .diffnet_stack import _DTYPES, residual_stack
 
-launches = 0   # kernel launches (forward and backward calls on CUDA tensors)
+launches = 0       # kernel launches (forward and backward calls on CUDA tensors)
+bwd_launches = 0   # of which batch-fused backward calls
 
 RCH = 2048     # rows per partial sum of the weight-grad contractions
 CCH = 128      # rows per partial sum of the bias / step-bias column sums
@@ -92,14 +96,13 @@ def residual_stack_train_fwd_plain(x0, sb, cond_proj, wd, bd, wo, bo, *,
     return skip, xsave
 
 
-def residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *,
-                                   cycle: int):
-    """Plain version of the explicit backward (``_bwd_kernel_b``), not
-    autograd: y is recomputed from the saved, rounded x_l; do, dz and h are
-    rounded to the stream dtype (``wd.dtype``) before the products.
-    ``dout`` [B,T,C] is the skip cotangent in the stream dtype.  Returns
-    dx0 [B,T,C] f32, dsb [L,B,C] f32, dcp [L,B,T,2C] stream dtype and
-    dwd/dbd/dwo/dbo summed over the batch in f32."""
+def bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *, cycle: int,
+              dcp_dtype):
+    """The explicit backward's math (``_bwd_kernel_b``, ``_bwd_kernel``),
+    not autograd: y is recomputed from the saved, rounded x_l; do, dz and h
+    are rounded to the stream dtype (``wd.dtype``) before the products; dcp
+    is stored in ``dcp_dtype``.  Returns dx0 [B,T,C] f32, dsb [L,B,C] f32,
+    dcp [L,B,T,2C] and dwd/dbd/dwo/dbo summed over the given batch in f32."""
     sd = wd.dtype
     n_layers, b, t, c2 = cond_proj.shape
     c = c2 // 2
@@ -107,7 +110,7 @@ def residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *,
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.zeros(b, t, c, **f32)
     dsb = torch.empty(n_layers, b, c, **f32)
-    dcp = torch.empty(n_layers, b, t, c2, dtype=sd, device=dev)
+    dcp = torch.empty(n_layers, b, t, c2, dtype=dcp_dtype, device=dev)
     dwd = torch.empty(n_layers, 3, c, c2, **f32)
     dbd = torch.empty(n_layers, c2, **f32)
     dwo = torch.empty(n_layers, c, c2, **f32)
@@ -128,9 +131,9 @@ def residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *,
         dh = do_c @ wo[layer].float().T
         dz = torch.cat([dh * s * (1.0 - s) * tf, dh * s * (1.0 - tf * tf)],
                        dim=-1)
-        dcp[layer] = dz.to(sd)
+        dcp[layer] = dz.to(dcp_dtype)
         dbd[layer] = dz.sum((0, 1))
-        dz_c = dcp[layer].float()
+        dz_c = dz.to(sd).float()
         for j in range(3):
             dwd[layer, j] = taps[j].reshape(-1, c).T @ dz_c.reshape(-1, c2)
         dy = (_shift(dz_c, -d) @ w[0].T + dz_c @ w[1].T
@@ -138,6 +141,14 @@ def residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *,
         dsb[layer] = dy.sum(1)
         dx = dy + dx * _INV_SQRT2
     return dx, dsb, dcp, dwd, dbd, dwo, dbo
+
+
+def residual_stack_train_batched_bwd_plain(xsave, sb, cond_proj, wd, bd, wo,
+                                           dout, *, cycle: int):
+    """Plain version of the batch-fused backward: :func:`bwd_plain` with
+    ``dout`` [B,T,C] and dcp in the stream dtype."""
+    return bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, cycle=cycle,
+                     dcp_dtype=wd.dtype)
 
 
 def _check(x0, sb, cond_proj, wd, bd, wo, bo):
@@ -171,7 +182,7 @@ def _check(x0, sb, cond_proj, wd, bd, wo, bo):
             raise ValueError(f"residual_stack_train: {name} must be floating")
 
 
-def _device(x0, what: str) -> bool:
+def on_card(x0, what: str) -> bool:
     """True for CUDA (launch), False for CPU (plain version); raises on any
     other device."""
     if x0.device.type == "cpu":
@@ -193,7 +204,7 @@ def residual_stack_train_fwd(x0, sb, cond_proj, wd, bd, wo, bo, *,
     """
     global launches
     _check(x0, sb, cond_proj, wd, bd, wo, bo)
-    if not _device(x0, "residual_stack_train_fwd"):
+    if not on_card(x0, "residual_stack_train_fwd"):
         return residual_stack_train_fwd_plain(x0, sb, cond_proj, wd, bd, wo,
                                               bo, cycle=cycle)
     b, t, c = x0.shape
@@ -213,71 +224,91 @@ def residual_stack_train_fwd(x0, sb, cond_proj, wd, bd, wo, bo, *,
     return skip, xsave
 
 
-def residual_stack_train_bwd(xsave, sb, cond_proj, wd, bd, wo, dout, *,
-                             cycle: int):
-    """Batch-fused backward: (dx0, dsb, dcp, dwd, dbd, dwo, dbo) as
-    :func:`residual_stack_train_bwd_plain` returns them.  ``xsave``,
-    ``cond_proj``, ``wd``, ``wo`` and ``dout`` in the stream dtype."""
-    global launches
-    n_layers, b, t, c = xsave.shape
-    # dout stands in for the state: shapes, devices and the stream dtype
+def check_bwd(xsave, sb, cond_proj, wd, bd, wo, dout, dout_dtype,
+              what: str) -> None:
+    """Shapes, devices and dtypes of a backward's operands: ``xsave``,
+    ``cond_proj``, ``wd`` and ``wo`` in the stream dtype, ``dout`` [B,T,C]
+    in ``dout_dtype``, contiguous."""
+    # dout stands in for the state: shapes, devices, a valid dtype pair
     _check(dout, sb, cond_proj, wd, bd, wo, bd)
     if tuple(xsave.shape) != (cond_proj.shape[0], *dout.shape):
-        raise ValueError(f"residual_stack_train_bwd: xsave "
-                         f"{tuple(xsave.shape)} does not match dout")
-    for name, a in (("xsave", xsave), ("dout", dout)):
-        if a.dtype != wd.dtype or not a.is_contiguous() \
-                or a.device != wd.device:
-            raise ValueError(f"residual_stack_train_bwd: {name} must be "
-                             f"contiguous {wd.dtype} on {wd.device}")
-    if not _device(xsave, "residual_stack_train_bwd"):
-        return residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd,
-                                              wo, dout, cycle=cycle)
-    sd, dev, rows = wd.dtype, xsave.device, b * t
+        raise ValueError(f"{what}: xsave {tuple(xsave.shape)} does not match "
+                         "dout")
+    for name, a, dt in (("xsave", xsave, wd.dtype), ("dout", dout, dout_dtype)):
+        if a.dtype != dt or not a.is_contiguous() or a.device != wd.device:
+            raise ValueError(f"{what}: {name} must be contiguous {dt} on "
+                             f"{wd.device}")
+
+
+def bwd_scratch(b: int, t: int, c: int, seg_rows: int, sd, dev):
+    """Scratch of the backward (``diffnet_train_bwd.cuh:run_bwd``) with
+    weight-grad segments of ``seg_rows`` rows, in the C entry points'
+    order: z, h, do, dy, wpart, cpart."""
+    rows = b * t
+    nseg = rows // seg_rows
     f32 = dict(dtype=torch.float32, device=dev)
-    dx0 = torch.empty(b, t, c, **f32)
-    dsb = torch.empty(n_layers, b, c, **f32)
-    dcp = torch.empty(n_layers, b, t, 2 * c, dtype=sd, device=dev)
-    dwd = torch.empty(n_layers, 3, c, 2 * c, **f32)
-    dbd = torch.empty(n_layers, 2 * c, **f32)
-    dwo = torch.empty(n_layers, c, 2 * c, **f32)
-    dbo = torch.empty(n_layers, 2 * c, **f32)
-    z = torch.empty(rows, 2 * c, **f32)
-    do = torch.empty(rows, 2 * c, **f32)
-    h = torch.empty(rows, c, dtype=sd, device=dev)
-    dy = torch.empty(rows, c, **f32)
-    wpart = torch.empty(-(-rows // RCH), 3 * c, 2 * c, **f32)
-    cpart = torch.empty(max(-(-rows // CCH) * 2 * c, b * -(-t // CCH) * c),
-                        **f32)
+    return (torch.empty(rows, 2 * c, **f32),
+            torch.empty(rows, c, dtype=sd, device=dev),
+            torch.empty(rows, 2 * c, **f32), torch.empty(rows, c, **f32),
+            torch.empty(nseg * -(-seg_rows // RCH), 3 * c, 2 * c, **f32),
+            torch.empty(max(nseg * -(-seg_rows // CCH) * 2 * c,
+                            b * -(-t // CCH) * c), **f32))
+
+
+def bwd_outputs(n_layers: int, b: int, t: int, c: int, dcp_dtype, dev):
+    """(dx0, dsb, dcp, dwd, dbd, dwo, dbo), uninitialised, on ``dev``."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty(b, t, c, **f32), torch.empty(n_layers, b, c, **f32),
+            torch.empty(n_layers, b, t, 2 * c, dtype=dcp_dtype, device=dev),
+            torch.empty(n_layers, 3, c, 2 * c, **f32),
+            torch.empty(n_layers, 2 * c, **f32),
+            torch.empty(n_layers, c, 2 * c, **f32),
+            torch.empty(n_layers, 2 * c, **f32))
+
+
+def residual_stack_train_batched_bwd(xsave, sb, cond_proj, wd, bd, wo, dout,
+                                     *, cycle: int):
+    """Batch-fused backward: (dx0, dsb, dcp, dwd, dbd, dwo, dbo) as
+    :func:`residual_stack_train_batched_bwd_plain` returns them.  ``xsave``,
+    ``cond_proj``, ``wd``, ``wo`` and ``dout`` in the stream dtype."""
+    global launches, bwd_launches
+    n_layers, b, t, c = xsave.shape
+    check_bwd(xsave, sb, cond_proj, wd, bd, wo, dout, wd.dtype,
+              "residual_stack_train_batched_bwd")
+    if not on_card(xsave, "residual_stack_train_batched_bwd"):
+        return residual_stack_train_batched_bwd_plain(
+            xsave, sb, cond_proj, wd, bd, wo, dout, cycle=cycle)
+    sd = wd.dtype
+    out = bwd_outputs(n_layers, b, t, c, sd, xsave.device)
+    scratch = bwd_scratch(b, t, c, b * t, sd, xsave.device)
     sbf, bdf = sb.float().contiguous(), bd.float().contiguous()
     err = _build.lib().dsvc_stack_train_bwd(
         _DTYPES[sd], xsave.data_ptr(), sbf.data_ptr(), cond_proj.data_ptr(),
         wd.data_ptr(), bdf.data_ptr(), wo.data_ptr(), dout.data_ptr(),
-        dx0.data_ptr(), dsb.data_ptr(), dcp.data_ptr(), dwd.data_ptr(),
-        dbd.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), z.data_ptr(),
-        h.data_ptr(), do.data_ptr(), dy.data_ptr(), wpart.data_ptr(),
-        cpart.data_ptr(), b, t, c, n_layers, cycle, RCH, CCH,
-        _build.stream())
+        *(a.data_ptr() for a in out), *(a.data_ptr() for a in scratch),
+        b, t, c, n_layers, cycle, RCH, CCH, _build.stream())
     _build.check(err, "dsvc_stack_train_bwd")
     launches += 1
-    return dx0, dsb, dcp, dwd, dbd, dwo, dbo
+    bwd_launches += 1
+    return out
 
 
-class ResidualStackTrain(torch.autograd.Function):
-    """Differentiable residual stack (the JAX custom VJP of
-    ``residual_stack_train_batched``): the forward saves x_l, the backward
-    is the batch-fused kernel.  Operands are rounded to the stream dtype on
-    the way in; cotangents come back in the primal dtypes."""
+class ResidualStackTrainFn(torch.autograd.Function):
+    """Differentiable residual stack of both training routes (the JAX custom
+    VJPs of ``residual_stack_train_batched`` and ``residual_stack_train``):
+    the forward saves x_l with cond_proj, wd and wo rounded to the stream
+    dtype ``sd`` on the way in; the backward is ``bwd`` (K4's batch-fused or
+    K5's per-sample kernel) with the skip cotangent cast to ``dout_dtype``.
+    Cotangents come back in the primal dtypes."""
 
     @staticmethod
-    def forward(ctx, x0, sb, cond_proj, wd, bd, wo, bo, cycle: int,
-                stream: str):
-        sd = stream_dtype(stream, x0.dtype)
+    def forward(ctx, x0, sb, cond_proj, wd, bd, wo, bo, cycle: int, sd, bwd,
+                dout_dtype):
         cp, wds, wos = (a.to(sd).contiguous() for a in (cond_proj, wd, wo))
         skip, xsave = residual_stack_train_fwd(x0.contiguous(), sb, cp, wds,
                                                bd, wos, bo, cycle=cycle)
         ctx.save_for_backward(xsave, sb, cp, wds, bd, wos)
-        ctx.cycle = cycle
+        ctx.cycle, ctx.bwd, ctx.dout_dtype = cycle, bwd, dout_dtype
         ctx.dtypes = tuple(a.dtype for a in (x0, sb, cond_proj, wd, bd, wo,
                                              bo))
         return skip
@@ -285,26 +316,41 @@ class ResidualStackTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         xsave, sb, cp, wds, bd, wos = ctx.saved_tensors
-        grads = residual_stack_train_bwd(
-            xsave, sb, cp, wds, bd, wos, dout.to(wds.dtype).contiguous(),
-            cycle=ctx.cycle)
-        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)), None, None)
+        grads = ctx.bwd(xsave, sb, cp, wds, bd, wos,
+                        dout.to(ctx.dout_dtype).contiguous(), cycle=ctx.cycle)
+        return (*(g.to(dt) for g, dt in zip(grads, ctx.dtypes)),
+                None, None, None, None)
 
 
-def residual_stack_train(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int,
-                         stream: str = "bf16"):
-    """The training route of the residual stack: [B,T,C] f32 skip sum.
-
-    With grad enabled and an input that requires it, :class:`ResidualStackTrain`
-    (forward with save, kernel backward).  Without (validation's loss), K1
-    (:func:`diffnet_stack.residual_stack`) in the state's dtype with
-    cond_proj, wd and wo rounded through the stream dtype, as the JAX primal
-    runs it."""
-    args = (x0, sb, cond_proj, wd, bd, wo, bo)
-    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
-        return ResidualStackTrain.apply(*args, cycle, stream)
-    sd, xd = stream_dtype(stream, x0.dtype), x0.dtype
+def primal(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int, sd):
+    """The undifferentiated primal of the training routes (validation's
+    loss): K1 (:func:`diffnet_stack.residual_stack`) in the state's dtype
+    with cond_proj, wd and wo rounded through ``sd``, as the JAX primal runs
+    it (``diffnet_stack.py:442-454`` and ``:693-716``)."""
+    xd = x0.dtype
     cp, wds, wos = (a.to(sd).to(xd).contiguous() for a in (cond_proj, wd, wo))
     sbx, bdx, box = (a.to(xd).contiguous() for a in (sb, bd, bo))
     return residual_stack(x0.contiguous(), sbx, cp, wds, bdx, wos, box,
                           cycle=cycle)
+
+
+def train_stack(args, *, cycle: int, sd, bwd, dout_dtype):
+    """A training route of the residual stack on ``args`` = (x0, sb,
+    cond_proj, wd, bd, wo, bo): [B,T,C] f32 skip sum.  With grad enabled and
+    an input that requires it, :class:`ResidualStackTrainFn` with the
+    route's stream dtype, backward and cotangent dtype; without (validation's
+    loss), :func:`primal` with the stream dtype."""
+    if torch.is_grad_enabled() and any(a.requires_grad for a in args):
+        return ResidualStackTrainFn.apply(*args, cycle, sd, bwd, dout_dtype)
+    return primal(*args, cycle=cycle, sd=sd)
+
+
+def residual_stack_train_batched(x0, sb, cond_proj, wd, bd, wo, bo, *,
+                                 cycle: int, stream: str = "bf16"):
+    """The batched training route of the residual stack: [B,T,C] f32 skip
+    sum, streamed in ``stream``; the backward is the batch-fused kernel with
+    the cotangent in the stream dtype (:func:`train_stack`)."""
+    sd = stream_dtype(stream, x0.dtype)
+    return train_stack((x0, sb, cond_proj, wd, bd, wo, bo), cycle=cycle,
+                       sd=sd, bwd=residual_stack_train_batched_bwd,
+                       dout_dtype=sd)

@@ -7,8 +7,9 @@ clip-by-global-norm, StepLR or RSQRT by optimizer step, gradient
 accumulation with ``optax.MultiSteps`` semantics, an optional EMA of the
 weights, and the diffusion loss as the 'mel' loss.
 
-One step runs eagerly: the loss through K4 (``diffnet.apply``'s training
-route), ``torch.autograd.grad``, then the update.  The step's random draws
+One step runs eagerly: the loss through K4 or K5 (``diffnet.apply``'s
+training route, picked by the batch's shape), ``torch.autograd.grad``, then
+the update.  It runs on the card unless ``device="cpu"`` is asked for.  The step's random draws
 (t and the noise) come from a ``torch.Generator`` on the task's device
 seeded from (``seed``, step), so a step's draws do not depend on the steps
 before it, as JAX folds the step into its key.  Single device; DDP is later
@@ -57,8 +58,7 @@ def clip_by_global_norm(grads, max_norm: float):
 class SVCTask:
     def __init__(self, hp, device=None):
         self.hp = hp
-        self.device = torch.device(device) if device is not None \
-            else default_device()
+        self.device = default_device(device)
         self.lr_schedule = build_lr_schedule(hp)
         self.accumulate = int(hp.get("accumulate_grad_batches", 1) or 1)
         self.max_norm = float(hp.get("clip_grad_norm", 1) or 1e9)

@@ -57,14 +57,65 @@ def test_residual_stack_train_ragged(cuda, stream, tol):
     dout = torch.randn(3, 77, 40, device=cuda).to(sd)
     ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"], dout)
     skip, xsave = k4.residual_stack_train_fwd(**a, cycle=3)
-    got = k4.residual_stack_train_bwd(xsave, *ops, cycle=3)
+    got = k4.residual_stack_train_batched_bwd(xsave, *ops, cycle=3)
     skip_p, xsave_p = k4.residual_stack_train_fwd_plain(**a, cycle=3)
-    ref = k4.residual_stack_train_bwd_plain(xsave_p, *ops, cycle=3)
+    ref = k4.residual_stack_train_batched_bwd_plain(xsave_p, *ops, cycle=3)
     assert _rel(skip, skip_p) <= tol
     for x, y in zip(got, ref):
         assert _rel(x, y) <= tol
-    again = k4.residual_stack_train_bwd(xsave, *ops, cycle=3)
+    again = k4.residual_stack_train_batched_bwd(xsave, *ops, cycle=3)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_residual_stack_train_per_sample_ragged(cuda, dtype, tol):
+    """K5's backward (after K4's forward at the state's dtype) against its
+    plain version at B=3, T=77, C=40, L=6 with an f32 cotangent: all seven
+    grads; and the batch equals, bit for bit, its B=1 runs (dx0, dsb, dcp
+    per sample; weight and bias grads as their in-order sum)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_per_sample as k5
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(dtype, cuda, b=3, t=77, c=40, layers=6)
+    dout = torch.randn(3, 77, 40, device=cuda)
+    ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"])
+    _, xsave = k4.residual_stack_train_fwd(**a, cycle=3)
+    got = k5.residual_stack_train_bwd(xsave, *ops, dout, cycle=3)
+    ref = k5.residual_stack_train_bwd_plain(xsave, *ops, dout, cycle=3)
+    for x, y in zip(got, ref):
+        assert x.dtype == torch.float32 and _rel(x, y) <= tol
+    ones = [k5.residual_stack_train_bwd(
+        xsave[:, i:i + 1].contiguous(), a["sb"][:, i:i + 1],
+        a["cond_proj"][:, i:i + 1].contiguous(), a["wd"], a["bd"], a["wo"],
+        dout[i:i + 1], cycle=3) for i in range(3)]
+    assert torch.equal(got[0], torch.cat([o[0] for o in ones]))
+    for k in (1, 2):
+        assert torch.equal(got[k], torch.cat([o[k] for o in ones], dim=1))
+    for k in range(3, 7):
+        tot = torch.zeros_like(got[k])
+        for o in ones:
+            tot = tot + o[k]
+        assert torch.equal(got[k], tot)
+
+
+@pytest.mark.parametrize("dilation", [1, 8, 128])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_residual_block_ragged(cuda, dtype, tol, dilation):
+    """K6 against its plain version at B=2, T=77, C=40 (a dilation of 128
+    reads only zeros at the taps)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(dtype, cuda, b=2, t=77, c=40, layers=1)
+    args = (a["x0"], a["sb"][0].contiguous(), a["cond_proj"][0], a["wd"][0],
+            a["bd"][0], a["wo"][0], a["bo"][0])
+    got = k6.fused_residual_block(*args, dilation=dilation)
+    ref = k6.fused_residual_block_plain(*args, dilation=dilation)
+    for x, y in zip(got, ref):
+        assert x.dtype == dtype and _rel(x, y) <= tol
 
 
 @pytest.mark.parametrize("sampler", ["plms", "plms-clip", "dpmpp"])

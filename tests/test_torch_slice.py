@@ -184,7 +184,7 @@ def test_infer_cli_main_writes_results(in_root, monkeypatch, f0_flags):
                         lambda self, w: fake_units(w))
     infer_cli.main(["--project", "proj", "--model", ckpt, "--config", cfg_fn,
                     "--files", wav_fn, "--key", "3", "--acc", "10",
-                    *f0_flags])
+                    "--device", "cpu", *f0_flags])
     out = "results/in_3key_proj_32_4_1k_10x.wav"
     got, sr = load_wav(out)
     src, _ = load_wav(wav_fn)
@@ -209,7 +209,8 @@ def test_crepe_and_pe_requests_raise(in_root, tmp_path):
         svc.infer(wav_fn, key=0, acc=10, use_pe=False, use_crepe=True)
     with pytest.raises(NotImplementedError, match="CREPE"):
         infer_cli.main(["--project", "proj", "--model", ckpt, "--config",
-                        cfg_fn, "--files", wav_fn, "--acc", "10", "--crepe"])
+                        cfg_fn, "--files", wav_fn, "--acc", "10", "--crepe",
+                        "--device", "cpu"])
     # pe weights configured: use_pe raises, use_pe=False is allowed
     os.makedirs(tmp_path / "pe")
     pe_cfg, pe_ckpt = synth.write_project(
@@ -220,3 +221,34 @@ def test_crepe_and_pe_requests_raise(in_root, tmp_path):
     svc = TSvc("proj_pe", pe_cfg, False, pe_ckpt, device="cpu")
     with pytest.raises(NotImplementedError, match="pe"):
         svc.infer(wav_fn, key=0, acc=10, use_pe=True)
+
+
+def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
+    """Without a card, ``default_device`` and every entry point that runs
+    on it by default raise; ``device="cpu"`` (``--device cpu``) runs."""
+    from _torch_fixtures import TINY_HP
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.data.binarizer import binarize
+    from diffsvc_tpu_torch.infer.svc import default_device
+    from diffsvc_tpu_torch.run import device_arg, run_task
+    from diffsvc_tpu_torch.training.task import SVCTask
+
+    _, cfg_fn, ckpt, wav_fn = in_root
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    hp = HParams(dict(TINY_HP, task_cls="SVCTask", lr=1e-3,
+                      scheduler="step_lr", decay_steps=100))
+    for call in (default_device, lambda: default_device("cuda"),
+                 lambda: TSvc("proj", cfg_fn, False, ckpt),
+                 lambda: SVCTask(hp),
+                 lambda: run_task(HParams(dict(hp, work_dir="w"))),
+                 lambda: binarize(hp),
+                 lambda: infer_cli.main(["--project", "proj", "--model", ckpt,
+                                         "--config", cfg_fn, "--files",
+                                         wav_fn])):
+        with pytest.raises(RuntimeError, match="--device cpu"):
+            call()
+    assert default_device("cpu") == torch.device("cpu")
+    assert SVCTask(hp, device="cpu").device.type == "cpu"
+    assert TSvc("proj", cfg_fn, False, ckpt, device="cpu").device.type == "cpu"
+    assert device_arg(["--config", "c.yaml"]) == "cuda"
+    assert device_arg(["--config", "c.yaml", "--device", "cpu"]) == "cpu"

@@ -45,7 +45,7 @@ def _relmax(got, want):
                                                  ("bf16", 2e-2, 6e-3)])
 def test_plain_matches_jax_interpret(b, sd, tol_val, tol_grad):
     """Forward value and all seven cotangents of K4's plain versions (through
-    ResidualStackTrain) against the Pallas kernels in interpret mode."""
+    ResidualStackTrainFn) against the Pallas kernels in interpret mode."""
     a, tgt = _stack_args(b)
 
     def loss_j(*aa):
@@ -55,7 +55,7 @@ def test_plain_matches_jax_interpret(b, sd, tol_val, tol_grad):
     (lj, oj), gj = jax.value_and_grad(loss_j, argnums=tuple(range(7)),
                                       has_aux=True)(*map(jnp.asarray, a))
     ta = [torch.from_numpy(x).requires_grad_() for x in a]
-    out = k4.residual_stack_train(*ta, cycle=CYC, stream=sd)
+    out = k4.residual_stack_train_batched(*ta, cycle=CYC, stream=sd)
     lt = ((out - torch.from_numpy(tgt)) ** 2).sum()
     lt.backward()
     oj = np.asarray(oj)
@@ -78,7 +78,7 @@ def test_plain_backward_matches_autograd_f32():
     auto = torch.autograd.grad((dout.detach() * skip).sum(), ta)
     with torch.no_grad():
         _, xsave = k4.residual_stack_train_fwd_plain(*ta, cycle=CYC)
-        got = k4.residual_stack_train_bwd_plain(
+        got = k4.residual_stack_train_batched_bwd_plain(
             xsave, ta[1], ta[2], ta[3], ta[4], ta[5], dout.detach(),
             cycle=CYC)
     for n, x, y in zip(NAMES, got, auto):
@@ -91,7 +91,7 @@ def test_no_grad_route_matches_jax_primal():
     a, _ = _stack_args(2)
     ta = list(map(torch.from_numpy, a))
     with torch.no_grad():
-        got = k4.residual_stack_train(*ta, cycle=CYC, stream="bf16")
+        got = k4.residual_stack_train_batched(*ta, cycle=CYC, stream="bf16")
     for i in (2, 3, 5):
         ta[i] = ta[i].bfloat16().float()
     assert torch.equal(got, diffnet_stack.residual_stack(*ta, cycle=CYC))
@@ -140,8 +140,8 @@ def _apply_inputs():
 @pytest.mark.parametrize("sd,tol_loss,tol_grad", [("f32", 1e-5, 1e-3),
                                                   ("bf16", 5e-3, 3e-2)])
 def test_apply_training_grads_match_jax(sd, tol_loss, tol_grad):
-    """diffnet.apply's training route (K4's ResidualStackTrain, weights
-    stacked with grad) against JAX apply with ``pallas_train='interpret'``:
+    """diffnet.apply's training route (K4 through ResidualStackTrainFn,
+    weights stacked with grad) against JAX apply with ``pallas_train='interpret'``:
     the loss and every parameter's gradient, including the conditioner and
     step-MLP paths that flow through dcp and dsb.  Tolerances of
     tests/test_diffnet_stack_train.py:95-122 (f32) and :272-293 (bf16)."""
