@@ -27,19 +27,25 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    history not pushed; K3's last NSF injection dropped; K4's and K5's last
    sample's cotangent dropped, K4's layer or K5's sample with the next
    one's saved x; K6's taps read at 2d), so a check that cannot see a wrong
-   kernel fails.
+   kernel fails.  Beside K1 bf16, cuBLAS's time for the same products
+   alone (``torch.matmul``, the gate and output GEMM of each layer, no
+   gather and no epilogue) as a diagnostic floor, which the port never
+   calls; for K1 and K2 at bf16, their device time by kernel.
 4. The slice: reference-format checkpoints with random weights from a seed
    at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
    soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
    directory; the port's ``Svc`` + ``run_clip`` convert three voiced clips
    of 6.5-14 s with silences, once with ``diff_compute_dtype: bfloat16`` and
    once in f32.  Every kernel's launch counter is reset before and read
-   after that run and must be nonzero; outputs must have the input's
-   length, be finite and non-silent; a short clip converted on the card in
-   f32 must agree with the same conversion on the CPU (the plain path),
-   and the card's conversion with a planted fault must not.  Where the time
-   goes: ``torch.profiler`` over one ``run_clip`` of the 14 s clip per
-   dtype (wall, device busy share, the top kernels).
+   after that run and must be nonzero, and K1's and K2's tensor-core
+   counters must move on the bf16 conversions and stay 0 on the f32 ones;
+   outputs must have the input's length, be finite and non-silent; a short
+   clip converted on the card must agree with the same conversion on the
+   CPU (the plain path), in f32 and in bf16, and the card's conversion with
+   a planted fault must not.  Where the time goes: ``torch.profiler`` over
+   one ``run_clip`` of the 14 s clip per dtype (wall, device busy share,
+   the top kernels); the bf16 one must run K1's tensor-core kernels and no
+   SIMT layer kernel instantiated for bf16 operands.
 5. The training path at the same widths (``diffnet_train_stream_dtype``
    bf16, ``max_sentences`` 24): 32 synthetic clips of 4-12 s binarized by
    the port's binarizer (HuBERT-soft on the card), then ``run.py``'s
@@ -78,6 +84,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -130,6 +137,11 @@ TOL = {
 # part that the denoiser put there (see cpu_agreement).  The planted fault
 # is the card's denoiser with its skip-projection bias dropped.
 SLICE_TOL = 1e-2
+# The same at diff_compute_dtype bfloat16: card and CPU round the same
+# values to bf16, but their f32 sums differ in order, so a few roundings
+# of x and h flip and propagate through 51 evaluations x 20 layers (the
+# kernel checks' bf16 limit is 1e-2 on one call); the vocoder stays f32.
+SLICE_TOL_BF16 = 2e-2
 KERNELS = {
     "residual_stack": ("diffsvc_tpu_torch/csrc/diffnet_stack.cu",
                        "diffsvc_tpu/ops/pallas/diffnet_stack.py:129"),
@@ -254,14 +266,67 @@ def check_residual_stack(device, dtype_name):
     got, ref = kern(), plain()
     cp = a["cond_proj"].clone()
     cp[-1] = 0
-    fault = ds.residual_stack(**dict(a, cond_proj=cp), cycle=4)
+    faults = {"cond dropped": dict(a, cond_proj=cp),
+              "sb shifted by one layer": dict(a, sb=a["sb"].roll(1, 0))}
     ms, plain_ms = time_in_turns(kern, plain, reps=10)
-    return {"max_abs_err": float((got - ref).abs().max()),
-            "rel_l2": rel_l2(got, ref),
-            "fault_rel_l2": {"cond dropped": rel_l2(fault, ref)},
-            "ms": ms, "plain_ms": plain_ms,
-            **bound(stack_flops(T, L, 16), nbytes(*a.values(), got),
-                    dtype_name)}
+    res = {"max_abs_err": float((got - ref).abs().max()),
+           "rel_l2": rel_l2(got, ref),
+           "fault_rel_l2": {k: rel_l2(ds.residual_stack(**f, cycle=4), ref)
+                            for k, f in faults.items()},
+           "ms": ms, "plain_ms": plain_ms,
+           **bound(stack_flops(T, L, 16), nbytes(*a.values(), got),
+                   dtype_name)}
+    if dtype_name == "bf16":
+        res["breakdown"] = kernel_breakdown(kern, reps=5)
+        res["cublas_products_ms"] = cublas_products_ms(a)
+        res["plan"] = {t: {"ctas_layer": ds.tc_plan(1, t, C).ctas_layer,
+                           "smem_layer": ds.tc_plan(1, t, C).smem_layer}
+                       for t in (512, 768, 1024)}
+    return res
+
+
+def kernel_breakdown(fn, reps: int) -> dict:
+    """Device time per call of ``fn`` by kernel (torch.profiler over
+    ``reps`` calls after a warm-up): {name: [ms per call, launches per
+    call]}, the name cut at its argument list and to 60 characters."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")
+            tot = out.setdefault(name.split("(")[0][:60], [0.0, 0])
+            tot[0] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+            tot[1] += 1
+    return {k: [ms, n / reps] for k, (ms, n) in
+            sorted(out.items(), key=lambda kv: -kv[1][0])}
+
+
+def cublas_products_ms(a) -> float:
+    """cuBLAS's time for K1's products alone at bf16 (``torch.matmul``:
+    per layer the gate GEMM [T, 3C] x [3C, 2C] and the output GEMM [T, C] x
+    [C, 2C]; no tap gather, no epilogue): a diagnostic floor for products of
+    this size, not a computation of K1's function."""
+    import torch
+
+    y3 = torch.randn(T, 3 * C, device=a["x0"].device).to(torch.bfloat16)
+    h = y3[:, :C].contiguous()
+    wd = a["wd"].reshape(L, 3 * C, 2 * C)
+
+    def run():
+        for layer in range(L):
+            torch.matmul(y3, wd[layer])
+            torch.matmul(h, a["wo"][layer])
+
+    return cuda_time_ms(run, reps=10)
 
 
 def ladder_inputs(dtype, device):
@@ -313,7 +378,9 @@ def check_plms_ladder(device, dtype_name):
     faults = {"bskip dropped": dict(a, bskip=torch.zeros_like(a["bskip"])),
               "history not pushed": dict(a, scal=no_push)}
     ms, plain_ms = time_in_turns(kern, plain, reps=2)
-    return {"max_abs_err": float((got - ref).abs().max()),
+    extra = ({"breakdown": kernel_breakdown(kern, reps=1)}
+             if dtype_name == "bf16" else {})
+    return {**extra, "max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got - base, ref - base),
             "final_x_rel_l2": rel_l2(got, ref),
             "eps_share": rel_l2(ref, base),
@@ -582,6 +649,18 @@ def phase_kernels(device):
             f"max_abs={res['max_abs_err']:.3e} kernel_ms={res['ms']:.3f} "
             f"plain_ms={res['plain_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
             f"({res['bound_by']}); planted faults {faults}")
+        if "cublas_products_ms" in res:
+            log(f"[kernel] {name} {dt}: cuBLAS alone on the same products "
+                f"(torch.matmul, gate + output GEMM x {L} layers, no gather, "
+                f"no epilogue; diagnostic floor, not library_ms): "
+                f"{res['cublas_products_ms']:.3f} ms; tensor-core plan at "
+                "B=1: " + ", ".join(
+                    f"T={t}: {p['ctas_layer']} CTAs x {p['smem_layer']} B"
+                    for t, p in res["plan"].items()))
+        if "breakdown" in res:
+            log(f"[kernel] {name} {dt} device ms per call by kernel: " +
+                "; ".join(f"{k} {v[0]:.4f} ({v[1]:g}x)"
+                          for k, v in list(res["breakdown"].items())[:6]))
         if name == "plms_ladder":
             log(f"[kernel] {name} {dt}: final x rel_l2="
                 f"{res['final_x_rel_l2']:.3e}, eps part of x "
@@ -655,7 +734,9 @@ def phase_slice(device, workdir):
 
     for mod in counters.values():
         mod.launches = 0
+    results["launches_tc"] = {}
     for dt, svc in svcs.items():
+        diffnet_stack.launches_tc = plms_ladder.launches_tc = 0
         for fn, (secs, _, _) in zip(wavs, CLIPS):
             out_fn = fn[:-4] + f"_{dt or 'f32'}_out.wav"
             t0 = time.time()
@@ -682,16 +763,32 @@ def phase_slice(device, workdir):
             if rec["peak"] < 1e-3:
                 raise SmokeError("silent output audio")
             results["clips"].append(rec)
+        tc = {"residual_stack": diffnet_stack.launches_tc,
+              "plms_ladder": plms_ladder.launches_tc}
+        results["launches_tc"][dt or "float32"] = tc
+        log(f"[slice] {dt or 'float32'} conversions: tensor-core launches {tc}")
+        if any((n > 0) != (dt == "bfloat16") for n in tc.values()):
+            raise SmokeError(f"{dt or 'float32'} conversions: tensor-core "
+                             f"launches {tc} (bf16 must move them, f32 not)")
     launches = {name: mod.launches for name, mod in counters.items()}
     results["launches"] = launches
     log(f"[slice] kernel launches on the main path: {launches}")
     for name, n in launches.items():
         if n <= 0:
             raise SmokeError(f"kernel {name} was not launched on the main path")
-    results["cpu_agreement"] = cpu_agreement(svcs[""], cfg_fn, ckpt, wavs[0])
+    results["cpu_agreement"] = {
+        dt or "float32": cpu_agreement(svc, cfg_fn, ckpt, wavs[0])
+        for dt, svc in svcs.items()}
     results["profile"] = {
         dt or "float32": profile_clip(svc, wavs[-1], wavs[-1][:-4] + "_prof.wav")
         for dt, svc in svcs.items()}
+    names = results["profile"]["bfloat16"].pop("names")
+    results["profile"]["float32"].pop("names")
+    simt_bf16 = [n for n in names if re.search(
+        r"\b(gate|out)_kernel<[^>]*bfloat16", n)]
+    if simt_bf16 or not any("gate_tc_kernel" in n for n in names):
+        raise SmokeError("the bf16 conversion's profile lacks K1's tensor-core "
+                         f"kernels or runs SIMT layer kernels: {simt_bf16}")
     return results
 
 
@@ -737,7 +834,7 @@ def profile_run(label, fn):
     res = {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
            "busy_share": busy_us / 1e6 / wall, "device_events": len(spans),
            "top": sorted(([k, v[0], v[1]] for k, v in by_name.items()),
-                         key=lambda r: -r[1])[:8]}
+                         key=lambda r: -r[1])[:8], "names": sorted(by_name)}
     log(f"[profile] {label}: wall={wall:.3f}s "
         f"device_busy={res['device_busy_ms']:.1f}ms "
         f"busy_share={res['busy_share']:.3f} ({len(spans)} device events)")
@@ -764,13 +861,14 @@ def zeroed(*params):
 
 
 def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
-    """The same short f32 conversion on the card and on the CPU (plain
-    versions), with the sampler noise and the NSF source draws shared.  As
-    for the ladder, the waveforms are compared on what the denoiser put in
-    them: each minus the CPU's conversion with eps = 0 (output projection
-    zeroed).  They must agree to SLICE_TOL (f32 sums in other orders through
-    ~1000 denoiser layers and the vocoder), and the card's conversion with
-    the denoiser's skip-projection bias dropped must not."""
+    """The same short conversion on the card and on the CPU (plain
+    versions), at ``svc_dev``'s diff_compute_dtype, with the sampler noise
+    and the NSF source draws shared.  As for the ladder, the waveforms are
+    compared on what the denoiser put in them: each minus the CPU's
+    conversion with eps = 0 (output projection zeroed).  They must agree to
+    SLICE_TOL in f32 (f32 sums in other orders through ~1000 denoiser layers
+    and the vocoder) or SLICE_TOL_BF16 in bf16, and the card's conversion
+    with the denoiser's skip-projection bias dropped must not."""
     import numpy as np
     import torch
 
@@ -782,7 +880,10 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
     wav, sr = load_wav(wav_fn)
     short = wav_fn[:-4] + "_short.wav"
     save_wav(wav[: int(secs * sr)], short, sr)
+    dt = svc_dev.hp["diff_compute_dtype"] or "float32"
+    tol = SLICE_TOL_BF16 if dt == "bfloat16" else SLICE_TOL
     svc_cpu = Svc("proj", cfg_fn, False, ckpt, device="cpu")
+    svc_cpu.hp["diff_compute_dtype"] = svc_dev.hp["diff_compute_dtype"]
     batch = svc_cpu.pre(short, ACC, use_crepe=False)
     t_mel = batch["mels"].shape[1]
     g = torch.Generator().manual_seed(3)
@@ -809,14 +910,14 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
            "wav_rel_l2": rel_l2(got, ref), "eps_share": rel_l2(ref, base),
            "max_abs_err": float((got - ref).abs().max()),
            "fault_rel_l2": rel_l2(fault - base, ref - base),
-           "tol_rel_l2": SLICE_TOL, "secs": secs}
-    log(f"[slice] f32 card vs CPU on {secs}s: rel_l2={res['rel_l2']:.3e} "
-        f"(tol {SLICE_TOL:g}; waveform itself {res['wav_rel_l2']:.3e}, eps "
+           "tol_rel_l2": tol, "secs": secs}
+    log(f"[slice] {dt} card vs CPU on {secs}s: rel_l2={res['rel_l2']:.3e} "
+        f"(tol {tol:g}; waveform itself {res['wav_rel_l2']:.3e}, eps "
         f"part of it {res['eps_share']:.3e}) max_abs={res['max_abs_err']:.3e}"
         f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]")
-    if not res["rel_l2"] <= SLICE_TOL:
+    if not res["rel_l2"] <= tol:
         raise SmokeError(f"card and CPU conversions disagree: {res}")
-    if not res["fault_rel_l2"] > SLICE_TOL:
+    if not res["fault_rel_l2"] > tol:
         raise SmokeError(f"the planted fault passes the card-vs-CPU check: {res}")
     return res
 
@@ -1389,6 +1490,7 @@ def main(argv=None) -> int:
         t0 = time.time()
         _build.lib()
         record["build_s"] = time.time() - t0
+        record["build_log"] = _build.build_log
         log(f"[build] kernels ready in {record['build_s']:.2f}s "
             f"(nvcc {_build.build_seconds})")
         for line in _build.build_log.splitlines():
@@ -1430,6 +1532,7 @@ def main(argv=None) -> int:
                     residual_stack_train=record["own_batch"]["launches"][
                         "residual_stack_train"],
                     fused_residual_block=record["k6_path_launches"])
+    tc_launches = record["slice"]["launches_tc"]["bfloat16"]
     for name, (src, replaces) in KERNELS.items():
         by_dt = record["kernels"][name]
         main_dt = "bf16" if "bf16" in by_dt else "f32"
@@ -1443,6 +1546,7 @@ def main(argv=None) -> int:
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"], "library_ms": None,
                         "dtype": main_dt,
+                        "launches_tc": tc_launches.get(name),
                         "main_path": name != "fused_residual_block",
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})

@@ -10,33 +10,42 @@
 //   x <- (x + o[:C]) / sqrt(2)         (rounded to the compute dtype)
 //   skip += o[C:]                      (f32)
 //
-// Two kernels per layer, gate_kernel and out_kernel (diffnet_layer.cuh,
-// shared with the training forward of K4): shared-memory tiled SIMT GEMMs
-// with f32 accumulation; here every operand and the state share one dtype,
-// f32 or bf16.  What bounds them on the H100: FLOPs on the CUDA cores
-// (no tensor cores yet), ~2.4 GFLOP per layer at T=1024, C=384.  wgmma/TMA
-// tiles are later work.
+// What bounds it on the H100: arithmetic, ~2.4 GFLOP per layer at T=1024,
+// C=384.  bf16 (the TPU kernel's only dtype, and the serving mode) runs on
+// the tensor cores: wgmma layer kernels over packed weights and a staged
+// y (diffnet_layer_tc.cuh, whose note gives the design).  f32 has no TPU
+// counterpart and keeps true-f32 products: shared-memory tiled SIMT GEMMs
+// on the CUDA cores (diffnet_layer.cuh, shared with K4's forward), two
+// launches per layer.
 #include "diffnet_layer.cuh"
+#include "diffnet_layer_tc.cuh"
 
 extern "C" {
 
-// x [B,T,C] running state (updated in place), h [B,T,C] scratch, skip
-// [B,T,C] f32 output; sb [L,B,C] with element strides (sb_l, sb_b), cond
-// [L,B,T,2C], wd [L,3,C,2C], bd [L,2C], wo [L,C,2C], bo [L,2C].
+// x [B,T,C] running state (updated in place), skip [B,T,C] f32 output; sb
+// [L,B,C] with element strides (sb_l, sb_b), cond [L,B,T,2C], bd [L,2C],
+// bo [L,2C].  f32: h [B,T,C] scratch, wd [L,3,C,2C], wo [L,C,2C]; y and
+// plan unused.  bf16: h and y [B,T,Cp] scratch with zero pad channels, wd
+// and wo packed by the wrapper ([L,2Cp,3Cp] and [L,2Cp,Cp]), plan the
+// wrapper's launch plan (tc::P_* fields).
 int dsvc_residual_stack(int dtype, void* x, void* h, void* skip,
                         const void* sb, long long sb_l, long long sb_b,
                         const void* cond, const void* wd, const void* bd,
                         const void* wo, const void* bo, int B, int T, int C,
-                        int L, int cycle, void* stream) {
+                        int L, int cycle, void* y, const int* plan,
+                        void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DSVC_BF16) {
     using T_ = __nv_bfloat16;
-    return run_stack<T_, T_, T_>(
-        static_cast<T_*>(x), static_cast<T_*>(h), static_cast<float*>(skip),
-        nullptr, static_cast<const T_*>(sb), sb_l, sb_b,
+    if (!tc::plan_ok(plan, T, C, 0)) return cudaErrorInvalidValue;
+    const int e = tc::prepare_layers(plan);
+    if (e != 0) return e;
+    return tc::run_stack_tc(
+        static_cast<T_*>(x), static_cast<T_*>(y), static_cast<T_*>(h),
+        static_cast<float*>(skip), static_cast<const T_*>(sb), sb_l, sb_b,
         static_cast<const T_*>(cond), static_cast<const T_*>(wd),
         static_cast<const T_*>(bd), static_cast<const T_*>(wo),
-        static_cast<const T_*>(bo), B, T, C, L, cycle, s);
+        static_cast<const T_*>(bo), B, T, C, L, cycle, false, plan, s);
   }
   return run_stack<float, float, float>(static_cast<float*>(x), static_cast<float*>(h),
                           static_cast<float*>(skip), nullptr,

@@ -42,7 +42,7 @@ F = ctypes.c_float
 SIGNATURES = {
     # diffnet_stack.cu
     "dsvc_residual_stack": [I, P, P, P, P, LL, LL, P, P, P, P, P,
-                            I, I, I, I, I, P],
+                            I, I, I, I, I, P, P, P],
     # diffnet_stack_train.cu
     "dsvc_stack_train_fwd": [I, I, P, P, P, P, P, LL, LL, P, P, P, P, P,
                              I, I, I, I, I, P],
@@ -52,8 +52,7 @@ SIGNATURES = {
     # diffnet_block.cu
     "dsvc_residual_block": [I, *[P] * 10, I, I, I, I, P],
     # plms_ladder.cu
-    "dsvc_ladder_in_proj": [I, P, P, P, P, I, I, I, P],
-    "dsvc_ladder_epilogue": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, F, P],
+    "dsvc_plms_ladder": [I, *[P] * 20, I, I, I, I, I, I, I, F, P, P],
     # vocoder_tail.cu
     "dsvc_tail_conv1d": [P, P, P, P, P, P, I, F, I, I, I, I, I, I, I, F, I,
                          I, P],

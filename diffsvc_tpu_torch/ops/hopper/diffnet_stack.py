@@ -1,35 +1,130 @@
-"""K1: the DiffNet residual stack — hand-written Hopper kernel + plain twin.
+"""K1: the DiffNet residual stack — hand-written Hopper kernels + plain twin.
 
 Replaces ``diffsvc_tpu/ops/pallas/diffnet_stack.py:residual_stack`` (Pallas
 kernel ``_kernel``): the L gated residual layers of one denoiser evaluation,
 returning the f32 skip sum.  CUDA source: ``csrc/diffnet_stack.cu``.
 
 What bounds it on the H100: arithmetic.  At T=1024, C=384, L=20 one call is
-~48 GFLOP against ~30 MB of bf16 weights and conditioner, far above the
-card's FLOP-per-byte line.  This first kernel runs the products as
-shared-memory tiled SIMT GEMMs on the CUDA cores with f32 accumulation (true
-f32 for f32 operands, exact bf16 products for bf16), two launches per layer
-(gate, output projection); the TPU kernel's VMEM residency becomes an L2
-working set (x, h and skip are ~2-4 MB at the main path's shapes).  Tensor
-cores (wgmma) and a fused per-layer kernel are later work.
+48.3 GFLOP against ~31 MB of bf16 weights and conditioner, far above the
+card's FLOP-per-byte line.
+- bf16 (the TPU kernel's only dtype; serving's production mode) runs on the
+  tensor cores: wgmma layer kernels (``csrc/diffnet_layer_tc.cuh``) over
+  weights this wrapper packs K-major with each N tile pairing 32 gate and
+  filter (or residual and skip) columns, and a staged y = bf16(x + sb) that
+  the gate kernel reads as plain tiles at rows t-d, t, t+d.  The launch plan
+  (tiles, stages, shared memory, grid, channel padding) is ``tc_plan``.
+- f32 has no TPU counterpart (JAX samples f32 through the XLA scan) and
+  keeps true-f32 products: shared-memory tiled SIMT GEMMs on the CUDA
+  cores (``csrc/diffnet_layer.cuh``), two launches per layer.
 
 Differences from the TPU kernel: takes [B, T, C] directly (the TPU kernel is
-B=1 and is vmapped), any T and C, and f32 as well as bf16 operands (on
-Hopper an f32 kernel is true f32, so there is no bf16-only gate).
+B=1 and is vmapped), any T and C, and f32 as well as bf16 operands.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
 
-launches = 0   # kernel launches (one per stack call on a CUDA tensor)
+launches = 0      # stacks launched on a CUDA tensor (each call, and each
+                  # evaluation of a ladder, plms_ladder.py)
+launches_tc = 0   # of those, the bf16 ones on the tensor-core kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The tensor-core kernels' tiles (csrc/diffnet_layer_tc.cuh, namespace tc):
+# 64 rows (one wgmma M) x 64 columns (one wgmma N; 32 channels' gate and
+# filter columns in K1) x 64 deep (one 128-byte swizzled row of bf16), a
+# 4-stage cp.async ring, one warpgroup.
+TC_BM, TC_BN, TC_BK, TC_STAGES, TC_THREADS = 64, 64, 64, 4, 128
+TC_HALF = TC_BN // 2
+TC_TILE_BYTES = TC_BM * TC_BK * 2
+TC_ALIGN = 1024            # the 128-byte swizzle repeats every 1 KB
+SMEM_MAX = 232448          # shared memory a block can use on the H100
+# the order csrc/diffnet_layer_tc.cuh reads the plan in (enum P_*)
+PLAN_FIELDS = ("cp", "mp", "bm", "bn", "bk", "stages", "threads", "grid_m",
+               "grid_n_layer", "grid_n_in", "smem_layer", "smem_in",
+               "smem_epi")
+
+
+def _round_up(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+@dataclass(frozen=True)
+class TcPlan:
+    """Launch plan of the bf16 tensor-core kernels for [B, T, C] (and the
+    ladder's M mel bins; m = 0 for K1 alone).  Channels are padded to cp
+    (and mp) inside the kernels' buffers and packed weights; rows are tiled
+    per sample, the ragged T edge masked in the kernels.  The layer kernels
+    run on grid (grid_m, grid_n_layer, B), the ladder's input projection on
+    (grid_m, grid_n_in, B) and its epilogue on (grid_m, 1, B)."""
+    batch: int
+    cp: int
+    mp: int
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    threads: int
+    grid_m: int
+    grid_n_layer: int
+    grid_n_in: int
+    smem_layer: int
+    smem_in: int
+    smem_epi: int
+
+    def c_array(self):
+        """The plan as the C side reads it (``const int*``)."""
+        return (ctypes.c_int * len(PLAN_FIELDS))(
+            *(getattr(self, f) for f in PLAN_FIELDS))
+
+    @property
+    def ctas_layer(self) -> int:
+        """CTAs per layer-kernel launch."""
+        return self.batch * self.grid_m * self.grid_n_layer
+
+
+def tc_plan(b: int, t: int, c: int, m: int = 0) -> TcPlan:
+    """The plan for K1 at [b, t, c] (m = 0), or for K2 with m mel bins."""
+    cp = _round_up(c, TC_BK)
+    mp = _round_up(m, TC_BK) if m else 0
+    tiles = TC_TILE_BYTES
+    return TcPlan(
+        batch=b, cp=cp, mp=mp, bm=TC_BM, bn=TC_BN, bk=TC_BK,
+        stages=TC_STAGES, threads=TC_THREADS, grid_m=-(-t // TC_BM),
+        grid_n_layer=cp // TC_HALF, grid_n_in=cp // TC_BN if m else 0,
+        smem_layer=TC_STAGES * 2 * tiles + TC_ALIGN,
+        smem_in=2 * (mp // TC_BK) * tiles + TC_ALIGN if m else 0,
+        smem_epi=(2 * (cp // TC_BK) + TC_STAGES) * tiles + TC_ALIGN if m
+        else 0)
+
+
+def pack_paired(w, cp: int):
+    """[L, taps, C, 2C] (K x N per tap) -> [L, 2cp, taps cp] K-major, zero
+    padded: row 64 i + 32 h + j of a layer is its column h C + 32 i + j
+    (gate or residual half h = 0, filter or skip half h = 1; zero where
+    32 i + j >= C), and column tap cp + c is input channel c of that tap
+    (zero past C)."""
+    n_layers, taps, c, _ = w.shape
+    halves = [F.pad(w[..., i * c:(i + 1) * c], (0, cp - c, 0, cp - c))
+              for i in (0, 1)]                         # [L, taps, cp(k), cp(n)]
+    p = torch.stack(halves, 3).view(n_layers, taps, cp, 2, cp // TC_HALF,
+                                    TC_HALF)
+    return p.permute(0, 4, 3, 5, 1, 2).reshape(n_layers, 2 * cp,
+                                               taps * cp).contiguous()
+
+
+def pack_kmajor(w, kp: int, np_: int):
+    """[K, N] -> [np_, kp]: transposed to K-major, zero padded."""
+    k, n = w.shape
+    return F.pad(w.t(), (0, kp - k, 0, np_ - n)).contiguous()
 
 
 def residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
@@ -95,9 +190,10 @@ def residual_stack(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
     :returns:         [B, T, C] float32 skip sum (caller scales by 1/sqrt(L))
 
     All operands share x0's dtype (float32 or bfloat16) and device.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel.
+    tensors take the plain version; CUDA tensors launch the kernel (bf16:
+    the tensor-core kernels; f32: the SIMT kernels).
     """
-    global launches
+    global launches, launches_tc
     _check(x0, sb, cond_proj, wd, bd, wo, bo)
     if x0.device.type == "cpu":
         return residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo,
@@ -105,15 +201,27 @@ def residual_stack(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
     if x0.device.type != "cuda":
         raise ValueError(f"residual_stack: unsupported device {x0.device}")
     b, t, c = x0.shape
+    tc = x0.dtype == torch.bfloat16
     x = x0.clone()                                  # running state, in place
-    h = torch.empty_like(x0)
     skip = torch.empty(b, t, c, dtype=torch.float32, device=x0.device)
+    if tc:
+        plan = tc_plan(b, t, c)
+        # y and h with zero pad channels; weights packed for wgmma
+        y = torch.zeros(b, t, plan.cp, dtype=x0.dtype, device=x0.device)
+        h = torch.zeros_like(y)
+        wd, wo = pack_paired(wd, plan.cp), pack_paired(wo[:, None], plan.cp)
+        plan_arg = plan.c_array()
+    else:
+        h = torch.empty_like(x0)
+        y, plan_arg = None, None
     lib = _build.lib()
     err = lib.dsvc_residual_stack(
         _DTYPES[x0.dtype], x.data_ptr(), h.data_ptr(), skip.data_ptr(),
         sb.data_ptr(), sb.stride(0), sb.stride(1), cond_proj.data_ptr(),
         wd.data_ptr(), bd.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        b, t, c, cond_proj.shape[0], cycle, _build.stream())
+        b, t, c, cond_proj.shape[0], cycle, _build.ptr(y), plan_arg,
+        _build.stream())
     _build.check(err, "dsvc_residual_stack")
     launches += 1
+    launches_tc += tc
     return skip

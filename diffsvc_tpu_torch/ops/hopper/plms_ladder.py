@@ -15,14 +15,20 @@ push, see the TPU module's docstring):
     n      = w0*f + w1*h0 + w2*h1 + w3*h2;   x_next = u*x + v*n
     x_eval <- x_next;  x <- x_next if sel else x;  (h0,h1,h2) <- (f,h0,h1) if push
 
-What bounds it on the H100: K1's arithmetic (~48 GFLOP per evaluation at
+What bounds it on the H100: K1's arithmetic (48.3 GFLOP per evaluation at
 T=1024, C=384, L=20).  The TPU kept x, the history ring and the activation
 resident in VMEM for the whole trajectory; [T, C] does not fit one SM's
-shared memory at production T, so here a host loop over the J evaluations
-launches the input-projection kernel, K1 (with step-bias row j) and one
-fused epilogue kernel that finishes the denoiser and applies the update.
-The [J, 12] scalar table lives on the device, so the loop never syncs.  A
-CUDA graph over the loop (~2 launches + 2L per evaluation) is later work.
+shared memory at production T, so here ONE C call (``dsvc_plms_ladder``)
+loops over the J evaluations on the host side and launches, per
+evaluation, the input projection, K1's layers (with step-bias row j) and
+one fused epilogue that finishes the denoiser and applies the update.  The
+[J, 12] scalar table and the step biases live on the device, and the
+workspace (``ladder_workspace``) is allocated once per ladder, so no Python
+runs per evaluation and the loop never syncs.  bf16 runs the projections
+and K1 on the tensor cores (wgmma; weights packed K-major by this
+wrapper, launch plan ``diffnet_stack.tc_plan``); f32 keeps the SIMT
+kernels.  A CUDA graph over the loop (2 + 2L launches per evaluation) is
+later work.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 from . import _build, diffnet_stack
 
 NS = 12  # scalar rows per eval: p q e0 e1 w0 w1 w2 w3 u v sel push
-launches = 0   # ladder runs that launched the kernels (CUDA tensors)
+launches = 0      # ladder runs that launched the kernels (CUDA tensors)
+launches_tc = 0   # of those, the bf16 ones on the tensor-core kernels
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +184,7 @@ def plms_ladder_plain(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
 
 
 def _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
-           bout):
+           bout, wd, bd, wo, bo):
     b, t, m = x_init.shape
     n_layers, _, _, c2 = cond_proj.shape
     c = c2 // 2
@@ -189,7 +196,11 @@ def _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
             "win": (win, (m, c), win.dtype), "bin": (bin_, (c,), win.dtype),
             "wskip": (wskip, (c, c), win.dtype),
             "bskip": (bskip, (c,), win.dtype),
-            "wout": (wout, (c, m), win.dtype), "bout": (bout, (m,), win.dtype)}
+            "wout": (wout, (c, m), win.dtype), "bout": (bout, (m,), win.dtype),
+            "wd": (wd, (n_layers, 3, c, c2), win.dtype),
+            "bd": (bd, (n_layers, c2), win.dtype),
+            "wo": (wo, (n_layers, c, c2), win.dtype),
+            "bo": (bo, (n_layers, c2), win.dtype)}
     for name, (a, shape, dtype) in want.items():
         if tuple(a.shape) != shape or a.dtype != dtype:
             raise ValueError(f"plms_ladder: {name} is {a.dtype}"
@@ -197,6 +208,30 @@ def _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
         if a.device != x_init.device or not a.is_contiguous():
             raise ValueError(f"plms_ladder: {name} must be contiguous on "
                              f"{x_init.device}")
+
+
+# the workspace in the order dsvc_plms_ladder takes it
+WORKSPACE = ("x", "xe", "hist", "xs", "y", "h", "skip")
+
+
+def ladder_workspace(x_init, c: int, dtype, plan=None) -> dict:
+    """The ladder's buffers, allocated once: the f32 sampler state x and
+    x_eval (both x_init) and history [3, B, T, M] (zeros); K1's state xs
+    [B, T, C] in the compute dtype and the f32 skip sum [B, T, C]; h, the
+    gated activations, [B, T, C] for f32; for bf16 (``plan`` given) h and
+    the staged y = bf16(x + sb), [B, T, cp] with zero pad channels."""
+    b, t, m = x_init.shape
+    dev = x_init.device
+    ws = {"x": x_init.clone(), "xe": x_init.clone(),
+          "hist": torch.zeros((3, b, t, m), dtype=torch.float32, device=dev),
+          "xs": torch.empty((b, t, c), dtype=dtype, device=dev),
+          "skip": torch.empty((b, t, c), dtype=torch.float32, device=dev)}
+    if plan is None:
+        ws["h"], ws["y"] = torch.empty((b, t, c), dtype=dtype, device=dev), None
+    else:
+        ws["h"] = torch.zeros((b, t, plan.cp), dtype=dtype, device=dev)
+        ws["y"] = torch.zeros_like(ws["h"])
+    return ws
 
 
 def plms_ladder(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
@@ -214,36 +249,42 @@ def plms_ladder(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
     :param wd/bd/wo/bo: K1's layer weights (see diffnet_stack)
     :param clip_v:    sampler_clip_x0 bound (0 = off)
     :returns:         [B, T, M] float32 final sampler state
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels
+    (bf16: the tensor-core kernels; f32: the SIMT kernels).
     """
-    global launches
+    global launches, launches_tc
     _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
-           bout)
+           bout, wd, bd, wo, bo)
     if x_init.device.type == "cpu":
         return plms_ladder_plain(x_init, scal, sb_tab, cond_proj, win, bin_,
                                  wskip, bskip, wout, bout, wd, bd, wo, bo,
                                  cycle=cycle, clip_v=clip_v)
     if x_init.device.type != "cuda":
         raise ValueError(f"plms_ladder: unsupported device {x_init.device}")
-    dtype = diffnet_stack._DTYPES[win.dtype]
+    ds = diffnet_stack
     b, t, m = x_init.shape
     n_layers, c = cond_proj.shape[0], cond_proj.shape[3] // 2
-    rows = b * t
-    x = x_init.clone()
-    xe = x_init.clone()
-    hist = torch.zeros((3, b, t, m), dtype=torch.float32, device=x.device)
-    act = torch.empty((b, t, c), dtype=win.dtype, device=x.device)
-    lib, stream = _build.lib(), _build.stream()
-    for j in range(scal.shape[0]):
-        _build.check(lib.dsvc_ladder_in_proj(
-            dtype, xe.data_ptr(), act.data_ptr(), win.data_ptr(),
-            bin_.data_ptr(), rows, m, c, stream), "dsvc_ladder_in_proj")
-        skip = diffnet_stack.residual_stack(
-            act, sb_tab[j][:, None, :].expand(n_layers, b, c), cond_proj,
-            wd, bd, wo, bo, cycle=cycle)
-        _build.check(lib.dsvc_ladder_epilogue(
-            dtype, skip.data_ptr(), wskip.data_ptr(), bskip.data_ptr(),
-            wout.data_ptr(), bout.data_ptr(), scal[j].data_ptr(),
-            x.data_ptr(), xe.data_ptr(), hist.data_ptr(), rows, c, m,
-            n_layers, float(clip_v), stream), "dsvc_ladder_epilogue")
+    n_evals = scal.shape[0]
+    tc = win.dtype == torch.bfloat16
+    plan = ds.tc_plan(b, t, c, m) if tc else None
+    ws = ladder_workspace(x_init, c, win.dtype, plan)
+    if tc:   # K-major, zero padded (see diffnet_stack.pack_paired)
+        win = ds.pack_kmajor(win, plan.mp, plan.cp)
+        wskip = ds.pack_kmajor(wskip, plan.cp, plan.cp)
+        wout = ds.pack_kmajor(wout, plan.cp, plan.mp)
+        wd = ds.pack_paired(wd, plan.cp)
+        wo = ds.pack_paired(wo[:, None], plan.cp)
+    ptr = _build.ptr
+    err = _build.lib().dsvc_plms_ladder(
+        ds._DTYPES[win.dtype], *(ptr(ws[k]) for k in WORKSPACE),
+        *(ptr(a) for a in (scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
+                           wout, bout, wd, bd, wo, bo)),
+        n_evals, b, t, c, m, n_layers, cycle, float(clip_v),
+        plan.c_array() if tc else None, _build.stream())
+    _build.check(err, "dsvc_plms_ladder")
     launches += 1
-    return x
+    launches_tc += tc
+    ds.launches += n_evals      # K1's layers ran once per evaluation
+    ds.launches_tc += n_evals * tc
+    return ws["x"]

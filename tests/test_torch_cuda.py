@@ -154,6 +154,59 @@ def test_plms_ladder_batched(cuda, sampler, dtype, tol):
     assert _rel(got, ref) <= tol
 
 
+@pytest.mark.parametrize("b,t,c,layers", [(3, 1000, 384, 4), (2, 77, 40, 4)])
+def test_residual_stack_tensor_cores(cuda, b, t, c, layers):
+    """K1 at bf16 on its tensor-core kernels against the plain version: B=3
+    with a different step bias per sample at T=1000 (not a tile multiple),
+    C=384; and C=40 at T=77, where the cycle of 4 reaches a dilation of 8
+    (rows on both sides of each sample's edges)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(torch.bfloat16, cuda, b=b, t=t, c=c, layers=layers)
+    assert not torch.equal(a["sb"][:, 0], a["sb"][:, 1])
+    before = ds.launches_tc
+    got = ds.residual_stack(**a, cycle=4)
+    assert ds.launches_tc == before + 1
+    assert _rel(got, ds.residual_stack_plain(**a, cycle=4)) <= 1e-2
+
+
+@pytest.mark.parametrize("b,t,c,m", [(2, 77, 40, 20), (3, 1000, 384, 128)])
+def test_plms_ladder_tensor_cores(cuda, b, t, c, m):
+    """K2 at bf16 on its tensor-core kernels against the plain version:
+    a dilation of 8 at T=77 (C=40, M=20), and M=128 at B=3, T=1000, C=384;
+    11 PLMS evaluations, 4 layers."""
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import make_tables
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+    from diffsvc_tpu_torch.utils.synth import randomize
+
+    dt = torch.bfloat16
+    torch.manual_seed(0)
+    net = diffnet.DiffNet(m, 32, 4, c, 4)
+    randomize(net, 0)
+    net = net.to(cuda)
+    p = net.stacked(dt)
+    ac = make_tables(100, "linear", 0.02)["alphas_cumprod"]
+    t_eval, scal = pl.plms_eval_tables(ac, 100, 10)
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(cuda), c)
+    sb = diffnet.step_bias(p, step, dt).transpose(0, 1).contiguous()
+    cond = torch.randn(b, t, 32, device=cuda) * 0.5
+    cp = diffnet.prepare_cond(net, cond).to(dt).contiguous()
+    x = torch.randn(b, t, m, device=cuda)
+    args = (x, torch.from_numpy(scal).to(cuda), sb, cp, p["win"], p["bin"],
+            p["wskip"], p["bskip"], p["wout"], p["bout"], p["wd"], p["bd"],
+            p["wo"], p["bo"])
+    before = (pl.launches_tc, ds.launches_tc)
+    got = pl.plms_ladder(*args, cycle=4)
+    assert (pl.launches_tc, ds.launches_tc) == (before[0] + 1,
+                                                before[1] + len(t_eval))
+    ref = pl.plms_ladder_plain(*args, cycle=4)
+    assert torch.isfinite(got).all()
+    assert _rel(got, ref) <= 3e-2
+
+
 @pytest.mark.parametrize("use_f0", [True, False])
 def test_vocoder_tail_ragged(cuda, use_f0):
     from diffsvc_tpu_torch.vocoders import generator as gen_mod

@@ -1,0 +1,248 @@
+"""The bf16 tensor-core route of K1 and K2 as far as the CPU can reach it:
+the launch plan the wrappers compute (shared memory, wgmma's tile rules,
+grid coverage, the C side's field order), the K-major weight packing, the
+zero padding of channels and mel bins (bit-identical through the plain
+versions), and the ladder's workspace (a CPU run of the per-evaluation
+program over the workspace and the packed weights gives today's plain
+ladder bit for bit).  The kernels themselves run in ``test_torch_cuda.py``
+(``gpu``) and ``chip_smoke.py``."""
+
+import os
+import re
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+
+HEADER = os.path.join(os.path.dirname(ds.__file__), "..", "..", "csrc",
+                      "diffnet_layer_tc.cuh")
+
+# every config of the repo (configs/*.yaml: 256 x 80 mel at 24 kHz, 384 x
+# 128 at 44.1 kHz) over the collate's frame counts, and the ragged shapes of
+# the gpu tests: (B, T, C, M); M = 0 is K1 alone
+SHAPES = ([(1, t, c, m) for c, m in ((256, 80), (384, 128), (256, 128),
+                                      (384, 80))
+           for t in range(256, 2305, 256)]
+          + [(3, 77, 40, 20), (2, 70, 48, 20), (3, 1000, 384, 128),
+             (3, 77, 40, 0), (1, 77, 40, 0), (1, 1024, 384, 0)])
+
+
+def _header_constants():
+    with open(HEADER) as f:
+        src = f.read()
+    consts = {k: int(v) for k, v in
+              re.findall(r"constexpr int (\w+) = (\d+);", src)}
+    enum = re.search(r"enum \{([^}]*)\}", src).group(1)
+    fields = [f.strip()[2:].lower() for f in enum.split(",") if f.strip()]
+    return consts, fields
+
+
+def test_plan_matches_the_kernels_constants():
+    consts, fields = _header_constants()
+    assert tuple(fields) == ds.PLAN_FIELDS
+    assert (consts["BM"], consts["BN"], consts["BK"], consts["STAGES"],
+            consts["THREADS"], consts["SMEM_MAX"], consts["ALIGN"]) == (
+        ds.TC_BM, ds.TC_BN, ds.TC_BK, ds.TC_STAGES, ds.TC_THREADS,
+        ds.SMEM_MAX, ds.TC_ALIGN)
+    plan = ds.tc_plan(2, 300, 40, 20)
+    assert list(plan.c_array()) == [getattr(plan, f) for f in ds.PLAN_FIELDS]
+
+
+@pytest.mark.parametrize("b,t,c,m", SHAPES)
+def test_plan_fits_and_covers(b, t, c, m):
+    plan = ds.tc_plan(b, t, c, m)
+    # wgmma: one warpgroup, M = 64, N a multiple of 8 up to 256 (and the
+    # paired halves whole n8 blocks), K steps of 16 bf16 inside one
+    # 128-byte swizzled row per stage
+    assert plan.threads == 128 and plan.bm == 64
+    assert plan.bn % 8 == 0 and plan.bn <= 256 and (plan.bn // 2) % 8 == 0
+    assert plan.bk % 16 == 0 and plan.bk * 2 == 128
+    assert plan.stages >= 2
+    for smem in (plan.smem_layer, plan.smem_in, plan.smem_epi):
+        assert smem <= ds.SMEM_MAX
+    tile = plan.bm * plan.bk * 2
+    assert plan.smem_layer >= plan.stages * 2 * tile + ds.TC_ALIGN
+    # padding: whole K blocks, less than one block added
+    assert plan.cp % plan.bk == 0 and 0 <= plan.cp - c < plan.bk
+    # rows: tiles per sample cover [0, T) and no tile lies wholly past T
+    assert plan.grid_m * plan.bm >= t > (plan.grid_m - 1) * plan.bm
+    # columns: every channel's gate/filter (residual/skip) pair in one tile
+    assert plan.grid_n_layer * (plan.bn // 2) == plan.cp
+    assert plan.ctas_layer == b * plan.grid_m * plan.grid_n_layer
+    if m:
+        assert plan.mp % plan.bk == 0 and 0 <= plan.mp - m < plan.bk
+        assert plan.grid_n_in * plan.bn == plan.cp
+        assert plan.smem_in >= 2 * (plan.mp // plan.bk) * tile + ds.TC_ALIGN
+        assert plan.smem_epi >= ((2 * plan.cp // plan.bk + plan.stages) * tile
+                                 + ds.TC_ALIGN)
+    else:
+        assert plan.mp == plan.grid_n_in == plan.smem_in == plan.smem_epi == 0
+
+
+def test_plan_fills_the_card_at_b1():
+    """Conversion runs at B=1 with T a multiple of 256: a layer launches
+    96, 144 and 192 CTAs at T = 512, 768, 1024 (C = 384)."""
+    assert [ds.tc_plan(1, t, 384).ctas_layer for t in (512, 768, 1024)] == [
+        96, 144, 192]
+
+
+def _unpack_paired(p, c, taps):
+    n_layers, _, _ = p.shape
+    cp = p.shape[1] // 2
+    q = p.view(n_layers, cp // ds.TC_HALF, 2, ds.TC_HALF, taps, cp)
+    q = q.permute(0, 4, 5, 2, 1, 3).reshape(n_layers, taps, cp, 2, cp)
+    return torch.cat([q[:, :, :c, 0, :c], q[:, :, :c, 1, :c]], -1)
+
+
+@pytest.mark.parametrize("c,taps", [(40, 3), (40, 1), (384, 3), (64, 1)])
+def test_pack_paired_roundtrip(c, taps):
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(2, taps, c, 2 * c, generator=g).to(torch.bfloat16)
+    cp = ds.tc_plan(1, 64, c).cp
+    p = ds.pack_paired(w, cp)
+    assert p.shape == (2, 2 * cp, taps * cp) and p.is_contiguous()
+    assert torch.equal(_unpack_paired(p, c, taps), w)
+    assert torch.equal(ds.pack_paired(_unpack_paired(p, c, taps), cp), p)
+    # row 64 i + 32 h + j is column h C + 32 i + j; column tap cp + k
+    i, h, j, tap, k = 1 if cp > 32 else 0, 1, 5, taps - 1, 7
+    assert p[1, 64 * i + 32 * h + j, tap * cp + k] == w[1, tap, k,
+                                                        h * c + 32 * i + j]
+
+
+def test_pack_kmajor_roundtrip():
+    w = torch.randn(20, 40).to(torch.bfloat16)
+    p = ds.pack_kmajor(w, 64, 64)
+    assert p.shape == (64, 64) and torch.equal(p[:40, :20], w.t())
+    assert not p[40:].any() and not p[:, 20:].any()
+
+
+def _pad_channels(a, c, cp):
+    """K1's operands with C zero-padded to cp as the kernels see them: the
+    weights through the wrapper's packing and back."""
+    def pad2(x):
+        return torch.cat([F.pad(x[..., :c], (0, cp - c)),
+                          F.pad(x[..., c:], (0, cp - c))], -1)
+
+    wd = _unpack_paired(ds.pack_paired(a["wd"], cp), cp, 3)
+    wo = _unpack_paired(ds.pack_paired(a["wo"][:, None], cp), cp, 1)[:, 0]
+    return dict(x0=F.pad(a["x0"], (0, cp - c)), sb=F.pad(a["sb"], (0, cp - c)),
+                cond_proj=pad2(a["cond_proj"]), wd=wd, bd=pad2(a["bd"]),
+                wo=wo, bo=pad2(a["bo"]))
+
+
+@pytest.mark.parametrize("b,t,c,layers,cycle", [(3, 77, 40, 6, 3),
+                                                (2, 70, 48, 4, 4)])
+def test_padded_stack_is_bit_identical(b, t, c, layers, cycle):
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(torch.bfloat16, "cpu", b, t, c, layers)
+    cp = ds.tc_plan(b, t, c).cp
+    ref = ds.residual_stack_plain(**a, cycle=cycle)
+    got = ds.residual_stack_plain(**_pad_channels(a, c, cp), cycle=cycle)
+    assert torch.equal(got[..., :c], ref)
+    assert not got[..., c:].any()
+
+
+def _ladder_args(b, t, c, m, layers, cycle, n_evals=5):
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import make_tables
+    from diffsvc_tpu_torch.utils.synth import randomize
+
+    dt = torch.bfloat16
+    net = diffnet.DiffNet(m, 24, layers, c, cycle)
+    randomize(net, 0)
+    p = net.stacked(dt)
+    ac = make_tables(100, "linear", 0.02)["alphas_cumprod"]
+    t_eval, scal = pl.plms_eval_tables(ac, 100, 100 // (n_evals - 1))
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval), c)
+    sb = diffnet.step_bias(p, step, dt).transpose(0, 1).contiguous()
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn(b, t, 24, generator=g) * 0.5
+    cp_ = diffnet.prepare_cond(net, cond).to(dt).contiguous()
+    return dict(x_init=torch.randn(b, t, m, generator=g),
+                scal=torch.from_numpy(scal), sb_tab=sb, cond_proj=cp_,
+                win=p["win"], bin_=p["bin"], wskip=p["wskip"],
+                bskip=p["bskip"], wout=p["wout"], bout=p["bout"],
+                wd=p["wd"], bd=p["bd"], wo=p["wo"], bo=p["bo"])
+
+
+def _workspace_ladder(a, cycle):
+    """The per-evaluation program of dsvc_plms_ladder on the CPU: the
+    workspace updated in place, the weights taken from their packed
+    layouts."""
+    import math
+
+    b, t, m = a["x_init"].shape
+    n_layers, c = a["cond_proj"].shape[0], a["cond_proj"].shape[3] // 2
+    dt = a["win"].dtype
+    plan = ds.tc_plan(b, t, c, m)
+    ws = pl.ladder_workspace(a["x_init"], c, dt, plan)
+    win = ds.pack_kmajor(a["win"], plan.mp, plan.cp)[:c, :m].t()
+    wskip = ds.pack_kmajor(a["wskip"], plan.cp, plan.cp)[:c, :c].t()
+    wout = ds.pack_kmajor(a["wout"], plan.cp, plan.mp)[:m, :c].t()
+    wd = _unpack_paired(ds.pack_paired(a["wd"], plan.cp), c, 3)
+    wo = _unpack_paired(ds.pack_paired(a["wo"][:, None], plan.cp), c, 1)[:, 0]
+    for j in range(a["scal"].shape[0]):
+        ws["xs"].copy_(torch.relu(ws["xe"].to(dt).float() @ win.float()
+                                  + a["bin_"].float()).to(dt))
+        sb = a["sb_tab"][j][:, None, :].expand(n_layers, b, c)
+        ws["skip"].copy_(ds.residual_stack_plain(
+            ws["xs"], sb, a["cond_proj"], wd, a["bd"], wo, a["bo"],
+            cycle=cycle))
+        sk = (ws["skip"] * (1.0 / math.sqrt(n_layers))).to(dt)
+        s1 = torch.relu(sk.float() @ wskip.float()
+                        + a["bskip"].float()).to(dt)
+        eps = s1.float() @ wout.float() + a["bout"].float()
+        x, xe, *hist = pl._update(a["scal"][j], ws["x"], ws["xe"], eps,
+                                  *ws["hist"], 0.0)
+        ws["x"].copy_(x)
+        ws["xe"].copy_(xe)
+        ws["hist"].copy_(torch.stack(hist))
+    return ws["x"]
+
+
+@pytest.mark.parametrize("b,t,c,m", [(2, 70, 48, 20), (1, 77, 40, 20)])
+def test_ladder_workspace_path_is_bit_identical(b, t, c, m):
+    a = _ladder_args(b, t, c, m, layers=4, cycle=4)
+    plan = ds.tc_plan(b, t, c, m)
+    ws = pl.ladder_workspace(a["x_init"], c, torch.bfloat16, plan)
+    assert torch.equal(ws["x"], a["x_init"]) and torch.equal(ws["xe"],
+                                                             a["x_init"])
+    assert ws["x"].data_ptr() != ws["xe"].data_ptr() != a["x_init"].data_ptr()
+    assert not ws["hist"].any() and ws["hist"].shape == (3, b, t, m)
+    for k in ("y", "h"):
+        assert ws[k].shape == (b, t, plan.cp) and not ws[k].any()
+    assert tuple(pl.WORKSPACE) == ("x", "xe", "hist", "xs", "y", "h", "skip")
+    ref = pl.plms_ladder_plain(**a, cycle=4)
+    assert torch.equal(_workspace_ladder(a, cycle=4), ref)
+    assert torch.equal(pl.plms_ladder(**a, cycle=4), ref)   # CPU: plain
+
+
+def test_padded_ladder_is_bit_identical():
+    """Mel bins and channels zero-padded to mp and cp through the plain
+    ladder: the real bins equal the unpadded ladder's, the padded ones stay
+    zero."""
+    b, t, c, m = 2, 70, 40, 20
+    a = _ladder_args(b, t, c, m, layers=4, cycle=4)
+    plan = ds.tc_plan(b, t, c, m)
+    cp, mp = plan.cp, plan.mp
+    k1 = _pad_channels(dict(x0=torch.zeros(b, t, c, dtype=torch.bfloat16),
+                            sb=a["sb_tab"].transpose(0, 1), **{
+                                k: a[k] for k in ("cond_proj", "wd", "bd",
+                                                  "wo", "bo")}), c, cp)
+    pad = dict(a, x_init=F.pad(a["x_init"], (0, mp - m)),
+               sb_tab=k1["sb"].transpose(0, 1).contiguous(),
+               cond_proj=k1["cond_proj"], wd=k1["wd"], bd=k1["bd"],
+               wo=k1["wo"], bo=k1["bo"],
+               win=F.pad(a["win"], (0, cp - c, 0, mp - m)),
+               bin_=F.pad(a["bin_"], (0, cp - c)),
+               wskip=F.pad(a["wskip"], (0, cp - c, 0, cp - c)),
+               bskip=F.pad(a["bskip"], (0, cp - c)),
+               wout=F.pad(a["wout"], (0, mp - m, 0, cp - c)),
+               bout=F.pad(a["bout"], (0, mp - m)))
+    ref = pl.plms_ladder_plain(**a, cycle=4)
+    got = pl.plms_ladder_plain(**pad, cycle=4)
+    assert torch.equal(got[..., :m], ref) and not got[..., m:].any()
