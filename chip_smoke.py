@@ -9,8 +9,13 @@ NVIDIA GPU.
 Phases, in order; any failure exits non-zero and no result line is printed:
 
 1. The card: ``nvidia-smi`` name and power limit; CUDA is required (there
-   is no CPU fallback); TF32 is turned off for cuDNN and matmuls, so f32
-   comparisons are true f32.
+   is no CPU fallback); TF32 is turned off for cuDNN and matmuls, so every
+   f32 product PyTorch computes (the plain versions, cuDNN's convolutions)
+   is true f32.  The port's own f32 K1 and K2 (the denoiser's residual
+   layers and its input, skip and output projections inside the ladder) are
+   no longer pure f32: they multiply on the tensor cores as 3xTF32 split
+   products, good to ~2^-21 relative, and are held against those true-f32
+   plain versions at their f32 limits.  K3-K6 stay true f32.
 2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
@@ -24,28 +29,36 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    against K4 at the f32 stream.  Each tolerance must also be exceeded by
    the same kernel fed inputs that stand for a known bug (a planted fault:
    K1's last conditioner dropped; K2's skip-projection bias dropped, or its
-   history not pushed; K3's last NSF injection dropped; K4's and K5's last
+   history not pushed; at f32, K1's and K2's weights split with their lo
+   planes zeroed, so the a_hi b_lo products drop out of the 3xTF32 sums;
+   K3's last NSF injection dropped; K4's and K5's last
    sample's cotangent dropped, K4's layer or K5's sample with the next
    one's saved x; K6's taps read at 2d), so a check that cannot see a wrong
    kernel fails.  Beside K1 bf16, cuBLAS's time for the same products
    alone (``torch.matmul``, the gate and output GEMM of each layer, no
    gather and no epilogue) as a diagnostic floor, which the port never
-   calls; for K1 and K2 at bf16, their device time by kernel.
+   calls; for K1 and K2 in both dtypes, their device time by kernel and
+   their tensor-core plan's CTAs per layer launch.  The f32 rows' bound is
+   the tensor cores' at 3xTF32 (495 TFLOP/s over three passes); the CUDA
+   cores' f32 bound is printed beside it.
 4. The slice: reference-format checkpoints with random weights from a seed
    at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
    soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
    directory; the port's ``Svc`` + ``run_clip`` convert three voiced clips
    of 6.5-14 s with silences, once with ``diff_compute_dtype: bfloat16`` and
    once in f32.  Every kernel's launch counter is reset before and read
-   after that run and must be nonzero, and K1's and K2's tensor-core
-   counters must move on the bf16 conversions and stay 0 on the f32 ones;
+   after that run and must be nonzero; K1's and K2's bf16 tensor-core
+   counters (``launches_tc``) must move on the bf16 conversions and stay 0
+   on the f32 ones, and their 3xTF32 counters (``launches_tf32x3``) the
+   reverse;
    outputs must have the input's length, be finite and non-silent; a short
    clip converted on the card must agree with the same conversion on the
    CPU (the plain path), in f32 and in bf16, and the card's conversion with
    a planted fault must not.  Where the time goes: ``torch.profiler`` over
    one ``run_clip`` of the 14 s clip per dtype (wall, device busy share,
    the top kernels); the bf16 one must run K1's tensor-core kernels and no
-   SIMT layer kernel instantiated for bf16 operands.
+   SIMT layer kernel instantiated for bf16 operands, the f32 one K1's
+   3xTF32 kernels and no SIMT layer kernel at all.
 5. The training path at the same widths (``diffnet_train_stream_dtype``
    bf16, ``max_sentences`` 24): 32 synthetic clips of 4-12 s binarized by
    the port's binarizer (HuBERT-soft on the card), then ``run.py``'s
@@ -95,7 +108,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Relative-L2 tolerances and why.  Each sits between the sound reading on the
 # H100 and the reading of the planted faults (both printed each run).
 TOL = {
-    # one K1 call, 20 layers: the same f32 products summed in another order
+    # one K1 call, 20 layers: 3xTF32 products (each good to ~2^-21) summed
+    # in another order than the plain version's true-f32 ones
     ("residual_stack", "f32"): 1e-5,
     # bf16 operands: kernel and plain round the same values to bf16, but a
     # different f32 sum can flip a rounding of x/h, which then propagates
@@ -105,7 +119,8 @@ TOL = {
     # (the plain version with W_out, b_out zeroed).  The sampler update is
     # linear in the evaluations' eps, so this is their weighted error; on
     # x_final itself eps is ~4% of the state and a fault hides behind the
-    # noise term.  51 evaluations x 20 layers, f32 state in both.
+    # noise term.  51 evaluations x 20 layers, f32 state in both; at f32
+    # the kernels' products are 3xTF32.
     ("plms_ladder", "f32"): 1e-4,
     ("plms_ladder", "bf16"): 1e-2,
     # ~60 f32 convolutions of the tail
@@ -163,7 +178,9 @@ KERNELS = {
 }
 # Published dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by
 # operand type (f32 outside the tensor cores) and device-memory bytes/s.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# "tf32x3": f32 products as three TF32 passes on the tensor cores (495
+# TFLOP/s dense TF32 over 3), the rate K1's and K2's f32 kernels run at.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
 PEAK_BYTES = 3.35e12
 # main-path shapes at config_44k: frames, residual channels, layers, mel
 # bins, conditioner width
@@ -236,13 +253,55 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops: float, moved: int, dtype_name: str) -> dict:
+def bound(flops: float, moved: int, rate: str) -> dict:
     """The least time the card could take: the larger of the operations
-    over the peak rate of their operand type and the bytes (each input read
+    over the peak rate ``PEAK_FLOPS[rate]`` and the bytes (each input read
     once, each output written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype_name], moved / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FLOPS[rate], moved / PEAK_BYTES
     return {"flops": flops, "bytes": moved, "bound_ms": max(t_ops, t_bytes)
             * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def tc_bound(flops: float, moved: int, dtype_name: str) -> dict:
+    """K1's and K2's bound at the rate their kernels run (bf16 or 3xTF32
+    tensor cores), with the CUDA cores' f32 bound beside it at f32."""
+    res = bound(flops, moved, "tf32x3" if dtype_name == "f32" else "bf16")
+    if dtype_name == "f32":
+        res["cuda_core_bound_ms"] = bound(flops, moved, "f32")["bound_ms"]
+    return res
+
+
+@contextlib.contextmanager
+def lo_planes_dropped():
+    """K1's and K2's f32 weights split with zero lo planes (a planted
+    fault: the a_hi b_lo products drop out of the 3xTF32 sums)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+
+    split = ds.split_tf32
+
+    def hi_only(a):
+        hi, lo = split(a)
+        return hi, lo.zero_()
+
+    with swapped(ds, split_tf32=hi_only):
+        yield
+
+
+def plan_ctas(dtype_name: str, m: int = 0) -> dict:
+    """K1's (or K2's, m > 0) tensor-core plan at B=1 for the collate's
+    frame counts: CTAs and shared memory per layer launch, and for K2 the
+    CTAs of its projections."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+
+    out = {}
+    for t in (512, 768, 1024):
+        p = ds.tc_plan(1, t, C, m, _dtype(dtype_name))
+        out[t] = {"ctas_layer": p.ctas_layer, "smem_layer": p.smem_layer}
+        if m:
+            out[t]["ctas_in"] = p.grid_m * p.grid_n_in
+            out[t]["ctas_epi"] = p.grid_m * (
+                1 if dtype_name == "bf16" else p.mp // p.bn)
+    return out
 
 
 def stack_flops(rows: int, layers: int, per_row: int) -> float:
@@ -268,20 +327,21 @@ def check_residual_stack(device, dtype_name):
     cp[-1] = 0
     faults = {"cond dropped": dict(a, cond_proj=cp),
               "sb shifted by one layer": dict(a, sb=a["sb"].roll(1, 0))}
+    fault_rel = {k: rel_l2(ds.residual_stack(**f, cycle=4), ref)
+                 for k, f in faults.items()}
+    if dtype_name == "f32":
+        with lo_planes_dropped():
+            fault_rel["lo products dropped"] = rel_l2(kern(), ref)
     ms, plain_ms = time_in_turns(kern, plain, reps=10)
     res = {"max_abs_err": float((got - ref).abs().max()),
-           "rel_l2": rel_l2(got, ref),
-           "fault_rel_l2": {k: rel_l2(ds.residual_stack(**f, cycle=4), ref)
-                            for k, f in faults.items()},
+           "rel_l2": rel_l2(got, ref), "fault_rel_l2": fault_rel,
            "ms": ms, "plain_ms": plain_ms,
-           **bound(stack_flops(T, L, 16), nbytes(*a.values(), got),
-                   dtype_name)}
+           **tc_bound(stack_flops(T, L, 16), nbytes(*a.values(), got),
+                      dtype_name)}
+    res["breakdown"] = kernel_breakdown(kern, reps=5)
+    res["plan"] = plan_ctas(dtype_name)
     if dtype_name == "bf16":
-        res["breakdown"] = kernel_breakdown(kern, reps=5)
         res["cublas_products_ms"] = cublas_products_ms(a)
-        res["plan"] = {t: {"ctas_layer": ds.tc_plan(1, t, C).ctas_layer,
-                           "smem_layer": ds.tc_plan(1, t, C).smem_layer}
-                       for t in (512, 768, 1024)}
     return res
 
 
@@ -377,20 +437,24 @@ def check_plms_ladder(device, dtype_name):
     no_push[:, pl.NS - 1] = 0
     faults = {"bskip dropped": dict(a, bskip=torch.zeros_like(a["bskip"])),
               "history not pushed": dict(a, scal=no_push)}
+    fault_rel = {k: rel_l2(pl.plms_ladder(**f, cycle=4) - base, ref - base)
+                 for k, f in faults.items()}
+    if dtype_name == "f32":
+        with lo_planes_dropped():
+            fault_rel["lo products dropped"] = rel_l2(kern() - base,
+                                                      ref - base)
     ms, plain_ms = time_in_turns(kern, plain, reps=2)
-    extra = ({"breakdown": kernel_breakdown(kern, reps=1)}
-             if dtype_name == "bf16" else {})
-    return {**extra, "max_abs_err": float((got - ref).abs().max()),
+    return {"breakdown": kernel_breakdown(kern, reps=1),
+            "plan": plan_ctas(dtype_name, M),
+            "max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got - base, ref - base),
             "final_x_rel_l2": rel_l2(got, ref),
-            "eps_share": rel_l2(ref, base),
-            "fault_rel_l2": {k: rel_l2(pl.plms_ladder(**f, cycle=4) - base,
-                                       ref - base)
-                             for k, f in faults.items()},
+            "eps_share": rel_l2(ref, base), "fault_rel_l2": fault_rel,
             "evals": int(a["scal"].shape[0]), "ms": ms, "plain_ms": plain_ms,
-            **bound(int(a["scal"].shape[0]) * (stack_flops(T, L, 16)
-                                               + 2.0 * T * (2 * M * C + C * C)),
-                    nbytes(*a.values(), got), dtype_name)}
+            **tc_bound(int(a["scal"].shape[0]) * (stack_flops(T, L, 16)
+                                                  + 2.0 * T * (2 * M * C
+                                                               + C * C)),
+                       nbytes(*a.values(), got), dtype_name)}
 
 
 def check_vocoder_tail(device, dtype_name):
@@ -653,10 +717,15 @@ def phase_kernels(device):
             log(f"[kernel] {name} {dt}: cuBLAS alone on the same products "
                 f"(torch.matmul, gate + output GEMM x {L} layers, no gather, "
                 f"no epilogue; diagnostic floor, not library_ms): "
-                f"{res['cublas_products_ms']:.3f} ms; tensor-core plan at "
-                "B=1: " + ", ".join(
-                    f"T={t}: {p['ctas_layer']} CTAs x {p['smem_layer']} B"
-                    for t, p in res["plan"].items()))
+                f"{res['cublas_products_ms']:.3f} ms")
+        if "cuda_core_bound_ms" in res:
+            log(f"[kernel] {name} {dt}: bound {res['bound_ms']:.4f} ms at "
+                f"3xTF32 on the tensor cores; {res['cuda_core_bound_ms']:.4f}"
+                " ms at the CUDA cores' f32 rate")
+        if "plan" in res:
+            log(f"[kernel] {name} {dt}: tensor-core plan at B=1: " + ", ".join(
+                f"T={t}: " + " ".join(f"{k}={v}" for k, v in p.items())
+                for t, p in res["plan"].items()))
         if "breakdown" in res:
             log(f"[kernel] {name} {dt} device ms per call by kernel: " +
                 "; ".join(f"{k} {v[0]:.4f} ({v[1]:g}x)"
@@ -735,8 +804,11 @@ def phase_slice(device, workdir):
     for mod in counters.values():
         mod.launches = 0
     results["launches_tc"] = {}
+    tc_counters = ("launches_tc", "launches_tf32x3")
     for dt, svc in svcs.items():
-        diffnet_stack.launches_tc = plms_ladder.launches_tc = 0
+        for mod in (diffnet_stack, plms_ladder):
+            for k in tc_counters:
+                setattr(mod, k, 0)
         for fn, (secs, _, _) in zip(wavs, CLIPS):
             out_fn = fn[:-4] + f"_{dt or 'f32'}_out.wav"
             t0 = time.time()
@@ -763,13 +835,18 @@ def phase_slice(device, workdir):
             if rec["peak"] < 1e-3:
                 raise SmokeError("silent output audio")
             results["clips"].append(rec)
-        tc = {"residual_stack": diffnet_stack.launches_tc,
-              "plms_ladder": plms_ladder.launches_tc}
+        # bf16 conversions move launches_tc and not launches_tf32x3, f32
+        # ones the reverse
+        tc = {k: {"residual_stack": getattr(diffnet_stack, k),
+                  "plms_ladder": getattr(plms_ladder, k)}
+              for k in tc_counters}
         results["launches_tc"][dt or "float32"] = tc
         log(f"[slice] {dt or 'float32'} conversions: tensor-core launches {tc}")
-        if any((n > 0) != (dt == "bfloat16") for n in tc.values()):
+        want = "launches_tc" if dt == "bfloat16" else "launches_tf32x3"
+        if any((n > 0) != (k == want) for k in tc_counters
+               for n in tc[k].values()):
             raise SmokeError(f"{dt or 'float32'} conversions: tensor-core "
-                             f"launches {tc} (bf16 must move them, f32 not)")
+                             f"launches {tc} (must move {want} alone)")
     launches = {name: mod.launches for name, mod in counters.items()}
     results["launches"] = launches
     log(f"[slice] kernel launches on the main path: {launches}")
@@ -783,12 +860,16 @@ def phase_slice(device, workdir):
         dt or "float32": profile_clip(svc, wavs[-1], wavs[-1][:-4] + "_prof.wav")
         for dt, svc in svcs.items()}
     names = results["profile"]["bfloat16"].pop("names")
-    results["profile"]["float32"].pop("names")
     simt_bf16 = [n for n in names if re.search(
         r"\b(gate|out)_kernel<[^>]*bfloat16", n)]
     if simt_bf16 or not any("gate_tc_kernel" in n for n in names):
         raise SmokeError("the bf16 conversion's profile lacks K1's tensor-core "
                          f"kernels or runs SIMT layer kernels: {simt_bf16}")
+    names = results["profile"]["float32"].pop("names")
+    simt = [n for n in names if re.search(r"\b(gate|out)_kernel<", n)]
+    if simt or not any("tf32x3::gate_kernel" in n for n in names):
+        raise SmokeError("the f32 conversion's profile lacks K1's 3xTF32 "
+                         f"kernels or runs SIMT layer kernels: {simt}")
     return results
 
 
@@ -1532,7 +1613,7 @@ def main(argv=None) -> int:
                     residual_stack_train=record["own_batch"]["launches"][
                         "residual_stack_train"],
                     fused_residual_block=record["k6_path_launches"])
-    tc_launches = record["slice"]["launches_tc"]["bfloat16"]
+    tc_launches = record["slice"]["launches_tc"]
     for name, (src, replaces) in KERNELS.items():
         by_dt = record["kernels"][name]
         main_dt = "bf16" if "bf16" in by_dt else "f32"
@@ -1546,7 +1627,10 @@ def main(argv=None) -> int:
                         "bound_ms": main["bound_ms"],
                         "bound_by": main["bound_by"], "library_ms": None,
                         "dtype": main_dt,
-                        "launches_tc": tc_launches.get(name),
+                        "launches_tc": tc_launches["bfloat16"][
+                            "launches_tc"].get(name),
+                        "launches_tf32x3": tc_launches["float32"][
+                            "launches_tf32x3"].get(name),
                         "main_path": name != "fused_residual_block",
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})

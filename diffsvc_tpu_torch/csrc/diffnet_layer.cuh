@@ -1,7 +1,8 @@
 // One gated residual layer of DiffNet as two tiled SIMT kernels, shared by
-// the serving stack (K1, diffnet_stack.cu), the training forward with save
-// (K4, diffnet_stack_train.cu; also K5's forward) and the single residual
-// block (K6, diffnet_block.cu, with its own output epilogue).  Per layer, with d = 2^(l mod cycle):
+// the training forward with save (K4, diffnet_stack_train.cu; also K5's
+// forward) and the single residual block (K6, diffnet_block.cu, with its
+// own output epilogue).  K1 and K2 run their layers on the tensor cores
+// (diffnet_layer_tc.cuh, diffnet_layer_tf32x3.cuh).  Per layer, with d = 2^(l mod cycle):
 //   y = x + sb_l                       (rounded to the operand dtype OT)
 //   z = y[t-d] W0 + y[t] W1 + y[t+d] W2 + bd + cond_l   (zeros outside [0,T))
 //   h = sigmoid(z[:C]) * tanh(z[C:])   (rounded to OT)

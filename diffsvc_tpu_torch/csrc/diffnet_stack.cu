@@ -11,23 +11,23 @@
 //   skip += o[C:]                      (f32)
 //
 // What bounds it on the H100: arithmetic, ~2.4 GFLOP per layer at T=1024,
-// C=384.  bf16 (the TPU kernel's only dtype, and the serving mode) runs on
-// the tensor cores: wgmma layer kernels over packed weights and a staged
-// y (diffnet_layer_tc.cuh, whose note gives the design).  f32 has no TPU
-// counterpart and keeps true-f32 products: shared-memory tiled SIMT GEMMs
-// on the CUDA cores (diffnet_layer.cuh, shared with K4's forward), two
-// launches per layer.
-#include "diffnet_layer.cuh"
-#include "diffnet_layer_tc.cuh"
+// C=384.  Both dtypes run on the tensor cores, two wgmma kernels per layer
+// over packed weights and a staged y: bf16 (the TPU kernel's only dtype,
+// and the serving mode) with bf16 operands (diffnet_layer_tc.cuh, whose
+// note gives the design); f32 (no TPU counterpart; the default config's
+// dtype) as 3xTF32 split products that keep f32 accuracy
+// (diffnet_layer_tf32x3.cuh).
+#include "diffnet_layer_tf32x3.cuh"
 
 extern "C" {
 
 // x [B,T,C] running state (updated in place), skip [B,T,C] f32 output; sb
 // [L,B,C] with element strides (sb_l, sb_b), cond [L,B,T,2C], bd [L,2C],
-// bo [L,2C].  f32: h [B,T,C] scratch, wd [L,3,C,2C], wo [L,C,2C]; y and
-// plan unused.  bf16: h and y [B,T,Cp] scratch with zero pad channels, wd
-// and wo packed by the wrapper ([L,2Cp,3Cp] and [L,2Cp,Cp]), plan the
-// wrapper's launch plan (tc::P_* fields).
+// bo [L,2C]; plan the wrapper's launch plan (tc::P_* fields).  bf16: h and
+// y [B,T,Cp] scratch with zero pad channels, wd and wo packed by the
+// wrapper ([L,2Cp,3Cp] and [L,2Cp,Cp]).  f32: h and y [2,B,T,Cp] hi and lo
+// planes with zero pad channels, wd and wo packed and split by the wrapper
+// ([L,2,2Cp,3Cp] and [L,2,2Cp,Cp]).
 int dsvc_residual_stack(int dtype, void* x, void* h, void* skip,
                         const void* sb, long long sb_l, long long sb_b,
                         const void* cond, const void* wd, const void* bd,
@@ -47,14 +47,15 @@ int dsvc_residual_stack(int dtype, void* x, void* h, void* skip,
         static_cast<const T_*>(bd), static_cast<const T_*>(wo),
         static_cast<const T_*>(bo), B, T, C, L, cycle, false, plan, s);
   }
-  return run_stack<float, float, float>(static_cast<float*>(x), static_cast<float*>(h),
-                          static_cast<float*>(skip), nullptr,
-                          static_cast<const float*>(sb), sb_l, sb_b,
-                          static_cast<const float*>(cond),
-                          static_cast<const float*>(wd),
-                          static_cast<const float*>(bd),
-                          static_cast<const float*>(wo),
-                          static_cast<const float*>(bo), B, T, C, L, cycle, s);
+  if (!tf32x3::plan_ok(plan, T, C, 0)) return cudaErrorInvalidValue;
+  const int e = tf32x3::prepare_layers(plan);
+  if (e != 0) return e;
+  return tf32x3::run_stack(
+      static_cast<float*>(x), static_cast<float*>(y), static_cast<float*>(h),
+      static_cast<float*>(skip), static_cast<const float*>(sb), sb_l, sb_b,
+      static_cast<const float*>(cond), static_cast<const float*>(wd),
+      static_cast<const float*>(bd), static_cast<const float*>(wo),
+      static_cast<const float*>(bo), B, T, C, L, cycle, false, 0.f, plan, s);
 }
 
 const char* dsvc_error_string(int err) {

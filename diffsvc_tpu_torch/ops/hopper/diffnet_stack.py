@@ -6,16 +6,22 @@ returning the f32 skip sum.  CUDA source: ``csrc/diffnet_stack.cu``.
 
 What bounds it on the H100: arithmetic.  At T=1024, C=384, L=20 one call is
 48.3 GFLOP against ~31 MB of bf16 weights and conditioner, far above the
-card's FLOP-per-byte line.
-- bf16 (the TPU kernel's only dtype; serving's production mode) runs on the
-  tensor cores: wgmma layer kernels (``csrc/diffnet_layer_tc.cuh``) over
-  weights this wrapper packs K-major with each N tile pairing 32 gate and
-  filter (or residual and skip) columns, and a staged y = bf16(x + sb) that
-  the gate kernel reads as plain tiles at rows t-d, t, t+d.  The launch plan
-  (tiles, stages, shared memory, grid, channel padding) is ``tc_plan``.
-- f32 has no TPU counterpart (JAX samples f32 through the XLA scan) and
-  keeps true-f32 products: shared-memory tiled SIMT GEMMs on the CUDA
-  cores (``csrc/diffnet_layer.cuh``), two launches per layer.
+card's FLOP-per-byte line.  Both dtypes run on the tensor cores, two wgmma
+layer kernels per layer over weights this wrapper packs K-major with each N
+tile pairing 32 gate and filter (or residual and skip) columns, and a
+staged y = x + sb that the gate kernel reads as plain tiles at rows t-d, t,
+t+d.  The launch plan (tiles, stages, shared memory, grid, channel padding)
+is ``tc_plan``.
+- bf16 (the TPU kernel's only dtype; serving's production mode): bf16
+  operands, f32 sums (``csrc/diffnet_layer_tc.cuh``).
+- f32 (the default config's dtype; no TPU counterpart, JAX samples f32
+  through the XLA scan): 3xTF32 split products that keep f32 accuracy
+  (``csrc/diffnet_layer_tf32x3.cuh``).  Every f32 operand is split as
+  a = hi + lo (``split_tf32``): the weights here, once per call, into a hi
+  and a lo plane each; the activations y and h by the kernel that writes
+  them.  Each product is a_lo b_hi + a_hi b_lo + a_hi b_hi
+  (``matmul_tf32x3``), good to ~2^-21 relative, where plain TF32 would give
+  ~2^-11.
 
 Differences from the TPU kernel: takes [B, T, C] directly (the TPU kernel is
 B=1 and is vmapped), any T and C, and f32 as well as bf16 operands.
@@ -35,6 +41,7 @@ from . import _build
 launches = 0      # stacks launched on a CUDA tensor (each call, and each
                   # evaluation of a ladder, plms_ladder.py)
 launches_tc = 0   # of those, the bf16 ones on the tensor-core kernels
+launches_tf32x3 = 0   # of those, the f32 ones on the 3xTF32 kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,6 +52,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_BM, TC_BN, TC_BK, TC_STAGES, TC_THREADS = 64, 64, 64, 4, 128
 TC_HALF = TC_BN // 2
 TC_TILE_BYTES = TC_BM * TC_BK * 2
+# The f32 (3xTF32) kernels' tiles (csrc/diffnet_layer_tf32x3.cuh, namespace
+# tf32x3): the same 64 x 64 CTA tile, 32 deep (one 128-byte swizzled row of
+# f32); a stage holds four tiles (A hi, A lo, B hi, B lo), a 3-stage ring.
+X3_BK, X3_STAGES = 32, 3
+X3_TILE_BYTES = TC_BM * X3_BK * 4
 TC_ALIGN = 1024            # the 128-byte swizzle repeats every 1 KB
 SMEM_MAX = 232448          # shared memory a block can use on the H100
 # the order csrc/diffnet_layer_tc.cuh reads the plan in (enum P_*)
@@ -59,12 +71,14 @@ def _round_up(n: int, k: int) -> int:
 
 @dataclass(frozen=True)
 class TcPlan:
-    """Launch plan of the bf16 tensor-core kernels for [B, T, C] (and the
+    """Launch plan of the tensor-core kernels for [B, T, C] (and the
     ladder's M mel bins; m = 0 for K1 alone).  Channels are padded to cp
     (and mp) inside the kernels' buffers and packed weights; rows are tiled
     per sample, the ragged T edge masked in the kernels.  The layer kernels
-    run on grid (grid_m, grid_n_layer, B), the ladder's input projection on
-    (grid_m, grid_n_in, B) and its epilogue on (grid_m, 1, B)."""
+    run on grid (grid_m, grid_n_layer, B) and the ladder's input projection
+    on (grid_m, grid_n_in, B).  bf16: the ladder's epilogue on (grid_m, 1,
+    B); f32: its skip projection on (grid_m, grid_n_in, B), then its output
+    projection and update on (grid_m, mp / bn, B), both in smem_epi."""
     batch: int
     cp: int
     mp: int
@@ -91,10 +105,22 @@ class TcPlan:
         return self.batch * self.grid_m * self.grid_n_layer
 
 
-def tc_plan(b: int, t: int, c: int, m: int = 0) -> TcPlan:
-    """The plan for K1 at [b, t, c] (m = 0), or for K2 with m mel bins."""
-    cp = _round_up(c, TC_BK)
-    mp = _round_up(m, TC_BK) if m else 0
+def tc_plan(b: int, t: int, c: int, m: int = 0,
+            dtype=torch.bfloat16) -> TcPlan:
+    """The plan for K1 at [b, t, c] (m = 0), or for K2 with m mel bins, on
+    the bf16 kernels or, for ``torch.float32``, the 3xTF32 ones."""
+    cp = _round_up(c, TC_BN)
+    mp = _round_up(m, TC_BN) if m else 0
+    if dtype == torch.float32:
+        tile = X3_TILE_BYTES
+        ring = X3_STAGES * 4 * tile + TC_ALIGN
+        return TcPlan(
+            batch=b, cp=cp, mp=mp, bm=TC_BM, bn=TC_BN, bk=X3_BK,
+            stages=X3_STAGES, threads=TC_THREADS, grid_m=-(-t // TC_BM),
+            grid_n_layer=cp // TC_HALF, grid_n_in=cp // TC_BN if m else 0,
+            smem_layer=ring,
+            smem_in=4 * (mp // X3_BK) * tile + TC_ALIGN if m else 0,
+            smem_epi=ring if m else 0)
     tiles = TC_TILE_BYTES
     return TcPlan(
         batch=b, cp=cp, mp=mp, bm=TC_BM, bn=TC_BN, bk=TC_BK,
@@ -127,10 +153,68 @@ def pack_kmajor(w, kp: int, np_: int):
     return F.pad(w.t(), (0, kp - k, 0, np_ - n)).contiguous()
 
 
-def residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
+def _round_tf32(v):
+    """v rounded to the nearest TF32 value (10 explicit mantissa bits, ties
+    away from zero, as ``cvt.rna.tf32.f32``), kept as f32 with its 13 low
+    bits zero: half a TF32 ulp added to the bit pattern, then truncated."""
+    return ((v.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(
+        torch.float32)
+
+
+def split_tf32(a):
+    """(hi, lo) with hi = tf32(a) and lo = tf32(a - hi), both f32 tensors
+    whose 13 low mantissa bits are zero: what the 3xTF32 kernels multiply.
+    a - hi is exact in f32, so for finite normal a the remainder a - hi - lo
+    is at most 2^-22 |a|; subnormals are rounded at the same bit position,
+    so theirs is at most 2^-137.  Signs and zeros carry through (hi and lo
+    of -0 are -0 and 0)."""
+    hi = _round_tf32(a)
+    return hi, _round_tf32(a - hi)
+
+
+def pack_split(p):
+    """[..., N, K] f32 -> [..., 2, N, K]: the hi and lo planes of
+    ``split_tf32``, as the 3xTF32 kernels read packed weights."""
+    return torch.stack(split_tf32(p), -3).contiguous()
+
+
+def matmul_tf32x3(a, b):
+    """a @ b with the 3xTF32 kernels' products, in plain PyTorch: both
+    operands split by ``split_tf32``, then a_lo b_hi + a_hi b_lo + a_hi b_hi
+    (the small products first, as the kernels add them), sums in f32.  The
+    tests run the plain versions with it to hold the kernels' arithmetic
+    against the JAX package's f32."""
+    a_hi, a_lo = split_tf32(a)
+    b_hi, b_lo = split_tf32(b)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def pack_layers(wd, wo, cp: int):
+    """K1's layer weights as the tensor-core kernels read them: wd [L, 3, C,
+    2C] -> [L, 2cp, 3cp] and wo [L, C, 2C] -> [L, 2cp, cp] (``pack_paired``);
+    at f32 each split into hi and lo planes, [L, 2, 2cp, 3cp] and [L, 2,
+    2cp, cp]."""
+    wd, wo = pack_paired(wd, cp), pack_paired(wo[:, None], cp)
+    if wd.dtype == torch.float32:
+        wd, wo = pack_split(wd), pack_split(wo)
+    return wd, wo
+
+
+def layer_scratch(b: int, t: int, cp: int, dtype, device):
+    """(y, h): the staged y = x + sb and the gated h, with zero pad
+    channels: [B, T, cp] at bf16; at f32 a hi and a lo plane each, [2, B, T,
+    cp]."""
+    shape = (b, t, cp) if dtype == torch.bfloat16 else (2, b, t, cp)
+    y = torch.zeros(shape, dtype=dtype, device=device)
+    return y, torch.zeros_like(y)
+
+
+def residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int,
+                         matmul=torch.matmul):
     """Plain PyTorch version with the kernel's rounding points: matmul
     operands in the compute dtype, products summed in f32, running x
-    rounded to the compute dtype after every layer, skip in f32."""
+    rounded to the compute dtype after every layer, skip in f32.  ``matmul``
+    computes the products (``matmul_tf32x3``: the f32 kernels' arithmetic)."""
     dt = x0.dtype
     n_layers, b, t, c2 = cond_proj.shape
     c = c2 // 2
@@ -142,10 +226,10 @@ def residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
         yl = F.pad(y, (0, 0, d, 0))[:, :t]           # y[t-d], zero outside
         yr = F.pad(y, (0, 0, 0, d))[:, d:d + t]      # y[t+d], zero outside
         w = wd[layer].float()
-        z = yl @ w[0] + y @ w[1] + yr @ w[2]
+        z = matmul(yl, w[0]) + matmul(y, w[1]) + matmul(yr, w[2])
         z = z + bd[layer].float() + cond_proj[layer].float()
         h = (torch.sigmoid(z[..., :c]) * torch.tanh(z[..., c:])).to(dt)
-        o = h.float() @ wo[layer].float() + bo[layer].float()
+        o = matmul(h.float(), wo[layer].float()) + bo[layer].float()
         x = ((x.float() + o[..., :c]) * (1.0 / math.sqrt(2.0))).to(dt)
         skip = skip + o[..., c:]
     return skip
@@ -190,10 +274,10 @@ def residual_stack(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
     :returns:         [B, T, C] float32 skip sum (caller scales by 1/sqrt(L))
 
     All operands share x0's dtype (float32 or bfloat16) and device.  CPU
-    tensors take the plain version; CUDA tensors launch the kernel (bf16:
-    the tensor-core kernels; f32: the SIMT kernels).
+    tensors take the plain version; CUDA tensors launch the tensor-core
+    kernels (bf16 operands, or f32 as 3xTF32 split products).
     """
-    global launches, launches_tc
+    global launches, launches_tc, launches_tf32x3
     _check(x0, sb, cond_proj, wd, bd, wo, bo)
     if x0.device.type == "cpu":
         return residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo,
@@ -201,27 +285,20 @@ def residual_stack(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
     if x0.device.type != "cuda":
         raise ValueError(f"residual_stack: unsupported device {x0.device}")
     b, t, c = x0.shape
-    tc = x0.dtype == torch.bfloat16
+    plan = tc_plan(b, t, c, dtype=x0.dtype)
     x = x0.clone()                                  # running state, in place
     skip = torch.empty(b, t, c, dtype=torch.float32, device=x0.device)
-    if tc:
-        plan = tc_plan(b, t, c)
-        # y and h with zero pad channels; weights packed for wgmma
-        y = torch.zeros(b, t, plan.cp, dtype=x0.dtype, device=x0.device)
-        h = torch.zeros_like(y)
-        wd, wo = pack_paired(wd, plan.cp), pack_paired(wo[:, None], plan.cp)
-        plan_arg = plan.c_array()
-    else:
-        h = torch.empty_like(x0)
-        y, plan_arg = None, None
+    y, h = layer_scratch(b, t, plan.cp, x0.dtype, x0.device)
+    wd, wo = pack_layers(wd, wo, plan.cp)
     lib = _build.lib()
     err = lib.dsvc_residual_stack(
         _DTYPES[x0.dtype], x.data_ptr(), h.data_ptr(), skip.data_ptr(),
         sb.data_ptr(), sb.stride(0), sb.stride(1), cond_proj.data_ptr(),
         wd.data_ptr(), bd.data_ptr(), wo.data_ptr(), bo.data_ptr(),
-        b, t, c, cond_proj.shape[0], cycle, _build.ptr(y), plan_arg,
+        b, t, c, cond_proj.shape[0], cycle, y.data_ptr(), plan.c_array(),
         _build.stream())
     _build.check(err, "dsvc_residual_stack")
     launches += 1
-    launches_tc += tc
+    launches_tc += x0.dtype == torch.bfloat16
+    launches_tf32x3 += x0.dtype == torch.float32
     return skip

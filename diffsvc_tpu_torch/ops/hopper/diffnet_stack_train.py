@@ -5,7 +5,7 @@ Replaces ``diffsvc_tpu/ops/pallas/diffnet_stack.py:residual_stack_train_batched`
 (forward ``_fwd_kernel`` via ``_call_fwd``, backward ``_bwd_kernel_b`` via
 ``_call_bwd_batched``, custom VJP ``_rstb_fwd``/``_rstb_bwd``).  CUDA source:
 ``csrc/diffnet_stack_train.cu`` (+ the layer kernels of
-``csrc/diffnet_layer.cuh``, shared with K1, and the backward of
+``csrc/diffnet_layer.cuh``, shared with K6, and the backward of
 ``csrc/diffnet_train_bwd.cuh``, shared with K5).  The forward with save is
 also K5's forward (``diffnet_stack_per_sample``), as ``_call_fwd`` serves
 both JAX routes.

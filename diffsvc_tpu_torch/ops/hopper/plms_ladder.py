@@ -24,11 +24,14 @@ evaluation, the input projection, K1's layers (with step-bias row j) and
 one fused epilogue that finishes the denoiser and applies the update.  The
 [J, 12] scalar table and the step biases live on the device, and the
 workspace (``ladder_workspace``) is allocated once per ladder, so no Python
-runs per evaluation and the loop never syncs.  bf16 runs the projections
-and K1 on the tensor cores (wgmma; weights packed K-major by this
-wrapper, launch plan ``diffnet_stack.tc_plan``); f32 keeps the SIMT
-kernels.  A CUDA graph over the loop (2 + 2L launches per evaluation) is
-later work.
+runs per evaluation and the loop never syncs.  Both dtypes run the
+projections and K1 on the tensor cores (wgmma; weights packed K-major by
+this wrapper once per ladder, launch plan ``diffnet_stack.tc_plan``): bf16
+with bf16 operands, f32 with 3xTF32 split products (the weights split into
+hi and lo planes here, ``diffnet_stack.pack_split``), whose epilogue is two
+kernels, the skip projection and then the output projection with the
+update.  A CUDA graph over the loop (2 + 2L launches per evaluation, 3 + 2L
+at f32) is later work.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from . import _build, diffnet_stack
 NS = 12  # scalar rows per eval: p q e0 e1 w0 w1 w2 w3 u v sel push
 launches = 0      # ladder runs that launched the kernels (CUDA tensors)
 launches_tc = 0   # of those, the bf16 ones on the tensor-core kernels
+launches_tf32x3 = 0   # of those, the f32 ones on the 3xTF32 kernels
 
 
 # ---------------------------------------------------------------------------
@@ -163,22 +167,26 @@ def _update(sc, x, xe, eps, h0, h1, h2, clip_v: float):
 
 def plms_ladder_plain(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
                       wout, bout, wd, bd, wo, bo, *, cycle: int,
-                      clip_v: float = 0.0):
+                      clip_v: float = 0.0, matmul=torch.matmul):
     """Plain PyTorch version: the same program with the kernels' rounding
-    points (matmul operands in the compute dtype, f32 sums, f32 state)."""
+    points (matmul operands in the compute dtype, f32 sums, f32 state).
+    ``matmul`` computes the products (``diffnet_stack.matmul_tf32x3``: the
+    f32 kernels' arithmetic)."""
     dt = win.dtype
     n_layers, b, _, c2 = cond_proj.shape
     c = c2 // 2
     x, xe = x_init, x_init
     h0 = h1 = h2 = torch.zeros_like(x_init)
     for j in range(scal.shape[0]):
-        act = torch.relu(xe.to(dt).float() @ win.float() + bin_.float()).to(dt)
+        act = torch.relu(matmul(xe.to(dt).float(), win.float())
+                         + bin_.float()).to(dt)
         sb = sb_tab[j][:, None, :].expand(n_layers, b, c)
         skip = diffnet_stack.residual_stack_plain(
-            act, sb, cond_proj, wd, bd, wo, bo, cycle=cycle)
+            act, sb, cond_proj, wd, bd, wo, bo, cycle=cycle, matmul=matmul)
         sk = (skip * (1.0 / math.sqrt(n_layers))).to(dt)
-        s1 = torch.relu(sk.float() @ wskip.float() + bskip.float()).to(dt)
-        eps = s1.float() @ wout.float() + bout.float()
+        s1 = torch.relu(matmul(sk.float(), wskip.float())
+                        + bskip.float()).to(dt)
+        eps = matmul(s1.float(), wout.float()) + bout.float()
         x, xe, h0, h1, h2 = _update(scal[j], x, xe, eps, h0, h1, h2, clip_v)
     return x
 
@@ -214,23 +222,21 @@ def _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
 WORKSPACE = ("x", "xe", "hist", "xs", "y", "h", "skip")
 
 
-def ladder_workspace(x_init, c: int, dtype, plan=None) -> dict:
+def ladder_workspace(x_init, c: int, dtype, plan) -> dict:
     """The ladder's buffers, allocated once: the f32 sampler state x and
     x_eval (both x_init) and history [3, B, T, M] (zeros); K1's state xs
-    [B, T, C] in the compute dtype and the f32 skip sum [B, T, C]; h, the
-    gated activations, [B, T, C] for f32; for bf16 (``plan`` given) h and
-    the staged y = bf16(x + sb), [B, T, cp] with zero pad channels."""
+    [B, T, C] in the compute dtype and the f32 skip sum [B, T, C]; the
+    staged y = x + sb and the gated h with zero pad channels
+    (``diffnet_stack.layer_scratch``: [B, T, cp] at bf16, hi and lo planes
+    [2, B, T, cp] at f32, where y also carries the scaled skip sum into the
+    skip projection and h its output into the output projection)."""
     b, t, m = x_init.shape
     dev = x_init.device
     ws = {"x": x_init.clone(), "xe": x_init.clone(),
           "hist": torch.zeros((3, b, t, m), dtype=torch.float32, device=dev),
           "xs": torch.empty((b, t, c), dtype=dtype, device=dev),
           "skip": torch.empty((b, t, c), dtype=torch.float32, device=dev)}
-    if plan is None:
-        ws["h"], ws["y"] = torch.empty((b, t, c), dtype=dtype, device=dev), None
-    else:
-        ws["h"] = torch.zeros((b, t, plan.cp), dtype=dtype, device=dev)
-        ws["y"] = torch.zeros_like(ws["h"])
+    ws["y"], ws["h"] = diffnet_stack.layer_scratch(b, t, plan.cp, dtype, dev)
     return ws
 
 
@@ -250,10 +256,10 @@ def plms_ladder(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
     :param clip_v:    sampler_clip_x0 bound (0 = off)
     :returns:         [B, T, M] float32 final sampler state
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels
-    (bf16: the tensor-core kernels; f32: the SIMT kernels).
+    CPU tensors take the plain version; CUDA tensors launch the
+    tensor-core kernels (bf16 operands, or f32 as 3xTF32 split products).
     """
-    global launches, launches_tc
+    global launches, launches_tc, launches_tf32x3
     _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
            bout, wd, bd, wo, bo)
     if x_init.device.type == "cpu":
@@ -266,25 +272,31 @@ def plms_ladder(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
     b, t, m = x_init.shape
     n_layers, c = cond_proj.shape[0], cond_proj.shape[3] // 2
     n_evals = scal.shape[0]
-    tc = win.dtype == torch.bfloat16
-    plan = ds.tc_plan(b, t, c, m) if tc else None
-    ws = ladder_workspace(x_init, c, win.dtype, plan)
-    if tc:   # K-major, zero padded (see diffnet_stack.pack_paired)
-        win = ds.pack_kmajor(win, plan.mp, plan.cp)
-        wskip = ds.pack_kmajor(wskip, plan.cp, plan.cp)
-        wout = ds.pack_kmajor(wout, plan.cp, plan.mp)
-        wd = ds.pack_paired(wd, plan.cp)
-        wo = ds.pack_paired(wo[:, None], plan.cp)
+    dt = win.dtype
+    plan = ds.tc_plan(b, t, c, m, dt)
+    ws = ladder_workspace(x_init, c, dt, plan)
+    # K-major, zero padded (see diffnet_stack.pack_paired); f32: hi and lo
+    # planes
+    proj = [ds.pack_kmajor(win, plan.mp, plan.cp),
+            ds.pack_kmajor(wskip, plan.cp, plan.cp),
+            ds.pack_kmajor(wout, plan.cp, plan.mp)]
+    if dt == torch.float32:
+        proj = [ds.pack_split(w) for w in proj]
+    win, wskip, wout = proj
+    wd, wo = ds.pack_layers(wd, wo, plan.cp)
     ptr = _build.ptr
     err = _build.lib().dsvc_plms_ladder(
-        ds._DTYPES[win.dtype], *(ptr(ws[k]) for k in WORKSPACE),
+        ds._DTYPES[dt], *(ptr(ws[k]) for k in WORKSPACE),
         *(ptr(a) for a in (scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
                            wout, bout, wd, bd, wo, bo)),
         n_evals, b, t, c, m, n_layers, cycle, float(clip_v),
-        plan.c_array() if tc else None, _build.stream())
+        plan.c_array(), _build.stream())
     _build.check(err, "dsvc_plms_ladder")
+    tc, x3 = dt == torch.bfloat16, dt == torch.float32
     launches += 1
     launches_tc += tc
+    launches_tf32x3 += x3
     ds.launches += n_evals      # K1's layers ran once per evaluation
     ds.launches_tc += n_evals * tc
+    ds.launches_tf32x3 += n_evals * x3
     return ws["x"]

@@ -3,7 +3,8 @@ the card, at ragged shapes the main path does not hit (T, C and channel
 counts that are not tile multiples, B > 1, no NSF injection).  Marked
 ``gpu``: they skip without a CUDA device (run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m gpu``).  f32 comparisons run
-with TF32 off."""
+with TF32 off: the plain versions are true f32, and the port's f32 K1 and
+K2 (3xTF32 split products) are held to them at their f32 limits."""
 
 
 import pytest
@@ -205,6 +206,74 @@ def test_plms_ladder_tensor_cores(cuda, b, t, c, m):
     ref = pl.plms_ladder_plain(*args, cycle=4)
     assert torch.isfinite(got).all()
     assert _rel(got, ref) <= 3e-2
+
+
+@pytest.mark.parametrize("b,t,c,layers", [(3, 1000, 384, 4), (2, 77, 40, 4)])
+def test_residual_stack_f32_tensor_cores(cuda, b, t, c, layers):
+    """K1 at f32 on its 3xTF32 tensor-core kernels against the true-f32
+    plain version at K1's f32 limit: B=3 with a different step bias per
+    sample at T=1000, C=384; and C=40 at T=77 with a dilation of 8.  Only
+    the 3xTF32 counter moves."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(torch.float32, cuda, b=b, t=t, c=c, layers=layers)
+    assert not torch.equal(a["sb"][:, 0], a["sb"][:, 1])
+    before = (ds.launches_tf32x3, ds.launches_tc)
+    got = ds.residual_stack(**a, cycle=4)
+    assert (ds.launches_tf32x3, ds.launches_tc) == (before[0] + 1, before[1])
+    assert _rel(got, ds.residual_stack_plain(**a, cycle=4)) <= 1e-5
+
+
+@pytest.mark.parametrize("sampler", ["plms", "plms-clip", "dpmpp"])
+def test_plms_ladder_f32_tensor_cores(cuda, sampler):
+    """K2 at f32 on its 3xTF32 kernels against the true-f32 plain version
+    at B=2, T=300, C=384, M=128 (4 layers, 11 evaluations), for PLMS,
+    clipped PLMS and DPM-Solver++; the error is taken on the part of x the
+    denoiser put there (the plain ladder with W_out and b_out zeroed as
+    the base), at K2's f32 limit.  Only the 3xTF32 counters move: one
+    ladder, one K1 stack per evaluation."""
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import make_tables
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+    from diffsvc_tpu_torch.utils.synth import randomize
+
+    dt = torch.float32
+    b, t, c, m = 2, 300, 384, 128
+    torch.manual_seed(0)
+    net = diffnet.DiffNet(m, 32, 4, c, 4)
+    randomize(net, 0)
+    net = net.to(cuda)
+    p = net.stacked(dt)
+    ac = make_tables(100, "linear", 0.02)["alphas_cumprod"]
+    if sampler == "dpmpp":
+        t_eval, scal = pl.dpmpp_eval_tables(ac, 100, 10)
+    else:
+        t_eval, scal = pl.plms_eval_tables(ac, 100, 10,
+                                           clip=sampler == "plms-clip")
+    clip_v = 1.0 if sampler == "plms-clip" else 0.0
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(cuda), c)
+    sb = diffnet.step_bias(p, step, dt).transpose(0, 1).contiguous()
+    cond = torch.randn(b, t, 32, device=cuda) * 0.5
+    cp = diffnet.prepare_cond(net, cond).to(dt).contiguous()
+    x = torch.randn(b, t, m, device=cuda)
+    args = dict(x_init=x, scal=torch.from_numpy(scal).to(cuda), sb_tab=sb,
+                cond_proj=cp, win=p["win"], bin_=p["bin"], wskip=p["wskip"],
+                bskip=p["bskip"], wout=p["wout"], bout=p["bout"], wd=p["wd"],
+                bd=p["bd"], wo=p["wo"], bo=p["bo"])
+    before = (pl.launches_tf32x3, ds.launches_tf32x3, pl.launches_tc,
+              ds.launches_tc)
+    got = pl.plms_ladder(**args, cycle=4, clip_v=clip_v)
+    assert (pl.launches_tf32x3, ds.launches_tf32x3, pl.launches_tc,
+            ds.launches_tc) == (before[0] + 1, before[1] + len(t_eval),
+                                before[2], before[3])
+    ref = pl.plms_ladder_plain(**args, cycle=4, clip_v=clip_v)
+    base = pl.plms_ladder_plain(**dict(args, wout=torch.zeros_like(p["wout"]),
+                                       bout=torch.zeros_like(p["bout"])),
+                                cycle=4, clip_v=clip_v)
+    assert torch.isfinite(got).all()
+    assert _rel(got - base, ref - base) <= 1e-4
 
 
 @pytest.mark.parametrize("use_f0", [True, False])

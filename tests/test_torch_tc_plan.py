@@ -1,11 +1,12 @@
-"""The bf16 tensor-core route of K1 and K2 as far as the CPU can reach it:
-the launch plan the wrappers compute (shared memory, wgmma's tile rules,
-grid coverage, the C side's field order), the K-major weight packing, the
-zero padding of channels and mel bins (bit-identical through the plain
-versions), and the ladder's workspace (a CPU run of the per-evaluation
-program over the workspace and the packed weights gives today's plain
-ladder bit for bit).  The kernels themselves run in ``test_torch_cuda.py``
-(``gpu``) and ``chip_smoke.py``."""
+"""The tensor-core routes of K1 and K2 as far as the CPU can reach them:
+the launch plans the wrappers compute for bf16 and for f32 (3xTF32):
+shared memory, wgmma's tile rules, grid coverage, the C side's field order;
+the K-major weight packing and, at f32, its split into hi and lo planes;
+the zero padding of channels and mel bins (bit-identical through the plain
+versions, and bit-exact zeros in both planes), and the ladder's workspace
+(a CPU run of the per-evaluation program over the workspace and the packed
+weights gives today's plain ladder bit for bit).  The kernels themselves
+run in ``test_torch_cuda.py`` (``gpu``) and ``chip_smoke.py``."""
 
 import os
 import re
@@ -17,8 +18,9 @@ import torch.nn.functional as F
 from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
 from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
 
-HEADER = os.path.join(os.path.dirname(ds.__file__), "..", "..", "csrc",
-                      "diffnet_layer_tc.cuh")
+CSRC = os.path.join(os.path.dirname(ds.__file__), "..", "..", "csrc")
+HEADER = os.path.join(CSRC, "diffnet_layer_tc.cuh")
+HEADER_X3 = os.path.join(CSRC, "diffnet_layer_tf32x3.cuh")
 
 # every config of the repo (configs/*.yaml: 256 x 80 mel at 24 kHz, 384 x
 # 128 at 44.1 kHz) over the collate's frame counts, and the ragged shapes of
@@ -30,13 +32,14 @@ SHAPES = ([(1, t, c, m) for c, m in ((256, 80), (384, 128), (256, 128),
              (3, 77, 40, 0), (1, 77, 40, 0), (1, 1024, 384, 0)])
 
 
-def _header_constants():
-    with open(HEADER) as f:
+def _header_constants(header=HEADER):
+    with open(header) as f:
         src = f.read()
     consts = {k: int(v) for k, v in
               re.findall(r"constexpr int (\w+) = (\d+);", src)}
-    enum = re.search(r"enum \{([^}]*)\}", src).group(1)
-    fields = [f.strip()[2:].lower() for f in enum.split(",") if f.strip()]
+    enum = re.search(r"enum \{([^}]*)\}", src)
+    fields = ([f.strip()[2:].lower() for f in enum.group(1).split(",")
+               if f.strip()] if enum else None)
     return consts, fields
 
 
@@ -246,3 +249,119 @@ def test_padded_ladder_is_bit_identical():
     ref = pl.plms_ladder_plain(**a, cycle=4)
     got = pl.plms_ladder_plain(**pad, cycle=4)
     assert torch.equal(got[..., :m], ref) and not got[..., m:].any()
+
+
+# ---------------------------------------------------------------------------
+# f32: the 3xTF32 route
+# ---------------------------------------------------------------------------
+
+def test_f32_plan_matches_the_kernels_constants():
+    """The f32 kernels (namespace tf32x3) read the same plan fields
+    (tc::P_*) with their own tiles: 32 f32 per 128-byte row, 3 stages."""
+    consts, fields = _header_constants(HEADER_X3)
+    assert fields is None       # the fields are diffnet_layer_tc.cuh's
+    assert (consts["BM"], consts["BN"], consts["BK"], consts["STAGES"],
+            consts["THREADS"], consts["SMEM_MAX"], consts["ALIGN"]) == (
+        ds.TC_BM, ds.TC_BN, ds.X3_BK, ds.X3_STAGES, ds.TC_THREADS,
+        ds.SMEM_MAX, ds.TC_ALIGN)
+    plan = ds.tc_plan(2, 300, 40, 20, torch.float32)
+    assert list(plan.c_array()) == [getattr(plan, f) for f in ds.PLAN_FIELDS]
+
+
+@pytest.mark.parametrize("b,t,c,m", SHAPES)
+def test_f32_plan_fits_and_covers(b, t, c, m):
+    plan = ds.tc_plan(b, t, c, m, torch.float32)
+    # wgmma at TF32: one warpgroup, M = 64, N = 64 (paired halves whole n8
+    # blocks), K steps of 8 f32 inside one 128-byte swizzled row per stage
+    assert plan.threads == 128 and plan.bm == 64 and plan.bn == 64
+    assert plan.bk % 8 == 0 and plan.bk * 4 == 128
+    tile = plan.bm * plan.bk * 4
+    # a stage holds A hi, A lo, B hi, B lo; a ring of >= 3 stages loads two
+    # K blocks ahead
+    assert plan.stages >= 3
+    assert plan.smem_layer >= plan.stages * 4 * tile + ds.TC_ALIGN
+    for smem in (plan.smem_layer, plan.smem_in, plan.smem_epi):
+        assert smem <= ds.SMEM_MAX
+    # two CTAs share an SM (228 KB, 1 KB reserved per CTA)
+    assert 2 * (plan.smem_layer + 1024) <= 228 * 1024
+    # padding: whole 64-wide N tiles (K1's pairs, the projections), less
+    # than one tile added, and whole K blocks
+    assert plan.cp % plan.bn == 0 and 0 <= plan.cp - c < plan.bn
+    assert plan.cp % plan.bk == 0
+    assert plan.grid_m * plan.bm >= t > (plan.grid_m - 1) * plan.bm
+    assert plan.grid_n_layer * (plan.bn // 2) == plan.cp
+    assert plan.ctas_layer == b * plan.grid_m * plan.grid_n_layer
+    if m:
+        assert plan.mp % plan.bn == 0 and 0 <= plan.mp - m < plan.bn
+        assert plan.grid_n_in * plan.bn == plan.cp
+        # the input projection keeps A and B resident, hi and lo planes
+        assert plan.smem_in >= 4 * (plan.mp // plan.bk) * tile + ds.TC_ALIGN
+        # the skip and output projections stream through the layers' ring
+        assert plan.smem_epi >= plan.stages * 4 * tile + ds.TC_ALIGN
+    else:
+        assert plan.mp == plan.grid_n_in == plan.smem_in == plan.smem_epi == 0
+
+
+def test_f32_plan_fills_the_card_at_b1():
+    """At B=1 and C=384 an f32 layer launches as many CTAs as a bf16 one:
+    96, 144 and 192 at T = 512, 768, 1024, two per SM, one wave on 132
+    SMs."""
+    plans = [ds.tc_plan(1, t, 384, 128, torch.float32) for t in (512, 768,
+                                                                 1024)]
+    assert [p.ctas_layer for p in plans] == [96, 144, 192]
+    assert all(p.ctas_layer <= 2 * 132 for p in plans)
+
+
+@pytest.mark.parametrize("c,taps", [(40, 3), (40, 1), (384, 3), (64, 1)])
+def test_pack_split_roundtrip(c, taps):
+    """K1's f32 weights packed as the kernels read them: a hi and a lo
+    plane of the paired K-major layout, hi + lo within 2^-22 of each
+    weight, both planes exact TF32 values, and the padding bit-exact +0 in
+    both planes."""
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn(2, taps, c, 2 * c, generator=g) / 10
+    cp = ds.tc_plan(1, 64, c, dtype=torch.float32).cp
+    wd, wo = ds.pack_layers(w if taps == 3 else torch.zeros(2, 3, c, 2 * c),
+                            w[:, 0], cp)
+    p = wd if taps == 3 else wo
+    assert p.shape == (2, 2, 2 * cp, taps * cp) and p.is_contiguous()
+    hi, lo = p[:, 0], p[:, 1]
+    paired = ds.pack_paired(w, cp)
+    assert torch.equal(hi, ds.split_tf32(paired)[0])
+    assert torch.equal(lo, ds.split_tf32(paired)[1])
+    for plane in (hi, lo):
+        assert not (plane.view(torch.int32) & 0x1FFF).any()
+    back = _unpack_paired(hi, c, taps).double() + _unpack_paired(lo, c,
+                                                                 taps).double()
+    assert ((back - w.double()).abs() <= 2.0 ** -22 * w.double().abs()).all()
+    # the padding: every element that holds no weight is +0.0 in both planes
+    real = ds.pack_paired(torch.ones_like(w), cp) != 0
+    for plane in (hi, lo):
+        assert not plane.view(torch.int32)[~real].any()
+
+
+def test_pack_split_projections():
+    """K2's f32 projections: K-major, zero padded, then split: [2, N, K]."""
+    w = torch.randn(20, 40) / 10
+    p = ds.pack_split(ds.pack_kmajor(w, 64, 64))
+    assert p.shape == (2, 64, 64)
+    assert torch.equal(p[0, :40, :20], ds.split_tf32(w.t())[0])
+    assert torch.equal(p[1, :40, :20], ds.split_tf32(w.t())[1])
+    assert not p[:, 40:].view(torch.int32).any()
+    assert not p[:, :, 20:].view(torch.int32).any()
+
+
+@pytest.mark.parametrize("b,t,c,m", [(2, 70, 48, 20), (1, 1024, 384, 128)])
+def test_f32_workspace(b, t, c, m):
+    """The f32 ladder's workspace: the sampler state as at bf16, K1's state
+    and skip sum in f32, and y and h as hi and lo planes [2, B, T, cp] of
+    zeros."""
+    plan = ds.tc_plan(b, t, c, m, torch.float32)
+    x = torch.randn(b, t, m)
+    ws = pl.ladder_workspace(x, c, torch.float32, plan)
+    assert torch.equal(ws["x"], x) and torch.equal(ws["xe"], x)
+    assert ws["xs"].shape == ws["skip"].shape == (b, t, c)
+    for k in ("y", "h"):
+        assert ws[k].shape == (2, b, t, plan.cp)
+        assert ws[k].dtype == torch.float32 and not ws[k].any()
+    assert ws["y"].data_ptr() != ws["h"].data_ptr()
