@@ -11,11 +11,12 @@ Phases, in order; any failure exits non-zero and no result line is printed:
 1. The card: ``nvidia-smi`` name and power limit; CUDA is required (there
    is no CPU fallback); TF32 is turned off for cuDNN and matmuls, so every
    f32 product PyTorch computes (the plain versions, cuDNN's convolutions)
-   is true f32.  The port's own f32 K1 and K2 (the denoiser's residual
-   layers and its input, skip and output projections inside the ladder) are
-   no longer pure f32: they multiply on the tensor cores as 3xTF32 split
-   products, good to ~2^-21 relative, and are held against those true-f32
-   plain versions at their f32 limits.  K3-K6 stay true f32.
+   is true f32.  The port's own f32 K1, K2 (the denoiser's residual
+   layers and its input, skip and output projections inside the ladder)
+   and K3 (the vocoder tail) are no longer pure f32: they multiply on the
+   tensor cores as 3xTF32 split products, good to ~2^-21 relative, and are
+   held against those true-f32 plain versions at their f32 limits.  K4-K6
+   stay true f32.
 2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
@@ -29,16 +30,21 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    against K4 at the f32 stream.  Each tolerance must also be exceeded by
    the same kernel fed inputs that stand for a known bug (a planted fault:
    K1's last conditioner dropped; K2's skip-projection bias dropped, or its
-   history not pushed; at f32, K1's and K2's weights split with their lo
-   planes zeroed, so the a_hi b_lo products drop out of the 3xTF32 sums;
-   K3's last NSF injection dropped; K4's and K5's last
+   history not pushed; at f32, K1's, K2's and K3's weights split with
+   their lo planes zeroed, so the a_hi b_lo products drop out of the 3xTF32
+   sums; K3's last NSF injection dropped; K4's and K5's last
    sample's cotangent dropped, K4's layer or K5's sample with the next
    one's saved x; K6's taps read at 2d), so a check that cannot see a wrong
    kernel fails.  Beside K1 bf16, cuBLAS's time for the same products
    alone (``torch.matmul``, the gate and output GEMM of each layer, no
    gather and no epilogue) as a diagnostic floor, which the port never
    calls; for K1 and K2 in both dtypes, their device time by kernel and
-   their tensor-core plan's CTAs per layer launch.  The f32 rows' bound is
+   their tensor-core plan's CTAs per layer launch; for K3, its device time
+   by kernel (one template instance per stage), its launches per tail, the
+   tail with every ResBlock1 pair as two conv launches (the path fuses the
+   pairs of the narrow stages), and per stage the launch plans (CTAs,
+   shared memory) and one k=11 conv against one true-f32 ``F.conv1d`` of
+   the same shape (the library call).  The f32 tensor-core rows' bound is
    the tensor cores' at 3xTF32 (495 TFLOP/s over three passes); the CUDA
    cores' f32 bound is printed beside it.
 4. The slice: reference-format checkpoints with random weights from a seed
@@ -58,7 +64,9 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    one ``run_clip`` of the 14 s clip per dtype (wall, device busy share,
    the top kernels); the bf16 one must run K1's tensor-core kernels and no
    SIMT layer kernel instantiated for bf16 operands, the f32 one K1's
-   3xTF32 kernels and no SIMT layer kernel at all.
+   3xTF32 kernels and no SIMT layer kernel at all, and both K3's
+   tensor-core conv kernels and no SIMT ``conv1d_kernel``; the conversions
+   of each dtype must move K3's counter.
 5. The training path at the same widths (``diffnet_train_stream_dtype``
    bf16, ``max_sentences`` 24): 32 synthetic clips of 4-12 s binarized by
    the port's binarizer (HuBERT-soft on the card), then ``run.py``'s
@@ -263,7 +271,7 @@ def bound(flops: float, moved: int, rate: str) -> dict:
 
 
 def tc_bound(flops: float, moved: int, dtype_name: str) -> dict:
-    """K1's and K2's bound at the rate their kernels run (bf16 or 3xTF32
+    """The tensor-core kernels' bound at the rate they run (bf16 or 3xTF32
     tensor cores), with the CUDA cores' f32 bound beside it at f32."""
     res = bound(flops, moved, "tf32x3" if dtype_name == "f32" else "bf16")
     if dtype_name == "f32":
@@ -486,20 +494,50 @@ def check_vocoder_tail(device, dtype_name):
         plan = gen.tail_plan(s0)
         kern = lambda: vt.tail(x, injs, plan)                   # noqa: E731
         plain = lambda: vt.tail_plain(x, injs, plan)            # noqa: E731
+        # the same kernels with every ResBlock1 pair as two conv launches
+        unfused = lambda: vt._run(plan, x, injs, vt._conv_kernel,  # noqa
+                                  vt._convt_kernel)
         got, ref = kern(), plain()
-        fault = vt.tail(x, injs[:-1] + [torch.zeros_like(injs[-1])], plan)
+        fault_rel = {
+            "injection dropped": rel_l2(vt.tail(
+                x, injs[:-1] + [torch.zeros_like(injs[-1])], plan), ref),
+            "lo products dropped": rel_l2(vt.tail(
+                x, injs, tail_lo_planes_dropped(plan)), ref)}
         ms, plain_ms = time_in_turns(kern, plain, reps=5)
+        unfused_ms, fused_ms = time_in_turns(unfused, kern, reps=5)
+        pairs = {"unfused_ms": unfused_ms, "fused_ms": fused_ms,
+                 "unfused_rel_l2": rel_l2(unfused(), ref),
+                 "unfused_breakdown": kernel_breakdown(unfused, reps=3)}
         flops = tail_flops(vt, x, injs, plan)
+        breakdown = kernel_breakdown(kern, reps=3)
+        stages = tail_stages(vt, plan, x.shape, device)
     weights = [t for cp in [plan.post] + [c for st in plan.stages for br in
                                           st.branches for c in br]
-               for t in (cp.w, cp.b)]
+               for t in (cp.w_t, cp.b)]
     weights += [t for st in plan.stages if st.convt is not None
-                for t in (st.convt.w, st.convt.b)]
+                for t in (st.convt.w_t, st.convt.b)]
     return {"max_abs_err": float((got - ref).abs().max()),
-            "rel_l2": rel_l2(got, ref),
-            "fault_rel_l2": {"injection dropped": rel_l2(fault, ref)},
+            "rel_l2": rel_l2(got, ref), "fault_rel_l2": fault_rel,
             "samples": int(got.shape[1]), "ms": ms, "plain_ms": plain_ms,
-            **bound(flops, nbytes(x, *injs, *weights, got), dtype_name)}
+            "breakdown": breakdown, "pairs": pairs, "stages": stages,
+            "tail_launches": sum(n for _, n in breakdown.values()),
+            **tc_bound(flops, nbytes(x, *injs, *weights, got), dtype_name)}
+
+
+def tail_lo_planes_dropped(plan):
+    """K3's plan with every packed weight's lo plane zeroed (a planted
+    fault: the a_hi b_lo products drop out of the 3xTF32 sums)."""
+    def hi_only(cp):
+        wp = cp.wp.clone()
+        wp.select(-3, 1).zero_()
+        return cp._replace(wp=wp)
+
+    return plan._replace(
+        post=hi_only(plan.post),
+        stages=tuple(st._replace(
+            convt=None if st.convt is None else hi_only(st.convt),
+            branches=tuple(tuple(hi_only(cp) for cp in br)
+                           for br in st.branches)) for st in plan.stages))
 
 
 def tail_flops(vt, x, injs, plan) -> float:
@@ -509,17 +547,63 @@ def tail_flops(vt, x, injs, plan) -> float:
     total = [0.0]
 
     def conv(xx, cp, *args, **kw):
-        k, cin, cout = cp.w.shape
+        cout, cin, k = cp.w_t.shape
         total[0] += 2.0 * xx.shape[0] * xx.shape[1] * cin * cout * k
         return vt._conv_plain(xx, cp, *args, **kw)
 
     def convt(xx, tp, *args, **kw):
-        k, cin, cout = tp.w.shape
+        cin, cout, k = tp.w_t.shape
         total[0] += 2.0 * xx.shape[0] * xx.shape[1] * cin * cout * k
         return vt._convt_plain(xx, tp, *args, **kw)
 
     vt._run(plan, x, injs, conv, convt)
     return total[0]
+
+
+def tail_stages(vt, plan, x_shape, device) -> list:
+    """Per stage of the tail: the launch plans (CTAs, shared memory, N tile,
+    rows per CTA) of its ConvT and convs, and one k=11 resblock conv
+    (dilation 1) timed as K3 launches it against one true-f32 ``F.conv1d``
+    of the same shape on the pre-activated input (the library call; the
+    port never makes it), with that conv's bound at 3xTF32."""
+    import torch
+    import torch.nn.functional as F
+
+    out = []
+    _, t, c = x_shape
+    g = torch.Generator().manual_seed(2)
+    for i, st in enumerate(plan.stages):
+        rec = {"stage": plan.s0 + i}
+        if st.convt is not None:
+            p = vt.convt_tile_plan((1, t, c), st.convt)
+            rec["convt_plan"] = [p.ctas, p.smem, p.bn, p.bm]
+            cin, c, k = st.convt.w_t.shape
+            t = (t - 1) * st.convt.stride - 2 * st.convt.pad + k
+        convs = [cp for br in st.branches for cp in br]
+        rec.update(channels=c, rows=t, conv_plans=sorted(
+            {(p.ctas, p.smem, p.bn, p.bm) for p in (
+                vt.conv_tile_plan((1, t, c), cp) for cp in convs)}))
+        if st.kind == "1":   # (k, d, CTAs, shared memory), or unfused
+            rec["pair_plans"] = [
+                (k, d) + ((pp.ctas, pp.smem) if pp else ("two launches",))
+                for k, d, pp in sorted({(cp.w_t.shape[-1], cp.dilation,
+                                         vt.pair_plan(1, t, c,
+                                                      cp.w_t.shape[-1],
+                                                      cp.dilation))
+                                        for cp in convs[::2]})]
+        cp = next(cp for cp in convs if cp.w_t.shape[-1] == 11
+                  and cp.dilation == 1)
+        x = torch.randn(1, t, c, generator=g).to(device)
+        xc = F.leaky_relu(x, 0.1).transpose(1, 2).contiguous()
+        kern = lambda: vt._conv_kernel(x, cp, 0.1)              # noqa: E731
+        lib = lambda: F.conv1d(xc, cp.w_t, cp.b,                # noqa: E731
+                               padding=cp.pad, dilation=cp.dilation)
+        rec["k11_ms"], rec["k11_library_ms"] = time_in_turns(kern, lib, 20)
+        rec["k11_rel_l2"] = rel_l2(kern(), lib().transpose(1, 2))
+        rec["k11_bound_ms"] = bound(2.0 * t * c * c * 11, nbytes(
+            x, cp.w_t, cp.b) + 4 * t * c, "tf32x3")["bound_ms"]
+        out.append(rec)
+    return out
 
 
 def train_stack_inputs(device, dtype_name):
@@ -729,7 +813,31 @@ def phase_kernels(device):
         if "breakdown" in res:
             log(f"[kernel] {name} {dt} device ms per call by kernel: " +
                 "; ".join(f"{k} {v[0]:.4f} ({v[1]:g}x)"
-                          for k, v in list(res["breakdown"].items())[:6]))
+                          for k, v in list(res["breakdown"].items())[:10]))
+        if "pairs" in res:
+            pr = res["pairs"]
+            log(f"[kernel] {name} {dt}: ResBlock1 pairs fused where they fit "
+                f"(the path) {pr['fused_ms']:.3f} ms, each pair as two conv "
+                f"launches {pr['unfused_ms']:.3f} ms (rel_l2 "
+                f"{pr['unfused_rel_l2']:.3e}); unfused by kernel: " +
+                "; ".join(f"{k} {v[0]:.4f} ({v[1]:g}x)" for k, v in
+                          list(pr["unfused_breakdown"].items())[:10]))
+        if "stages" in res:
+            log(f"[kernel] {name} {dt}: {res['tail_launches']:g} launches per "
+                "tail; per stage the launch plans (CTAs, shared memory "
+                "bytes, N tile, rows per CTA) and one k=11 conv (d=1):")
+            for st in res["stages"]:
+                convt = (f" ConvT {st['convt_plan']};" if "convt_plan" in st
+                         else "")
+                pairs = (f" pairs {st['pair_plans']};" if "pair_plans" in st
+                         else "")
+                log(f"[kernel]   stage {st['stage']} C={st['channels']} "
+                    f"T={st['rows']}:{convt} convs {st['conv_plans']};{pairs}"
+                    " k=11 "
+                    f"kernel {st['k11_ms']:.4f} ms, F.conv1d true f32 "
+                    f"(library) {st['k11_library_ms']:.4f} ms, bound "
+                    f"{st['k11_bound_ms']:.4f} ms, rel_l2 "
+                    f"{st['k11_rel_l2']:.2e}")
         if name == "plms_ladder":
             log(f"[kernel] {name} {dt}: final x rel_l2="
                 f"{res['final_x_rel_l2']:.3e}, eps part of x "
@@ -805,10 +913,12 @@ def phase_slice(device, workdir):
         mod.launches = 0
     results["launches_tc"] = {}
     tc_counters = ("launches_tc", "launches_tf32x3")
+    results["launches_k3"] = {}
     for dt, svc in svcs.items():
         for mod in (diffnet_stack, plms_ladder):
             for k in tc_counters:
                 setattr(mod, k, 0)
+        k3_before = vocoder_tail.launches
         for fn, (secs, _, _) in zip(wavs, CLIPS):
             out_fn = fn[:-4] + f"_{dt or 'f32'}_out.wav"
             t0 = time.time()
@@ -841,7 +951,12 @@ def phase_slice(device, workdir):
                   "plms_ladder": getattr(plms_ladder, k)}
               for k in tc_counters}
         results["launches_tc"][dt or "float32"] = tc
-        log(f"[slice] {dt or 'float32'} conversions: tensor-core launches {tc}")
+        k3 = vocoder_tail.launches - k3_before
+        results["launches_k3"][dt or "float32"] = k3
+        log(f"[slice] {dt or 'float32'} conversions: tensor-core launches {tc}"
+            f"; K3 tails {k3}")
+        if k3 <= 0:
+            raise SmokeError(f"{dt or 'float32'} conversions did not run K3")
         want = "launches_tc" if dt == "bfloat16" else "launches_tf32x3"
         if any((n > 0) != (k == want) for k in tc_counters
                for n in tc[k].values()):
@@ -859,17 +974,24 @@ def phase_slice(device, workdir):
     results["profile"] = {
         dt or "float32": profile_clip(svc, wavs[-1], wavs[-1][:-4] + "_prof.wav")
         for dt, svc in svcs.items()}
-    names = results["profile"]["bfloat16"].pop("names")
-    simt_bf16 = [n for n in names if re.search(
+    names = {dt: prof.pop("names")
+             for dt, prof in results["profile"].items()}
+    simt_bf16 = [n for n in names["bfloat16"] if re.search(
         r"\b(gate|out)_kernel<[^>]*bfloat16", n)]
-    if simt_bf16 or not any("gate_tc_kernel" in n for n in names):
+    if simt_bf16 or not any("gate_tc_kernel" in n for n in names["bfloat16"]):
         raise SmokeError("the bf16 conversion's profile lacks K1's tensor-core "
                          f"kernels or runs SIMT layer kernels: {simt_bf16}")
-    names = results["profile"]["float32"].pop("names")
-    simt = [n for n in names if re.search(r"\b(gate|out)_kernel<", n)]
-    if simt or not any("tf32x3::gate_kernel" in n for n in names):
+    simt = [n for n in names["float32"]
+            if re.search(r"\b(gate|out)_kernel<", n)]
+    if simt or not any("tf32x3::gate_kernel" in n for n in names["float32"]):
         raise SmokeError("the f32 conversion's profile lacks K1's 3xTF32 "
                          f"kernels or runs SIMT layer kernels: {simt}")
+    # the vocoder is f32 in both: K3's tensor-core kernels, no SIMT conv
+    for dt, ns in names.items():
+        simt = [n for n in ns if re.search(r"(^|::)conv1d_kernel\b", n)]
+        if simt or not any("tail::conv_tc_kernel" in n for n in ns):
+            raise SmokeError(f"the {dt} conversion's profile lacks K3's "
+                             f"tensor-core kernels or runs SIMT ones: {simt}")
     return results
 
 

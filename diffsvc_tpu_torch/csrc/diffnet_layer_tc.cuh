@@ -38,7 +38,7 @@
 // by the wrapper (ops/hopper/diffnet_stack.py:tc_plan) and checked here.
 #pragma once
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 // Internal linkage: diffnet_stack.cu and plms_ladder.cu both include this
 // header and link into one library.
@@ -89,82 +89,19 @@ inline bool plan_ok(const int* p, int T, int C, int M) {
          p[P_SMEM_EPI] <= SMEM_MAX;
 }
 
-// Opt in to more than 48 KB of dynamic shared memory, and prefer the
-// largest shared-memory carveout, so that as many CTAs fit an SM as its
-// 228 KB allow.
-template <typename K>
-int allow_smem(K kernel, int smem) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      cudaSharedmemCarveoutMaxShared);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  return static_cast<int>(e);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Offset that brings the dynamic shared memory to a 1 KB boundary (the
-// plans reserve ALIGN bytes for it).
-__device__ __forceinline__ uint32_t align_pad(const void* raw) {
-  return (ALIGN - (smem_u32(raw) & (ALIGN - 1))) & (ALIGN - 1);
-}
-
-// Byte offset of 16-byte chunk `ch` (0-7) of row `r` in a 64 x 128-byte
-// tile with the 128-byte swizzle (what TMA's SWIZZLE_128B writes and what a
-// wgmma descriptor of layout type 1 reads).
-__device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return static_cast<uint32_t>(r * 128 + ((ch ^ (r & 7)) << 4));
-}
-
-// 16-byte async copy; zero-filled when !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Make this thread's generic-proxy shared-memory writes (cp.async, st)
-// visible to the async proxy that wgmma reads through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1 KB apart (SBO); the leading offset is unused for this layout.
-__device__ __forceinline__ uint64_t desc(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(ALIGN >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accumulator accesses across the async
-// wgmma boundaries.
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using wg::align_pad;
+using wg::allow_smem;
+using wg::cp_async16;
+using wg::cp_async_commit;
+using wg::cp_async_wait;
+using wg::desc;
+using wg::fence_acc;
+using wg::fence_proxy_async;
+using wg::smem_u32;
+using wg::swz;
+using wg::wgmma_commit;
+using wg::wgmma_fence;
+using wg::wgmma_wait;
 
 // d[64 x 64] += A[64 x 16] B[64 x 16]^T, both K-major in shared memory.
 // Thread (warp w, lane) holds d[4j + 2i + c] = D[16w + lane/4 + 8i,

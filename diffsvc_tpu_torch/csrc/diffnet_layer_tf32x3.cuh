@@ -77,6 +77,7 @@ using tc::swz;
 using tc::wgmma_commit;
 using tc::wgmma_fence;
 using tc::wgmma_wait;
+using wg::tf32_rna;
 
 constexpr int BM = 64;          // rows per CTA: one wgmma M
 constexpr int BN = 64;          // wgmma N
@@ -113,14 +114,6 @@ inline bool plan_ok(const int* p, int T, int C, int M) {
          p[tc::P_SMEM_IN] >= 4 * (mp / BK) * TILE + ALIGN &&
          p[tc::P_SMEM_IN] <= SMEM_MAX && p[tc::P_SMEM_EPI] >= smem_ring() &&
          p[tc::P_SMEM_EPI] <= SMEM_MAX;
-}
-
-// v rounded to the nearest TF32 value, ties away from zero, its 13 low bits
-// zero.
-__device__ __forceinline__ float tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
 }
 
 // a into the hi and lo planes at element i (lo `plane` elements after hi).

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .nn import true_f32_convs
+
 CONV_SPECS = [(10, 5), (3, 2), (3, 2), (3, 2), (3, 2), (2, 2), (2, 2)]
 
 
@@ -125,10 +127,13 @@ class HubertSoft(nn.Module):
         self.proj = nn.Linear(cfg.dim, cfg.proj_dim)
 
     def encode(self, wav16k: torch.Tensor) -> torch.Tensor:
-        """[B, L] 16 kHz -> [B, T, dim] encoder features."""
-        x = self.feature_extractor(wav16k).transpose(1, 2)
-        x = self.feature_projection.projection(self.feature_projection.norm(x))
-        x = self.norm(x + self.positional_embedding(x))
+        """[B, L] 16 kHz -> [B, T, dim] encoder features (the convolutions
+        in true f32 whatever the caller's cuDNN TF32 flag)."""
+        with true_f32_convs():
+            x = self.feature_extractor(wav16k).transpose(1, 2)
+            x = self.feature_projection.projection(
+                self.feature_projection.norm(x))
+            x = self.norm(x + self.positional_embedding(x))
         for layer in self.encoder.layers:
             x = layer(x)
         return x

@@ -8,10 +8,26 @@ weights.  ``linear`` takes torch's Linear layout [out, in].
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
+
+
+@contextlib.contextmanager
+def true_f32_convs():
+    """cuDNN's f32 convolutions in true f32 inside the block, whatever the
+    caller's ``torch.backends.cudnn.allow_tf32``: PyTorch's default (True)
+    runs them as single-pass TF32 (about three decimal digits), where the
+    JAX package's f32 path is true f32.  The caller's flag is restored
+    after the block; no other cuDNN flag is touched."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):

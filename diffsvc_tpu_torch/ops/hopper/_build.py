@@ -54,9 +54,9 @@ SIGNATURES = {
     # plms_ladder.cu
     "dsvc_plms_ladder": [I, *[P] * 20, I, I, I, I, I, I, I, F, P, P],
     # vocoder_tail.cu
-    "dsvc_tail_conv1d": [P, P, P, P, P, P, I, F, I, I, I, I, I, I, I, F, I,
-                         I, P],
-    "dsvc_tail_convt1d": [P, P, P, P, I, P, I, I, I, I, I, I, I, I, F, P],
+    "dsvc_tail_conv": [P, P, P, P, P, P, I, F, I, I, I, I, F, I, P, P],
+    "dsvc_tail_convt": [P, P, P, P, I, P, I, I, I, I, I, I, I, F, P, P],
+    "dsvc_tail_pair": [P, P, P, P, P, P, P, I, F, I, I, I, F, P, P],
 }
 
 

@@ -14,6 +14,9 @@ Two forwards:
   the NSF ``noise_convs``) and K3 (``ops/hopper/vocoder_tail.py``) for the
   rest, the Hopper kernels for CUDA tensors.
 
+Both run cuDNN's convolutions in true f32 (``models.nn.true_f32_convs``),
+as the JAX package's f32 path is, whatever the caller's TF32 flag.
+
 The NSF source randomness is passed in explicitly (:func:`draw_randoms`),
 so two implementations can be fed the same draws.
 """
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.nn import true_f32_convs
 from ..ops.hopper import vocoder_tail
 
 LRELU_SLOPE = 0.1
@@ -247,12 +251,14 @@ def apply(gen: Generator, mel: torch.Tensor, f0=None, randoms=None):
 
 
 def apply_conv_stack(gen: Generator, mel: torch.Tensor, har=None):
-    """The deterministic conv stack given the NSF source [B, 1, L]."""
-    x = gen.conv_pre(mel.transpose(1, 2))
-    for i in range(len(gen.cfg.upsample_rates)):
-        x = _upsample_stage(gen, i, x, har)
-        x = _resblock_mean(gen, i, x)
-    x = gen.conv_post(F.leaky_relu(x))
+    """The deterministic conv stack given the NSF source [B, 1, L] (cuDNN's
+    convolutions in true f32)."""
+    with true_f32_convs():
+        x = gen.conv_pre(mel.transpose(1, 2))
+        for i in range(len(gen.cfg.upsample_rates)):
+            x = _upsample_stage(gen, i, x, har)
+            x = _resblock_mean(gen, i, x)
+        x = gen.conv_post(F.leaky_relu(x))
     return torch.tanh(x)[:, 0, :]
 
 
@@ -309,15 +315,17 @@ def tail_prologue(gen: Generator, mel: torch.Tensor, har, s0: int):
 
 def apply_serving(gen: Generator, mel: torch.Tensor, f0=None, randoms=None):
     """Serving forward: plain-torch prologue + the K3 tail.  Same inputs and
-    output as :func:`apply`."""
+    output as :func:`apply`; the prologue's and the NSF noise convs' cuDNN
+    convolutions run in true f32 whatever the caller's TF32 flag."""
     cfg = gen.cfg
     s0 = tail_start_stage(cfg)
     har = None
     if cfg.use_nsf and f0 is not None:
         har = harmonic_source(gen, f0, randoms)
-    x = tail_prologue(gen, mel, har, s0)
-    injs = None
-    if har is not None:
-        injs = [gen.noise_convs[i](har).transpose(1, 2).contiguous()
-                for i in range(s0 + 1, len(cfg.upsample_rates))]
+    with true_f32_convs():
+        x = tail_prologue(gen, mel, har, s0)
+        injs = None
+        if har is not None:
+            injs = [gen.noise_convs[i](har).transpose(1, 2).contiguous()
+                    for i in range(s0 + 1, len(cfg.upsample_rates))]
     return vocoder_tail.tail(x, injs, gen.tail_plan(s0))

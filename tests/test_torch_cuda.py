@@ -4,9 +4,12 @@ counts that are not tile multiples, B > 1, no NSF injection).  Marked
 ``gpu``: they skip without a CUDA device (run them on the card with
 ``python -m pytest tests/test_torch_cuda.py -m gpu``).  f32 comparisons run
 with TF32 off: the plain versions are true f32, and the port's f32 K1 and
-K2 (3xTF32 split products) are held to them at their f32 limits."""
+K2 (3xTF32 split products) are held to them at their f32 limits, as K3
+(the vocoder tail, 3xTF32 too) is, also at config_44k's own vocoder
+widths."""
 
 
+import numpy as np
 import pytest
 import torch
 
@@ -276,28 +279,84 @@ def test_plms_ladder_f32_tensor_cores(cuda, sampler):
     assert _rel(got - base, ref - base) <= 1e-4
 
 
-@pytest.mark.parametrize("use_f0", [True, False])
-def test_vocoder_tail_ragged(cuda, use_f0):
+# (generator config, B, mel frames): ragged channels (80 / 40 / 20, odd
+# kernel sizes and rates), and config_44k's openvpi widths
+VOCODERS = {
+    "ragged": (dict(num_mels=16, upsample_initial_channel=160,
+                    upsample_rates=(4, 3, 2), upsample_kernel_sizes=(8, 7, 4),
+                    resblock_kernel_sizes=(3, 5),
+                    resblock_dilation_sizes=((1, 3), (1, 2)),
+                    sampling_rate=8000, use_nsf=True), 2, 37),
+    # 100 / 50 / 25 channels: windows of 50 and 25 channels load without
+    # cp.async (rows not 16-byte aligned)
+    "odd": (dict(num_mels=16, upsample_initial_channel=200,
+                 upsample_rates=(4, 3, 2), upsample_kernel_sizes=(8, 7, 4),
+                 resblock_kernel_sizes=(3, 5),
+                 resblock_dilation_sizes=((1, 3), (1, 2)),
+                 sampling_rate=8000, use_nsf=True), 1, 29),
+    "openvpi": (dict(num_mels=128, upsample_initial_channel=512,
+                     upsample_rates=(8, 8, 2, 2, 2),
+                     upsample_kernel_sizes=(16, 16, 4, 4, 4),
+                     resblock_kernel_sizes=(3, 7, 11),
+                     resblock_dilation_sizes=((1, 3, 5),) * 3,
+                     sampling_rate=44100, use_nsf=True), 1, 300),
+}
+
+
+def _vocoder(cuda, name, use_f0=True):
     from diffsvc_tpu_torch.vocoders import generator as gen_mod
 
+    cfg_kw, b, t = VOCODERS[name]
     torch.manual_seed(0)
-    cfg = gen_mod.HifiGanConfig(num_mels=16, upsample_initial_channel=160,
-                                upsample_rates=(4, 3, 2),
-                                upsample_kernel_sizes=(8, 7, 4),
-                                resblock_kernel_sizes=(3, 5),
-                                resblock_dilation_sizes=((1, 3), (1, 2)),
-                                sampling_rate=8000, use_nsf=True)
+    cfg = gen_mod.HifiGanConfig(**cfg_kw)
     gen = gen_mod.Generator(cfg).to(cuda)
-    b, t = 2, 37
-    mel = torch.randn(b, t, 16, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn(b, t, cfg.num_mels, generator=g).to(cuda)
     f0 = torch.full((b, t), 180.0, device=cuda) if use_f0 else None
-    randoms = gen_mod.draw_randoms(b, t * 24, cfg.harmonic_num,
-                                   torch.Generator().manual_seed(1))
-    randoms = tuple(r.to(cuda) for r in randoms)
+    hop = int(np.prod(cfg.upsample_rates))
+    randoms = gen_mod.draw_randoms(b, t * hop, cfg.harmonic_num, g)
+    return gen, mel, f0, tuple(r.to(cuda) for r in randoms), (b, t * hop)
+
+
+@pytest.mark.parametrize("name,use_f0", [("ragged", True), ("ragged", False),
+                                         ("odd", True), ("openvpi", True)])
+def test_vocoder_tail_ragged(cuda, name, use_f0):
+    """K3 (through apply_serving) against the plain generator: ragged
+    channels at B=2, T=37 with and without the NSF source, channel counts
+    that are not multiples of 4, and the openvpi widths at 300 frames."""
+    from diffsvc_tpu_torch.ops.hopper import vocoder_tail as vt
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    gen, mel, f0, randoms, shape = _vocoder(cuda, name, use_f0)
+    before = vt.launches
     with torch.no_grad():
         got = gen_mod.apply_serving(gen, mel, f0, randoms)
         ref = gen_mod.apply(gen, mel, f0, randoms)
-    assert got.shape == (b, t * 24)
+    assert vt.launches == before + 1
+    assert got.shape == shape
+    assert _rel(got, ref) <= 1e-4
+
+
+def test_vocoder_serving_is_true_f32_under_default_tf32():
+    """With cuDNN's TF32 left on, as PyTorch sets it by default, the
+    serving vocoder (its cuDNN prologue and noise convs, then K3) still
+    agrees with the true-f32 plain generator at K3's limit."""
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    cuda = torch.device("cuda")
+    gen, mel, f0, randoms, _ = _vocoder(cuda, "openvpi")
+    prev = torch.backends.cudnn.allow_tf32
+    try:
+        with torch.no_grad():
+            torch.backends.cudnn.allow_tf32 = False
+            ref = gen_mod.apply(gen, mel, f0, randoms)
+            torch.backends.cudnn.allow_tf32 = True
+            got = gen_mod.apply_serving(gen, mel, f0, randoms)
+            assert torch.backends.cudnn.allow_tf32     # the caller's flag
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
     assert _rel(got, ref) <= 1e-4
 
 
