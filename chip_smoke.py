@@ -12,11 +12,11 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    is no CPU fallback); TF32 is turned off for cuDNN and matmuls, so every
    f32 product PyTorch computes (the plain versions, cuDNN's convolutions)
    is true f32.  The port's own f32 K1, K2 (the denoiser's residual
-   layers and its input, skip and output projections inside the ladder)
-   and K3 (the vocoder tail) are no longer pure f32: they multiply on the
-   tensor cores as 3xTF32 split products, good to ~2^-21 relative, and are
-   held against those true-f32 plain versions at their f32 limits.  K4-K6
-   stay true f32.
+   layers and its input, skip and output projections inside the ladder),
+   K3 (the vocoder tail), K4's f32 stream and K5 (the training stack) are
+   no longer pure f32: they multiply on the tensor cores as 3xTF32 split
+   products, good to ~2^-21 relative, and are held against those true-f32
+   plain versions at their f32 limits.  K6 stays true f32 (SIMT).
 2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
@@ -34,8 +34,8 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    their lo planes zeroed, so the a_hi b_lo products drop out of the 3xTF32
    sums; K3's last NSF injection dropped; K4's and K5's last
    sample's cotangent dropped, K4's layer or K5's sample with the next
-   one's saved x; K6's taps read at 2d), so a check that cannot see a wrong
-   kernel fails.  Beside K1 bf16, cuBLAS's time for the same products
+   one's saved x, and at f32 their weights split with zero lo planes; K6's
+   taps read at 2d), so a check that cannot see a wrong kernel fails.  Beside K1 bf16, cuBLAS's time for the same products
    alone (``torch.matmul``, the gate and output GEMM of each layer, no
    gather and no epilogue) as a diagnostic floor, which the port never
    calls; for K1 and K2 in both dtypes, their device time by kernel and
@@ -44,9 +44,10 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    tail with every ResBlock1 pair as two conv launches (the path fuses the
    pairs of the narrow stages), and per stage the launch plans (CTAs,
    shared memory) and one k=11 conv against one true-f32 ``F.conv1d`` of
-   the same shape (the library call).  The f32 tensor-core rows' bound is
-   the tensor cores' at 3xTF32 (495 TFLOP/s over three passes); the CUDA
-   cores' f32 bound is printed beside it.
+   the same shape (the library call); for K4 and K5, their device time by
+   kernel.  The f32 tensor-core rows' bound is the tensor cores' at 3xTF32
+   (495 TFLOP/s over three passes); the CUDA cores' f32 bound is printed
+   beside it.
 4. The slice: reference-format checkpoints with random weights from a seed
    at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
    soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
@@ -83,15 +84,19 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    versions on the card, and a planted fault must not; ms per step,
    samples/s and mel frames/s for both stream dtypes, with the route each
    takes (the f32 stream's batch of 24 exceeds K4's carry: K5); a profile
-   of one step; and the step-6 checkpoint converts a clip through ``Svc``.
+   of one step, which must run K4 on the tensor cores (the bf16 kernels of
+   its forward and backward) and none of the SIMT training kernels; and
+   the step-6 checkpoint converts a clip through ``Svc``.
 6. Training at config_44k's own batching (``max_sentences`` 88,
    ``max_tokens`` 128000, bf16 stream): 96 clips of 4-8 s binarized by the
    port (8 held out for validation), ``run_task`` for 3 steps; every batch
    is printed with B, T and its route, and the batch of 88 must take the
    per-sample route: K5's counter (reset before, read after) must equal the
    steps, K4's backward must not move, validation (B=1) runs K1; ms/step,
-   samples/s, mel frames/s and peak memory at B=88; one step through the
-   kernels against the plain versions on the card, with a planted fault.
+   samples/s, mel frames/s and peak memory at B=88; a profile of one step,
+   which must run K5 on the 3xTF32 tensor-core kernels and none of the
+   SIMT training kernels; one step through the kernels against the plain
+   versions on the card, with a planted fault.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
@@ -134,20 +139,23 @@ TOL = {
     # ~60 f32 convolutions of the tail
     ("vocoder_tail", "f32"): 1e-4,
     # K4 forward + backward at B=24, T=1024, C=384, L=20: the largest rel-L2
-    # over the skip sum and the seven grads.  f32: the same products summed
-    # in another order (sound 1.2e-6 on the H100).  bf16 streams: kernel and
+    # over the skip sum and the seven grads.  f32: 3xTF32 products (each
+    # good to ~2^-21) summed in another order than the plain version's
+    # true-f32 ones (sound 1.2e-6 on the H100).  bf16 streams: kernel and
     # plain round y, h, do and dz at the same points, but another f32 sum
-    # can flip a rounding (sound 3.0e-3).  The planted faults read 0.21 (the
+    # can flip a rounding (sound 3.1e-3).  The planted faults read 0.21 (the
     # last sample's cotangent dropped) and 0.10 (one layer's saved x taken
-    # from the next layer) in both dtypes.
+    # from the next layer) in both dtypes; at f32 the weights' lo planes
+    # zeroed must read above the limit too.
     ("residual_stack_train_batched", "f32"): 1e-5,
     ("residual_stack_train_batched", "bf16"): 1e-2,
     # K5 (K4's forward at the f32 stream, the per-sample backward) at B=32,
     # T=1024, C=384, L=20, a per-sample shape in JAX: the largest rel-L2 over
-    # the skip sum and the seven grads; the same f32 products as the plain
-    # per-sample loop, summed in another order (sound 1.2e-6 on the H100;
-    # the planted faults read 0.18, the last sample's cotangent dropped, and
-    # 0.16, one sample's saved x taken from the next sample).
+    # the skip sum and the seven grads; 3xTF32 products against the plain
+    # per-sample loop's true-f32 ones, summed in another order (sound 8.2e-7
+    # on the H100; the planted faults read 0.18, the last sample's cotangent
+    # dropped, and 0.16, one sample's saved x taken from the next sample;
+    # the weights' lo planes zeroed must read above the limit too).
     ("residual_stack_train", "f32"): 1e-5,
     # K6, one layer at B=1, T=1024, C=384, dilations 1, 2, 4, 8: the largest
     # rel-L2 over x' and skip.  f32: one layer's products in another order
@@ -659,13 +667,27 @@ def check_residual_stack_train_batched(device, dtype_name):
               kern(swap=L // 2)}
     fault_rel = {k: max(rel_l2(x, y) for x, y in zip(f[1:], ref[1:]))
                  for k, f in faults.items()}
+    del faults
+    if dtype_name == "f32":
+        fault_rel["lo products dropped"] = lo_fault_rel(kern, ref)
     ms, plain_ms = time_in_turns(kern, plain, reps=2)
     return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
             "rel_l2": max(v["rel_l2"] for v in per.values()),
             "per_output": per, "fault_rel_l2": fault_rel, "batch": TRAIN_B,
             "ms": ms, "plain_ms": plain_ms,
-            **bound(stack_flops(TRAIN_B * T, L, 60),
-                    nbytes(*a.values(), dout, *got), dtype_name)}
+            "breakdown": kernel_breakdown(kern, reps=1),
+            **tc_bound(stack_flops(TRAIN_B * T, L, 60),
+                       nbytes(*a.values(), dout, *got), dtype_name)}
+
+
+def lo_fault_rel(kern, ref) -> float:
+    """The largest rel-L2 over the skip sum and the seven grads of the
+    training kernels run with their f32 weights split with zero lo planes
+    (a planted fault: the a_hi b_lo products of every weight product drop
+    out of the 3xTF32 sums)."""
+    with lo_planes_dropped():
+        got = kern()
+    return max(rel_l2(x, y) for x, y in zip(got, ref))
 
 
 def check_residual_stack_train(device, dtype_name):
@@ -711,6 +733,7 @@ def check_residual_stack_train(device, dtype_name):
     fault_rel = {k: max(rel_l2(x, y) for x, y in zip(f[1:], ref[1:]))
                  for k, f in faults.items()}
     del faults
+    fault_rel["lo products dropped"] = lo_fault_rel(kern, ref)
     # the batch against its B=1 runs, and against K4 at the f32 stream
     _, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
     full = got[1:]
@@ -735,8 +758,9 @@ def check_residual_stack_train(device, dtype_name):
             "route": route, "batch_is_sum_of_b1": bool(exact),
             "vs_k4_f32": {k: v["rel_l2"] for k, v in vs_k4.items()},
             "ms": ms, "plain_ms": plain_ms,
-            **bound(stack_flops(PS_B * T, L, 60),
-                    nbytes(*a.values(), dout, *got), dtype_name)}
+            "breakdown": kernel_breakdown(kern, reps=1),
+            **tc_bound(stack_flops(PS_B * T, L, 60),
+                       nbytes(*a.values(), dout, *got), dtype_name)}
 
 
 def check_fused_residual_block(device, dtype_name):
@@ -813,7 +837,7 @@ def phase_kernels(device):
         if "breakdown" in res:
             log(f"[kernel] {name} {dt} device ms per call by kernel: " +
                 "; ".join(f"{k} {v[0]:.4f} ({v[1]:g}x)"
-                          for k, v in list(res["breakdown"].items())[:10]))
+                          for k, v in list(res["breakdown"].items())[:16]))
         if "pairs" in res:
             pr = res["pairs"]
             log(f"[kernel] {name} {dt}: ResBlock1 pairs fused where they fit "
@@ -1232,6 +1256,32 @@ def card_vs_plain_step(task, batch, t, noise, mod, plain, bwd_name, tol,
     return res
 
 
+# The SIMT training kernels K4 and K5 ran before they moved to the tensor
+# cores: no train-step profile may show one.
+SIMT_TRAIN = re.compile(r"\b(gate_kernel<float|out_kernel<float|dh_kernel|"
+                        r"dy_kernel|wgrad_out_kernel|wgrad_dil_kernel)\b")
+TC_TRAIN = ("regate_tc_kernel", "dh_tc_kernel", "dy_tc_kernel",
+            "wgrad_tc_kernel")
+
+
+def check_train_profile(label: str, names, mode: str, forward: str) -> None:
+    """A train step's profile runs the training stack on the tensor cores:
+    the forward's layer kernel ``forward`` and each backward product's
+    kernel in operand mode ``mode`` (``Bf16`` or ``Tf32x3``), and no SIMT
+    training kernel."""
+    simt = [n for n in names if SIMT_TRAIN.search(n)]
+    missing = [k for k in TC_TRAIN
+               if not any(k in n and f"::{mode}" in n for n in names)]
+    if not any(forward in n for n in names):
+        missing.append(forward)
+    log(f"[profile] {label}: tensor-core training kernels "
+        f"{'all present' if not missing else f'missing {missing}'}; SIMT "
+        f"training kernels {simt or 'none'}")
+    if simt or missing:
+        raise SmokeError(f"{label} does not run the training stack on the "
+                         f"tensor cores: missing {missing}, SIMT {simt}")
+
+
 def time_steps(task, batch, reps: int) -> dict:
     """ms per train step (host clock ending in a sync, after one warm-up
     step), samples/s, mel frames/s and the peak of allocated memory."""
@@ -1453,6 +1503,8 @@ def phase_train(device, workdir):
     res["profile"] = profile_run(f"bf16 train step B={TRAIN_B} T="
                                  f"{batch['mels'].shape[1]}",
                                  lambda: task.train_step(batch))
+    check_train_profile("phase 5's bf16 step (K4)", res["profile"].pop("names"),
+                        "Bf16", "gate_tc_kernel<float>")
     del task, t2, trainer
     torch.cuda.empty_cache()
 
@@ -1609,6 +1661,9 @@ def phase_train_own_batch(device, workdir, hubert_path, vocoder_ckpt):
     res["profile"] = profile_run(f"train step B={len(ds)} T="
                                  f"{batch['mels'].shape[1]} (K5)",
                                  lambda: task.train_step(batch))
+    check_train_profile("phase 6's step at B=88 (K5)",
+                        res["profile"].pop("names"), "Tf32x3",
+                        "tf32x3::gate_kernel")
     g = torch.Generator().manual_seed(8)
     t = torch.randint(0, task.model.K_step, (len(ds),), generator=g)
     noise = torch.randn(batch["mels"].shape, generator=g)
@@ -1697,7 +1752,7 @@ def main(argv=None) -> int:
         log(f"[build] kernels ready in {record['build_s']:.2f}s "
             f"(nvcc {_build.build_seconds})")
         for line in _build.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[ptxas] {line.strip()}")
 
         record["kernels"] = phase_kernels(device)

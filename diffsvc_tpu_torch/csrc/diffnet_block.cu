@@ -31,10 +31,10 @@ int dsvc_residual_block(int dtype, const void* x, const void* step,
   const dim3 grid((B * T + BM - 1) / BM, (C + BN - 1) / BN);
   if (dtype == DSVC_BF16) {
     using T_ = __nv_bfloat16;
-    gate_kernel<T_, T_, T_><<<grid, NT, 0, s>>>(
+    gate_kernel<T_><<<grid, NT, 0, s>>>(
         static_cast<const T_*>(x), static_cast<const T_*>(step), C,
         static_cast<const T_*>(cond), static_cast<const T_*>(wd),
-        static_cast<const T_*>(bd), static_cast<T_*>(h), nullptr, B, T, C, d);
+        static_cast<const T_*>(bd), static_cast<T_*>(h), B, T, C, d);
     DSVC_LAUNCH_CHECK();
     block_out_kernel<T_><<<grid, NT, 0, s>>>(
         static_cast<const T_*>(h), static_cast<const T_*>(wo),
@@ -44,11 +44,10 @@ int dsvc_residual_block(int dtype, const void* x, const void* step,
     return 0;
   }
   if (dtype != DSVC_F32) return static_cast<int>(cudaErrorInvalidValue);
-  gate_kernel<float, float, float><<<grid, NT, 0, s>>>(
+  gate_kernel<float><<<grid, NT, 0, s>>>(
       static_cast<const float*>(x), static_cast<const float*>(step), C,
       static_cast<const float*>(cond), static_cast<const float*>(wd),
-      static_cast<const float*>(bd), static_cast<float*>(h), nullptr, B, T, C,
-      d);
+      static_cast<const float*>(bd), static_cast<float*>(h), B, T, C, d);
   DSVC_LAUNCH_CHECK();
   block_out_kernel<float><<<grid, NT, 0, s>>>(
       static_cast<const float*>(h), static_cast<const float*>(wo),

@@ -1,25 +1,18 @@
-// One gated residual layer of DiffNet as two tiled SIMT kernels, shared by
-// the training forward with save (K4, diffnet_stack_train.cu; also K5's
-// forward) and the single residual block (K6, diffnet_block.cu, with its
-// own output epilogue).  K1 and K2 run their layers on the tensor cores
-// (diffnet_layer_tc.cuh, diffnet_layer_tf32x3.cuh).  Per layer, with d = 2^(l mod cycle):
-//   y = x + sb_l                       (rounded to the operand dtype OT)
-//   z = y[t-d] W0 + y[t] W1 + y[t+d] W2 + bd + cond_l   (zeros outside [0,T))
-//   h = sigmoid(z[:C]) * tanh(z[C:])   (rounded to OT)
+// One gated residual layer of DiffNet as two tiled SIMT kernels: the single
+// residual block (K6, diffnet_block.cu), on no path of the JAX package.
+// K1, K2 and the training stack (K4, K5) run their layers on the tensor
+// cores (diffnet_layer_tc.cuh, diffnet_layer_tf32x3.cuh,
+// diffnet_train_bwd.cuh).  With dilation d, everything in the dtype T:
+//   y = x + sb                         (rounded to T)
+//   z = y[t-d] W0 + y[t] W1 + y[t+d] W2 + bd + cond   (zeros outside [0,T))
+//   h = sigmoid(z[:C]) * tanh(z[C:])   (rounded to T)
 //   o = h wo + bo
-//   x <- (x + o[:C]) / sqrt(2)         (rounded to the state dtype XT)
-//   skip += o[C:]                      (f32)
 //
 // gate_kernel runs the three dilated taps as one GEMM with K = 3C, the gate
 // and filter columns of a channel in the same thread, so the gated product
-// never leaves registers; with `zout` it also stores the f32 pre-activations
-// (the training backward recomputes them from the saved x_l).  out_kernel
-// runs the 1x1 output projection, updates x in place, sums skip in f32 and,
-// with `xsave`, stores the layer's input x_l in OT first.  Template
-// parameters: XT the residual state's dtype, OT the dtype of the matmul
-// operands (cond, wd, wo, h), BT the dtype of sb, bd and bo.  Products are
-// f32 FMAs on the CUDA cores (true f32 for f32 operands, exact products of
-// bf16 values for bf16).
+// never leaves registers; block_out_kernel runs the 1x1 output projection
+// with K6's epilogue.  Products are f32 FMAs on the CUDA cores (true f32
+// for f32 operands, exact products of bf16 values for bf16).
 #pragma once
 
 #include "common.cuh"
@@ -37,12 +30,12 @@ constexpr int BN = 32;   // output channels per block (per column half)
 constexpr int BK = 16;   // contraction tile
 constexpr int NT = 256;  // 16 x 16 threads: 4 rows x 2 columns each
 
-template <typename XT, typename OT, typename BT>
+template <typename T>
 __global__ void __launch_bounds__(NT)
-gate_kernel(const XT* __restrict__ x, const BT* __restrict__ sb, long long sb_b,
-            const OT* __restrict__ cond, const OT* __restrict__ wd,
-            const BT* __restrict__ bd, OT* __restrict__ h,
-            float* __restrict__ zout, int B, int T_, int C, int d) {
+gate_kernel(const T* __restrict__ x, const T* __restrict__ sb, long long sb_b,
+            const T* __restrict__ cond, const T* __restrict__ wd,
+            const T* __restrict__ bd, T* __restrict__ h, int B, int T_, int C,
+            int d) {
   __shared__ float As[BK][BM];
   __shared__ float Bg[BK][BN];
   __shared__ float Bf[BK][BN];
@@ -58,7 +51,7 @@ gate_kernel(const XT* __restrict__ x, const BT* __restrict__ sb, long long sb_b,
         const int tap = k / C, c = k - tap * C;
         const int b = r / T_, t = r - b * T_, ts = t + (tap - 1) * d;
         if (ts >= 0 && ts < T_)
-          v = rnd<OT>(to_f(x[((long long)b * T_ + ts) * C + c]) +
+          v = rnd<T>(to_f(x[((long long)b * T_ + ts) * C + c]) +
                       to_f(sb[b * sb_b + c]));
       }
       As[kk][m] = v;
@@ -101,11 +94,7 @@ gate_kernel(const XT* __restrict__ x, const BT* __restrict__ sb, long long sb_b,
       const long long cr = (long long)r * C2;
       const float zg = ag[i][j] + to_f(bd[o]) + to_f(cond[cr + o]);
       const float zf = af[i][j] + to_f(bd[C + o]) + to_f(cond[cr + C + o]);
-      h[(long long)r * C + o] = from_f<OT>(dsvc::sigmoidf_(zg) * tanhf(zf));
-      if (zout != nullptr) {
-        zout[cr + o] = zg;
-        zout[cr + C + o] = zf;
-      }
+      h[(long long)r * C + o] = from_f<T>(dsvc::sigmoidf_(zg) * tanhf(zf));
     }
   }
 }
@@ -157,36 +146,6 @@ __device__ __forceinline__ void out_gemm(const OT* __restrict__ h,
   }
 }
 
-template <typename XT, typename OT, typename BT>
-__global__ void __launch_bounds__(NT)
-out_kernel(const OT* __restrict__ h, const OT* __restrict__ wo,
-           const BT* __restrict__ bo, XT* __restrict__ x,
-           float* __restrict__ skip, OT* __restrict__ xsave, int rows, int C,
-           int first) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  float ar[4][2] = {}, as[4][2] = {};
-  out_gemm(h, wo, rows, C, m0, n0, ar, as);
-  const float inv_sqrt2 = 0.7071067811865476f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = m0 + ty * 4 + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int o = n0 + tx * 2 + j;
-      if (o >= C) continue;
-      const long long idx = (long long)r * C + o;
-      const float res = ar[i][j] + to_f(bo[o]);
-      const float sk = as[i][j] + to_f(bo[C + o]);
-      const float xv = to_f(x[idx]);
-      if (xsave != nullptr) xsave[idx] = from_f<OT>(xv);
-      x[idx] = from_f<XT>((xv + res) * inv_sqrt2);
-      skip[idx] = first ? sk : skip[idx] + sk;
-    }
-  }
-}
-
 // The single residual block's epilogue (K6, diffnet_block.cu): everything
 // in T, rounded where the TPU kernel rounds with .astype(x.dtype):
 // x_out = rnd(rnd(x + rnd(o[:C])) * rnd(1/sqrt2)) (the Python scalar takes
@@ -217,32 +176,6 @@ block_out_kernel(const T* __restrict__ h, const T* __restrict__ wo,
       skip[idx] = from_f<T>(as[i][j] + to_f(bo[C + o]));
     }
   }
-}
-
-// The L layers in order: x (state, updated in place), h [rows, C] scratch,
-// skip [rows, C] f32 out; xsave (nullable) [L, rows, C]; sb [L, B, C] with
-// element strides (sb_l, sb_b); cond [L, rows, 2C]; wd [L, 3, C, 2C];
-// bd, bo [L, 2C]; wo [L, C, 2C].
-template <typename XT, typename OT, typename BT>
-int run_stack(XT* x, OT* h, float* skip, OT* xsave, const BT* sb,
-              long long sb_l, long long sb_b, const OT* cond, const OT* wd,
-              const BT* bd, const OT* wo, const BT* bo, int B, int T_, int C,
-              int L, int cycle, cudaStream_t stream) {
-  const int rows = B * T_;
-  const dim3 grid((rows + BM - 1) / BM, (C + BN - 1) / BN);
-  const long long C2 = 2LL * C;
-  for (int l = 0; l < L; ++l) {
-    const int d = 1 << (l % cycle);
-    gate_kernel<XT, OT, BT><<<grid, NT, 0, stream>>>(
-        x, sb + l * sb_l, sb_b, cond + (long long)l * rows * C2,
-        wd + (long long)l * 3 * C * C2, bd + l * C2, h, nullptr, B, T_, C, d);
-    DSVC_LAUNCH_CHECK();
-    out_kernel<XT, OT, BT><<<grid, NT, 0, stream>>>(
-        h, wo + (long long)l * C * C2, bo + l * C2, x, skip,
-        xsave ? xsave + (long long)l * rows * C : nullptr, rows, C, l == 0);
-    DSVC_LAUNCH_CHECK();
-  }
-  return 0;
 }
 
 }  // namespace

@@ -1,5 +1,6 @@
 // One gated residual layer of DiffNet at bf16 on Hopper's tensor cores
-// (K1's bf16 route; K2 runs it once per evaluation).  Replaces, for bf16
+// (K1's bf16 route; K2 runs it once per evaluation; the training forward,
+// diffnet_stack_train.cu, runs it with an f32 state).  Replaces, for bf16
 // operands, diffsvc_tpu/ops/pallas/diffnet_stack.py:residual_stack (kernel
 // _kernel), whose products all take bf16 operands with an f32 sum: exactly
 // what wgmma computes.  Per layer l, with d = 2^(l mod cycle):
@@ -194,10 +195,12 @@ __device__ __forceinline__ int acc_row() {
 __device__ __forceinline__ int acc_col() { return 2 * (threadIdx.x & 3); }
 
 // Gate: h = bf16(sigmoid(z[:C]) * tanh(z[C:])) for rows t0.. of sample b
-// and channels n0 = 32 blockIdx.y ...; K = 3 taps x Cp.
+// and channels n0 = 32 blockIdx.y ...; K = 3 taps x Cp.  BT, bd's dtype:
+// bf16 (K1) or f32 (the training forward, diffnet_stack_train.cu).
+template <typename BT>
 __global__ void __launch_bounds__(THREADS)
 gate_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ wp,
-               const bf16* __restrict__ bd, const bf16* __restrict__ cond,
+               const BT* __restrict__ bd, const bf16* __restrict__ cond,
                bf16* __restrict__ h, int T, int C, int cp, int d) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = smem_u32(smem_raw) + align_pad(smem_raw);
@@ -256,15 +259,18 @@ gate_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ wp,
     }
 }
 
-// Output projection: o = h wo + bo; x <- bf16((x + o[:C]) / sqrt 2) in place,
+// Output projection: o = h wo + bo; x <- XT((x + o[:C]) / sqrt 2) in place,
 // skip (f32) = o[C:] (first layer) or skip + o[C:], and, unless y is null,
-// the next layer's y = bf16(x + sb_next).
+// the next layer's y = bf16(x + sb_next), from x in XT.  XT, the state's
+// dtype, and BT, the biases': bf16 (K1), or f32 for the training forward,
+// which also stores the layer's input bf16(x) into xsave (unless null).
+template <typename XT, typename BT>
 __global__ void __launch_bounds__(THREADS)
 out_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ wp,
-              const bf16* __restrict__ bo, bf16* __restrict__ x,
+              const BT* __restrict__ bo, XT* __restrict__ x,
               float* __restrict__ skip, bf16* __restrict__ y,
-              const bf16* __restrict__ sbn, long long sb_b, int T, int C,
-              int cp, int first) {
+              const BT* __restrict__ sbn, long long sb_b,
+              bf16* __restrict__ xsave, int T, int C, int cp, int first) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = smem_u32(smem_raw) + align_pad(smem_raw);
   const int tid = threadIdx.x, t0 = blockIdx.x * BM, nt = blockIdx.y;
@@ -316,18 +322,19 @@ out_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ wp,
       const size_t row = (size_t)b * T + t, idx = row * C + o;
       const float res = acc[4 * j + e] + br[2 * j + (e & 1)];
       const float sk = acc[4 * (j + HALF / 8) + e] + bs[2 * j + (e & 1)];
-      const bf16 xn = __float2bfloat16((xv[4 * j + e] + res) * inv_sqrt2);
+      const XT xn = dsvc::from_f<XT>((xv[4 * j + e] + res) * inv_sqrt2);
+      if (xsave != nullptr) xsave[idx] = __float2bfloat16(xv[4 * j + e]);
       x[idx] = xn;
       skip[idx] = first ? sk : sv[4 * j + e] + sk;
       if (y != nullptr)
-        y[row * cp + o] =
-            __float2bfloat16(__bfloat162float(xn) + sbv[2 * j + (e & 1)]);
+        y[row * cp + o] = __float2bfloat16(to_f(xn) + sbv[2 * j + (e & 1)]);
     }
 }
 
 // Layer 0's y = bf16(x + sb_0) into the [B, T, Cp] buffer.
-__global__ void y0_kernel(const bf16* __restrict__ x,
-                          const bf16* __restrict__ sb0, long long sb_b,
+template <typename XT, typename BT>
+__global__ void y0_kernel(const XT* __restrict__ x,
+                          const BT* __restrict__ sb0, long long sb_b,
                           bf16* __restrict__ y, int B, int T, int C, int cp) {
   const long long n = (long long)B * T * C;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
@@ -340,9 +347,10 @@ __global__ void y0_kernel(const bf16* __restrict__ x,
 }
 
 // Both layer kernels may use the plan's shared memory.
+template <typename XT = bf16, typename BT = bf16>
 inline int prepare_layers(const int* plan) {
-  int e = allow_smem(gate_tc_kernel, plan[P_SMEM_LAYER]);
-  if (e == 0) e = allow_smem(out_tc_kernel, plan[P_SMEM_LAYER]);
+  int e = allow_smem(gate_tc_kernel<BT>, plan[P_SMEM_LAYER]);
+  if (e == 0) e = allow_smem(out_tc_kernel<XT, BT>, plan[P_SMEM_LAYER]);
   return e;
 }
 
@@ -350,13 +358,15 @@ inline int prepare_layers(const int* plan) {
 // h [B,T,Cp] scratch with zero pad channels (y holds layer 0's y already
 // when y_ready), skip [B,T,C] f32 out; sb [L,B,C] with element strides
 // (sb_l, sb_b); cond [L,B,T,2C]; wdp [L,2Cp,3Cp] and wop [L,2Cp,Cp] packed
-// by the wrapper; bd, bo [L,2C].  prepare_layers(plan) must have run.
-inline int run_stack_tc(bf16* x, bf16* y, bf16* h, float* skip,
-                        const bf16* sb, long long sb_l, long long sb_b,
-                        const bf16* cond, const bf16* wdp, const bf16* bd,
-                        const bf16* wop, const bf16* bo, int B, int T, int C,
+// by the wrapper; bd, bo [L,2C]; xsave (unless null) [L,B,T,C] gets each
+// layer's input in bf16.  prepare_layers<XT, BT>(plan) must have run.
+template <typename XT, typename BT>
+inline int run_stack_tc(XT* x, bf16* y, bf16* h, float* skip,
+                        const BT* sb, long long sb_l, long long sb_b,
+                        const bf16* cond, const bf16* wdp, const BT* bd,
+                        const bf16* wop, const BT* bo, int B, int T, int C,
                         int L, int cycle, bool y_ready, const int* plan,
-                        cudaStream_t s) {
+                        cudaStream_t s, bf16* xsave = nullptr) {
   const int cp = plan[P_CP], smem = plan[P_SMEM_LAYER];
   const dim3 grid(plan[P_GRID_M], plan[P_GRID_N_LAYER], B);
   const long long rows = (long long)B * T, C2 = 2LL * C;
@@ -368,15 +378,15 @@ inline int run_stack_tc(bf16* x, bf16* y, bf16* h, float* skip,
   }
   for (int l = 0; l < L; ++l) {
     const int d = 1 << (l % cycle);
-    gate_tc_kernel<<<grid, THREADS, smem, s>>>(
+    gate_tc_kernel<BT><<<grid, THREADS, smem, s>>>(
         y, wdp + (size_t)l * 2 * cp * 3 * cp, bd + l * C2,
         cond + l * rows * C2, h, T, C, cp, d);
     DSVC_LAUNCH_CHECK();
     const bool last = l + 1 == L;
-    out_tc_kernel<<<grid, THREADS, smem, s>>>(
+    out_tc_kernel<XT, BT><<<grid, THREADS, smem, s>>>(
         h, wop + (size_t)l * 2 * cp * cp, bo + l * C2, x, skip,
-        last ? nullptr : y, last ? sb : sb + (l + 1) * sb_l, sb_b, T, C, cp,
-        l == 0);
+        last ? nullptr : y, last ? sb : sb + (l + 1) * sb_l, sb_b,
+        xsave == nullptr ? nullptr : xsave + l * rows * C, T, C, cp, l == 0);
     DSVC_LAUNCH_CHECK();
   }
   return 0;

@@ -1,5 +1,6 @@
 // One gated residual layer of DiffNet at f32 on Hopper's tensor cores, as
-// 3xTF32 split products (K1's f32 route; K2 runs it once per evaluation).
+// 3xTF32 split products (K1's f32 route; K2 runs it once per evaluation,
+// and the training forward at the f32 stream, diffnet_stack_train.cu).
 // Replaces, for f32 operands, diffsvc_tpu/ops/pallas/diffnet_stack.py:
 // residual_stack (kernel _kernel).  The TPU kernel has no f32 form: JAX
 // refuses f32 there, since single-pass MXU products would make the f32
@@ -307,13 +308,15 @@ gate_kernel(const float* __restrict__ y, const float* __restrict__ wp,
 // skip = o[C:] (first layer) or skip + o[C:], and, unless y is null, y's hi
 // and lo planes: the next layer's y = x + sb_next, or (sbn null) the scaled
 // skip sum skip * sk_scale that K2's skip projection reads.  h and y are [2,
-// B, T, Cp]; wp is this layer's [2, 2Cp, Cp].
+// B, T, Cp]; wp is this layer's [2, 2Cp, Cp].  Unless xsave is null, the
+// layer's input x goes there first (the training forward).
 __global__ void __launch_bounds__(THREADS)
 out_kernel(const float* __restrict__ h, const float* __restrict__ wp,
            const float* __restrict__ bo, float* __restrict__ x,
            float* __restrict__ skip, float* __restrict__ y,
            const float* __restrict__ sbn, long long sb_b, float sk_scale,
-           int B, int T, int C, int cp, int first) {
+           float* __restrict__ xsave, int B, int T, int C, int cp,
+           int first) {
   extern __shared__ uint8_t smem_raw[];
   const int t0 = blockIdx.x * BM, nt = blockIdx.y, b = blockIdx.z;
   const size_t plane = (size_t)B * T * cp;
@@ -355,6 +358,7 @@ out_kernel(const float* __restrict__ h, const float* __restrict__ wp,
       const float sk = acc[4 * (j + HALF / 8) + e] + bs[2 * j + (e & 1)];
       const float xn = (xv[4 * j + e] + res) * inv_sqrt2;
       const float sn = first ? sk : sv[4 * j + e] + sk;
+      if (xsave != nullptr) xsave[idx] = xv[4 * j + e];
       x[idx] = xn;
       skip[idx] = sn;
       if (y != nullptr)
@@ -391,14 +395,16 @@ inline int prepare_layers(const int* plan) {
 // y_ready); skip [B,T,C] f32 out; sb [L,B,C] with element strides (sb_l,
 // sb_b); cond [L,B,T,2C]; wdp [L,2,2Cp,3Cp] and wop [L,2,2Cp,Cp] split and
 // packed by the wrapper; bd, bo [L,2C].  With sk_scale > 0 the last layer
-// writes y = skip * sk_scale (K2's skip projection reads it).
-// prepare_layers(plan) must have run.
+// writes y = skip * sk_scale (K2's skip projection reads it).  xsave
+// (unless null) [L,B,T,C] gets each layer's input.  prepare_layers(plan)
+// must have run.
 inline int run_stack(float* x, float* y, float* h, float* skip,
                      const float* sb, long long sb_l, long long sb_b,
                      const float* cond, const float* wdp, const float* bd,
                      const float* wop, const float* bo, int B, int T, int C,
                      int L, int cycle, bool y_ready, float sk_scale,
-                     const int* plan, cudaStream_t s) {
+                     const int* plan, cudaStream_t s,
+                     float* xsave = nullptr) {
   const int cp = plan[tc::P_CP], smem = plan[tc::P_SMEM_LAYER];
   const dim3 grid(plan[tc::P_GRID_M], plan[tc::P_GRID_N_LAYER], B);
   const long long rows = (long long)B * T, C2 = 2LL * C;
@@ -418,7 +424,8 @@ inline int run_stack(float* x, float* y, float* h, float* skip,
     out_kernel<<<grid, THREADS, smem, s>>>(
         h, wop + (size_t)l * 2 * (2 * cp) * cp, bo + l * C2, x, skip,
         last && sk_scale <= 0.f ? nullptr : y,
-        last ? nullptr : sb + (l + 1) * sb_l, sb_b, sk_scale, B, T, C, cp,
+        last ? nullptr : sb + (l + 1) * sb_l, sb_b, sk_scale,
+        xsave == nullptr ? nullptr : xsave + l * rows * C, B, T, C, cp,
         l == 0);
     DSVC_LAUNCH_CHECK();
   }

@@ -22,25 +22,30 @@
 // At an f32 stream K5 computes K4's math; only the order of the weight- and
 // bias-grad sums differs (per sample, then over samples, against K4's
 // chunks of 2048 rows across sample boundaries).  What bounds it on the
-// H100: FLOPs, 44 C^2 per row and layer in true f32 on the CUDA cores
-// (67 TFLOP/s at most); tensor cores cannot take f32 operands without
-// rounding them (TF32), which this route exists to avoid.
+// H100: tensor-core operations, 44 C^2 FLOPs per row and layer.  The f32
+// products run as 3xTF32 split products (diffnet_train_bwd.cuh): each f32
+// operand in a hi and a lo TF32 plane, three tensor-core products per f32
+// product, good to ~2^-21 relative where one TF32 product gives ~2^-11, so
+// the route keeps the f32 accuracy it exists for (26.4 ms of tensor-core
+// time per 4.35 TFLOP at 495/3 TFLOP/s, against 65 ms on the CUDA cores).
 #include "diffnet_train_bwd.cuh"
 
 extern "C" {
 
-// In: xsave [L,B,T,C], cond [L,B,T,2C], wd [L,3,C,2C], wo [L,C,2C] (odt, the
-// state's dtype), sb [L,B,C] f32 (contiguous), bd [L,2C] f32, dout [B,T,C]
-// f32.  Out: dx [B,T,C] (= dx0), dsb [L,B,C], dcp [L,B,T,2C], dwd, dbd,
-// dwo, dbo summed over the batch in sample order, all f32.  Scratch as
-// run_bwd states with segments of T rows, gsum [B, 2C] f32.
+// In: xsave [L,B,T,C], cond [L,B,T,2C] (odt, the state's dtype), sb [L,B,C]
+// f32 (contiguous), bd [L,2C] f32, dout [B,T,C] f32; wdg, wdh, wdy the
+// weights packed by the wrapper (ttc::run_bwd).  Out: dx [B,T,C] (= dx0),
+// dsb [L,B,C], dcp [L,B,T,2C], dwd, dbd, dwo, dbo summed over the batch in
+// sample order, all f32.  Scratch as ttc::run_bwd states with segments of
+// T rows, gsum [B, 2C] f32; the seven planes zeroed, in odt.
 int dsvc_stack_train_bwd_per_sample(
     int odt, const void* xsave, const void* sb, const void* cond,
-    const void* wd, const void* bd, const void* wo, const void* dout,
-    void* dx, void* dsb, void* dcp, void* dwd, void* dbd, void* dwo,
-    void* dbo, void* z, void* h, void* do_, void* dy, void* wpart,
+    const void* wdg, const void* wdh, const void* wdy, const void* bd,
+    const void* dout, void* dx, void* dsb, void* dcp, void* dwd, void* dbd,
+    void* dwo, void* dbo, void* z, void* do_, void* dy, void* ys, void* yt,
+    void* ht, void* dos, void* dot, void* dzs, void* dzt, void* wpart,
     void* cpart, void* gsum, int B, int T, int C, int L, int cycle, int rch,
-    int cch, void* stream) {
+    int cch, const int* plan, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sbf = static_cast<const float*>(sb);
   const float* bdf = static_cast<const float*>(bd);
@@ -54,18 +59,29 @@ int dsvc_stack_train_bwd_per_sample(
                 static_cast<float*>(gsum)};
   if (odt == DSVC_BF16) {
     using bf = __nv_bfloat16;
-    return run_bwd<bf, float, float>(
+    const ttc::Planes<bf> pl{
+        static_cast<bf*>(ys),  static_cast<bf*>(yt),  static_cast<bf*>(ht),
+        static_cast<bf*>(dos), static_cast<bf*>(dot), static_cast<bf*>(dzs),
+        static_cast<bf*>(dzt)};
+    return ttc::run_bwd<ttc::Bf16, float, float>(
         static_cast<const bf*>(xsave), sbf, static_cast<const bf*>(cond),
-        static_cast<const bf*>(wd), bdf, static_cast<const bf*>(wo), g, f[0],
-        f[1], f[2], f[3], f[4], f[5], f[6], f[7], static_cast<bf*>(h), f[8],
-        f[9], f[10], f[11], f[12], B, T, C, L, cycle, T, rch, cch, s);
+        static_cast<const bf*>(wdg), static_cast<const bf*>(wdh),
+        static_cast<const bf*>(wdy), bdf, g, f[0], f[1], f[2], f[3], f[4],
+        f[5], f[6], f[7], f[8], f[9], pl, f[10], f[11], f[12], B, T, C, L,
+        cycle, T, rch, cch, plan, s);
   }
   if (odt != DSVC_F32) return static_cast<int>(cudaErrorInvalidValue);
-  return run_bwd<float, float, float>(
+  const ttc::Planes<float> pl{
+      static_cast<float*>(ys),  static_cast<float*>(yt),
+      static_cast<float*>(ht),  static_cast<float*>(dos),
+      static_cast<float*>(dot), static_cast<float*>(dzs),
+      static_cast<float*>(dzt)};
+  return ttc::run_bwd<ttc::Tf32x3, float, float>(
       static_cast<const float*>(xsave), sbf, static_cast<const float*>(cond),
-      static_cast<const float*>(wd), bdf, static_cast<const float*>(wo), g,
-      f[0], f[1], f[2], f[3], f[4], f[5], f[6], f[7], static_cast<float*>(h),
-      f[8], f[9], f[10], f[11], f[12], B, T, C, L, cycle, T, rch, cch, s);
+      static_cast<const float*>(wdg), static_cast<const float*>(wdh),
+      static_cast<const float*>(wdy), bdf, g, f[0], f[1], f[2], f[3], f[4],
+      f[5], f[6], f[7], f[8], f[9], pl, f[10], f[11], f[12], B, T, C, L, cycle,
+      T, rch, cch, plan, s);
 }
 
 }  // extern "C"

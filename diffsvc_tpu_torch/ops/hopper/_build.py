@@ -44,11 +44,12 @@ SIGNATURES = {
     "dsvc_residual_stack": [I, P, P, P, P, LL, LL, P, P, P, P, P,
                             I, I, I, I, I, P, P, P],
     # diffnet_stack_train.cu
-    "dsvc_stack_train_fwd": [I, I, P, P, P, P, P, LL, LL, P, P, P, P, P,
-                             I, I, I, I, I, P],
-    "dsvc_stack_train_bwd": [I, *[P] * 20, I, I, I, I, I, I, I, P],
+    "dsvc_stack_train_fwd": [I, I, P, P, P, P, P, P, LL, LL, P, P, P, P, P,
+                             I, I, I, I, I, P, P],
+    "dsvc_stack_train_bwd": [I, *[P] * 27, I, I, I, I, I, I, I, P, P],
     # diffnet_stack_per_sample.cu
-    "dsvc_stack_train_bwd_per_sample": [I, *[P] * 21, I, I, I, I, I, I, I, P],
+    "dsvc_stack_train_bwd_per_sample": [I, *[P] * 28, I, I, I, I, I, I, I, P,
+                                        P],
     # diffnet_block.cu
     "dsvc_residual_block": [I, *[P] * 10, I, I, I, I, P],
     # plms_ladder.cu

@@ -2,10 +2,10 @@
 plain PyTorch version.
 
 Replaces ``diffsvc_tpu/ops/pallas/diffnet_block.py:fused_residual_block``
-(kernel ``_make_kernel``).  CUDA source: ``csrc/diffnet_block.cu`` (the gate
-kernel of ``csrc/diffnet_layer.cuh``, shared with K4, and its own output
-epilogue).  No path of the JAX package runs it (the stack kernels K1/K4/K5
-superseded it); the port keeps it with the same contract and no route.
+(kernel ``_make_kernel``).  CUDA source: ``csrc/diffnet_block.cu`` (the SIMT
+gate kernel of ``csrc/diffnet_layer.cuh`` and its own output epilogue).  No
+path of the JAX package runs it (the stack kernels K1/K4/K5 superseded it);
+the port keeps it with the same contract and no route.
 
 Rounding follows the TPU kernel: y = x + step rounded to x's dtype before
 the taps; z in f32; h rounded to x's dtype; o[:, :C] rounded to x's dtype

@@ -24,9 +24,11 @@ dtype, as ``_call_fwd`` serves both JAX routes.
   B gives, bit for bit, the in-order sum of its B = 1 runs.
 
 At an f32 stream this is K4's math; only the order of the weight- and
-bias-grad sums differs.  What bounds it on the H100: FLOPs in true f32 on
-the CUDA cores (44 C^2 per row and layer for the backward, 60 C^2 with the
-forward; ~5.8 TFLOP at B=32, T=1024, C=384, L=20 against 67 TFLOP/s).
+bias-grad sums differs.  What bounds it on the H100: tensor-core operations
+(44 C^2 per row and layer for the backward, 60 C^2 with the forward; 5.8
+TFLOP at B=32, T=1024, C=384, L=20): the f32 products run as 3xTF32 split
+products on wgmma, K4's backward kernels with one weight-grad segment per
+sample (``diffnet_stack_train.train_plan`` with ``seg_rows = T``).
 """
 
 from __future__ import annotations
@@ -36,19 +38,22 @@ import torch
 from . import _build
 from .diffnet_stack import _DTYPES
 from .diffnet_stack_train import (CCH, RCH, bwd_outputs, bwd_plain,
-                                  bwd_scratch, check_bwd, on_card, train_stack)
+                                  bwd_scratch, check_bwd, on_card, pack_bwd,
+                                  train_plan, train_stack)
 
 launches = 0   # kernel launches (backward calls on CUDA tensors)
 
 
 def residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *,
-                                   cycle: int):
+                                   cycle: int, matmul=torch.matmul):
     """Plain version: ``_bwd_kernel``'s math one sample at a time (dcp in
     f32), the samples' weight and bias grads added in sample order.  Same
-    operands and results as :func:`residual_stack_train_bwd`."""
+    operands and results as :func:`residual_stack_train_bwd`; ``matmul``
+    computes the products (:func:`~.diffnet_stack_train.bwd_plain`)."""
     per = [bwd_plain(xsave[:, i:i + 1], sb[:, i:i + 1], cond_proj[:, i:i + 1],
                      wd, bd, wo, dout[i:i + 1], cycle=cycle,
-                     dcp_dtype=torch.float32) for i in range(xsave.shape[1])]
+                     dcp_dtype=torch.float32, matmul=matmul)
+           for i in range(xsave.shape[1])]
     dx0 = torch.cat([g[0] for g in per])
     dsb = torch.cat([g[1] for g in per], dim=1)
     dcp = torch.cat([g[2] for g in per], dim=1)
@@ -82,15 +87,18 @@ def residual_stack_train_bwd(xsave, sb, cond_proj, wd, bd, wo, dout, *,
         return residual_stack_train_bwd_plain(xsave, sb, cond_proj, wd, bd,
                                               wo, dout, cycle=cycle)
     sd = wd.dtype
+    plan = train_plan(b, t, c, t, sd)
     out = bwd_outputs(n_layers, b, t, c, torch.float32, xsave.device)
-    scratch = bwd_scratch(b, t, c, t, sd, xsave.device)
+    scratch = bwd_scratch(b, t, c, t, plan, sd, xsave.device)
     gsum = torch.empty(b, 2 * c, dtype=torch.float32, device=xsave.device)
     sbf, bdf = sb.float().contiguous(), bd.float().contiguous()
+    packed = pack_bwd(wd, wo, plan.cp)
     err = _build.lib().dsvc_stack_train_bwd_per_sample(
         _DTYPES[sd], xsave.data_ptr(), sbf.data_ptr(), cond_proj.data_ptr(),
-        wd.data_ptr(), bdf.data_ptr(), wo.data_ptr(), dout.data_ptr(),
+        *(w.data_ptr() for w in packed), bdf.data_ptr(), dout.data_ptr(),
         *(a.data_ptr() for a in out), *(a.data_ptr() for a in scratch),
-        gsum.data_ptr(), b, t, c, n_layers, cycle, RCH, CCH, _build.stream())
+        gsum.data_ptr(), b, t, c, n_layers, cycle, RCH, CCH, plan.c_array(),
+        _build.stream())
     _build.check(err, "dsvc_stack_train_bwd_per_sample")
     launches += 1
     return out

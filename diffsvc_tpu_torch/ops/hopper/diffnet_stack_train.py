@@ -4,11 +4,11 @@
 Replaces ``diffsvc_tpu/ops/pallas/diffnet_stack.py:residual_stack_train_batched``
 (forward ``_fwd_kernel`` via ``_call_fwd``, backward ``_bwd_kernel_b`` via
 ``_call_bwd_batched``, custom VJP ``_rstb_fwd``/``_rstb_bwd``).  CUDA source:
-``csrc/diffnet_stack_train.cu`` (+ the layer kernels of
-``csrc/diffnet_layer.cuh``, shared with K6, and the backward of
-``csrc/diffnet_train_bwd.cuh``, shared with K5).  The forward with save is
-also K5's forward (``diffnet_stack_per_sample``), as ``_call_fwd`` serves
-both JAX routes.
+``csrc/diffnet_stack_train.cu`` (+ K1's tensor-core layer kernels of
+``csrc/diffnet_layer_tc.cuh`` and ``csrc/diffnet_layer_tf32x3.cuh`` for the
+forward, and the backward of ``csrc/diffnet_train_bwd.cuh``, shared with
+K5).  The forward with save is also K5's forward
+(``diffnet_stack_per_sample``), as ``_call_fwd`` serves both JAX routes.
 
 - Forward: K1's layer math with the residual state x in x0's dtype (f32 in
   training) and every matmul operand in the *stream* dtype (``wd.dtype``:
@@ -20,9 +20,15 @@ both JAX routes.
   f32; the dx carry is f32 and comes back as dx0.  Every reduction sums in
   a fixed order (no atomics), so a step repeats bit for bit.
 
-What bounds it on the H100: FLOPs on the CUDA cores (SIMT FMAs; the products
-are ~4.4 TFLOP per step at B=24, T=1024, C=384, L=20), like K1.  Tensor
-cores are later work.
+What bounds it on the H100: tensor-core operations (4.35 TFLOP per step at
+B=24, T=1024, C=384, L=20).  Both streams run every product on wgmma: bf16
+operands at the bf16 stream, 3xTF32 split products (``matmul_tf32x3``) at
+the f32 stream, which keep its f32 accuracy.  The backward's weight grads
+contract over rows, and tf32 wgmma reads its operands K-major only, so the
+backward also writes h, do, dz and y's taps transposed, into positions
+where every weight-grad chunk is padded to whole K blocks
+(``train_plan``, ``chunk_positions``); the transposed weights are packed
+once per call (``pack_bwd``).
 
 Layout differences from the TPU kernel: ``xsave`` is layer-major
 [L, B, T, C] (the TPU's is [B, L, T, C]), so each layer's slice is one
@@ -31,22 +37,140 @@ contiguous block; any T and C.
 
 from __future__ import annotations
 
+import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
-from .diffnet_stack import _DTYPES, residual_stack
+from .diffnet_stack import (_DTYPES, TC_ALIGN, TC_BK, TC_BN, TC_STAGES,
+                            TC_THREADS, X3_STAGES, layer_scratch, pack_layers,
+                            pack_paired, pack_split, residual_stack, tc_plan)
 
 launches = 0       # kernel launches (forward and backward calls on CUDA tensors)
 bwd_launches = 0   # of which batch-fused backward calls
 
 RCH = 2048     # rows per partial sum of the weight-grad contractions
 CCH = 128      # rows per partial sum of the bias / step-bias column sums
+KC_ALIGN = 64  # weight-grad chunks padded to whole K blocks of both modes
+TRAIN_TILE = 8192   # bytes of one operand tile: 64 rows of 128 bytes
+WG_WGS, WG_NB = 2, 128   # the weight grads' CTA: two warpgroups, 128 x 128
+# the order csrc/diffnet_train_bwd.cuh reads the plan in (enum Q_*)
+TRAIN_PLAN_FIELDS = ("mode", "cp", "bk", "stages", "threads", "smem",
+                     "smem_w", "kc", "rp", "nchunk", "cps", "grid_t",
+                     "grid_r", "grid_c", "grid_pair", "grid_wo", "grid_wd",
+                     "grid_wn")
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _PAIRS = {(torch.float32, torch.float32), (torch.float32, torch.bfloat16),
           (torch.bfloat16, torch.bfloat16)}   # (state, stream) dtypes
+
+
+@dataclass(frozen=True)
+class TrainPlan:
+    """Launch plan of the training backward's tensor-core kernels for
+    [B, T, C] with weight-grad segments of ``seg_rows`` rows (K4: B*T; K5:
+    T), each cut into ``cps`` chunks of at most ``RCH`` rows that start at
+    the segment's first row.  Channels are padded to cp.  Row-tiled products
+    (64 x 64 CTA tiles, one warpgroup, ``smem`` bytes of ring) run on
+    (grid_t, grid_c, B) (dy), (grid_t, grid_pair, B) (the gate recompute,
+    paired gate/filter tiles) or (grid_r, grid_c) (dh); the weight grads
+    (128 x 128, two warpgroups, ``smem_w``) on (grid_wo, grid_wn, nchunk)
+    (dWo) and (grid_wd, grid_wn, nchunk) (dW_j).  The transposed operand
+    planes hold rp = nchunk * kc positions: chunk k's rows at [k kc, k kc +
+    its rows), zeros after."""
+    mode: int
+    cp: int
+    bk: int
+    stages: int
+    threads: int
+    smem: int
+    smem_w: int
+    kc: int
+    rp: int
+    nchunk: int
+    cps: int
+    grid_t: int
+    grid_r: int
+    grid_c: int
+    grid_pair: int
+    grid_wo: int
+    grid_wd: int
+    grid_wn: int
+
+    def c_array(self):
+        """The plan as the C side reads it (``const int*``)."""
+        return (ctypes.c_int * len(TRAIN_PLAN_FIELDS))(
+            *(getattr(self, f) for f in TRAIN_PLAN_FIELDS))
+
+    @property
+    def planes(self) -> int:
+        """Planes per operand: 2 (hi, lo) at f32, 1 at bf16."""
+        return 2 if self.mode == _DTYPES[torch.float32] else 1
+
+
+def train_plan(b: int, t: int, c: int, seg_rows: int, dtype) -> TrainPlan:
+    """The backward's plan at [b, t, c] with segments of ``seg_rows`` rows,
+    on the bf16 kernels or, for ``torch.float32``, the 3xTF32 ones."""
+    rows = b * t
+    if seg_rows <= 0 or rows % seg_rows:
+        raise ValueError(f"train_plan: {seg_rows} rows per segment do not "
+                         f"divide {rows}")
+    cp = -(-c // TC_BN) * TC_BN
+    cps = -(-seg_rows // RCH)
+    kc = -(-min(RCH, seg_rows) // KC_ALIGN) * KC_ALIGN
+    nchunk = rows // seg_rows * cps
+    f32 = dtype == torch.float32
+    planes, stages = (2, X3_STAGES) if f32 else (1, TC_STAGES)
+    wm = WG_WGS * 64
+    return TrainPlan(
+        mode=_DTYPES[dtype], cp=cp, bk=32 if f32 else TC_BK, stages=stages,
+        threads=TC_THREADS, smem=stages * 2 * planes * TRAIN_TILE + TC_ALIGN,
+        smem_w=stages * planes * (WG_WGS * TRAIN_TILE + WG_NB * 128)
+        + TC_ALIGN, kc=kc, rp=nchunk * kc, nchunk=nchunk, cps=cps,
+        grid_t=-(-t // 64), grid_r=-(-rows // 64), grid_c=cp // 64,
+        grid_pair=cp // 32, grid_wo=-(-cp // wm), grid_wd=-(-3 * cp // wm),
+        grid_wn=-(-2 * cp // WG_NB))
+
+
+def chunk_positions(b: int, t: int, seg_rows: int, kc: int, device=None):
+    """[B*T] int64: the position of each row in the transposed planes,
+    as ``pos_of`` (``csrc/diffnet_train_bwd.cuh``) computes it."""
+    r = torch.arange(b * t, device=device)
+    seg, within = r // seg_rows, r % seg_rows
+    k = within // RCH
+    return (seg * -(-seg_rows // RCH) + k) * kc + within - k * RCH
+
+
+def pack_dh(wo, cp: int):
+    """wo [L, C, 2C] -> [L, cp, 2cp], dh's B (dh = do wo^T): row c holds wo's
+    row c with each half of its 2C columns padded to cp (the layout of the
+    do operand); zero past C."""
+    n_layers, c, _ = wo.shape
+    w = F.pad(wo.view(n_layers, c, 2, c), (0, cp - c, 0, 0, 0, cp - c))
+    return w.reshape(n_layers, cp, 2 * cp).contiguous()
+
+
+def pack_dy(wd, cp: int):
+    """wd [L, 3, C, 2C] -> [L, cp, 6cp], dy's B (dy = sum_j dz_j W_j^T): row
+    c holds tap j's row c at columns j 2cp + h cp + k (column h C + k of
+    W_j); zero past C."""
+    n_layers, taps, c, _ = wd.shape
+    w = F.pad(wd.view(n_layers, taps, c, 2, c), (0, cp - c, 0, 0, 0, cp - c))
+    return w.permute(0, 2, 1, 3, 4).reshape(n_layers, cp,
+                                            taps * 2 * cp).contiguous()
+
+
+def pack_bwd(wd, wo, cp: int):
+    """The backward's weights as its kernels read them, K-major: the gate
+    recompute's wd (K1's ``pack_paired``, [L, 2cp, 3cp]), ``pack_dh(wo)``
+    and ``pack_dy(wd)``; at f32 each split into hi and lo planes
+    (``pack_split``: [L, 2, ...])."""
+    out = (pack_paired(wd, cp), pack_dh(wo, cp), pack_dy(wd, cp))
+    if wd.dtype == torch.float32:
+        out = tuple(pack_split(w) for w in out)
+    return out
 
 
 def stream_dtype(name: str, state_dtype: torch.dtype) -> torch.dtype:
@@ -71,11 +195,12 @@ def _taps(x, sb_l, d: int, sd):
 
 
 def residual_stack_train_fwd_plain(x0, sb, cond_proj, wd, bd, wo, bo, *,
-                                   cycle: int):
+                                   cycle: int, matmul=torch.matmul):
     """Plain version of the forward with the TPU kernel's rounding points
     (``_fwd_kernel``): x in x0's dtype, y/h rounded to the stream dtype
     (``wd.dtype``), z and o in f32, skip summed in f32.  Returns (skip
-    [B,T,C] f32, xsave [L,B,T,C] in the stream dtype)."""
+    [B,T,C] f32, xsave [L,B,T,C] in the stream dtype).  ``matmul`` computes
+    the products (``matmul_tf32x3``: the f32 stream's kernel arithmetic)."""
     sd = wd.dtype
     n_layers, b, t, c2 = cond_proj.shape
     c = c2 // 2
@@ -87,22 +212,23 @@ def residual_stack_train_fwd_plain(x0, sb, cond_proj, wd, bd, wo, bo, *,
         xsave[layer] = x.to(sd)
         yl, y, yr = _taps(x, sb[layer], d, sd)
         w = wd[layer].float()
-        z = yl @ w[0] + y @ w[1] + yr @ w[2]
+        z = matmul(yl, w[0]) + matmul(y, w[1]) + matmul(yr, w[2])
         z = z + bd[layer].float() + cond_proj[layer].float()
         h = (torch.sigmoid(z[..., :c]) * torch.tanh(z[..., c:])).to(sd)
-        o = h.float() @ wo[layer].float() + bo[layer].float()
+        o = matmul(h.float(), wo[layer].float()) + bo[layer].float()
         x = ((x.float() + o[..., :c]) * _INV_SQRT2).to(x0.dtype)
         skip = skip + o[..., c:]
     return skip, xsave
 
 
 def bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *, cycle: int,
-              dcp_dtype):
+              dcp_dtype, matmul=torch.matmul):
     """The explicit backward's math (``_bwd_kernel_b``, ``_bwd_kernel``),
     not autograd: y is recomputed from the saved, rounded x_l; do, dz and h
     are rounded to the stream dtype (``wd.dtype``) before the products; dcp
     is stored in ``dcp_dtype``.  Returns dx0 [B,T,C] f32, dsb [L,B,C] f32,
-    dcp [L,B,T,2C] and dwd/dbd/dwo/dbo summed over the given batch in f32."""
+    dcp [L,B,T,2C] and dwd/dbd/dwo/dbo summed over the given batch in f32.
+    ``matmul`` computes the products, as in the forward."""
     sd = wd.dtype
     n_layers, b, t, c2 = cond_proj.shape
     c = c2 // 2
@@ -119,36 +245,39 @@ def bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, *, cycle: int,
         d = 2 ** (layer % cycle)
         taps = _taps(xsave[layer], sb[layer], d, sd)
         w = wd[layer].float()
-        z = taps[0] @ w[0] + taps[1] @ w[1] + taps[2] @ w[2]
+        z = matmul(taps[0], w[0]) + matmul(taps[1], w[1]) + matmul(taps[2],
+                                                                   w[2])
         z = z + bd[layer].float() + cond_proj[layer].float()
         s = torch.sigmoid(z[..., :c])
         tf = torch.tanh(z[..., c:])
         h = (s * tf).to(sd).float()
         do = torch.cat([dx * _INV_SQRT2, dout.float()], dim=-1)
         do_c = do.to(sd).float()
-        dwo[layer] = h.reshape(-1, c).T @ do_c.reshape(-1, c2)
+        dwo[layer] = matmul(h.reshape(-1, c).T, do_c.reshape(-1, c2))
         dbo[layer] = do.sum((0, 1))
-        dh = do_c @ wo[layer].float().T
+        dh = matmul(do_c, wo[layer].float().T)
         dz = torch.cat([dh * s * (1.0 - s) * tf, dh * s * (1.0 - tf * tf)],
                        dim=-1)
         dcp[layer] = dz.to(dcp_dtype)
         dbd[layer] = dz.sum((0, 1))
         dz_c = dz.to(sd).float()
         for j in range(3):
-            dwd[layer, j] = taps[j].reshape(-1, c).T @ dz_c.reshape(-1, c2)
-        dy = (_shift(dz_c, -d) @ w[0].T + dz_c @ w[1].T
-              + _shift(dz_c, d) @ w[2].T)
+            dwd[layer, j] = matmul(taps[j].reshape(-1, c).T,
+                                   dz_c.reshape(-1, c2))
+        dy = (matmul(_shift(dz_c, -d), w[0].T) + matmul(dz_c, w[1].T)
+              + matmul(_shift(dz_c, d), w[2].T))
         dsb[layer] = dy.sum(1)
         dx = dy + dx * _INV_SQRT2
     return dx, dsb, dcp, dwd, dbd, dwo, dbo
 
 
 def residual_stack_train_batched_bwd_plain(xsave, sb, cond_proj, wd, bd, wo,
-                                           dout, *, cycle: int):
+                                           dout, *, cycle: int,
+                                           matmul=torch.matmul):
     """Plain version of the batch-fused backward: :func:`bwd_plain` with
     ``dout`` [B,T,C] and dcp in the stream dtype."""
     return bwd_plain(xsave, sb, cond_proj, wd, bd, wo, dout, cycle=cycle,
-                     dcp_dtype=wd.dtype)
+                     dcp_dtype=wd.dtype, matmul=matmul)
 
 
 def _check(x0, sb, cond_proj, wd, bd, wo, bo):
@@ -209,16 +338,19 @@ def residual_stack_train_fwd(x0, sb, cond_proj, wd, bd, wo, bo, *,
                                               bo, cycle=cycle)
     b, t, c = x0.shape
     n_layers, sd = cond_proj.shape[0], wd.dtype
+    plan = tc_plan(b, t, c, dtype=sd)
     x = x0.clone()                                  # running state, in place
-    h = torch.empty(b, t, c, dtype=sd, device=x0.device)
+    y, h = layer_scratch(b, t, plan.cp, sd, x0.device)
     skip = torch.empty(b, t, c, dtype=torch.float32, device=x0.device)
     xsave = torch.empty(n_layers, b, t, c, dtype=sd, device=x0.device)
     sbf, bdf, bof = (a.float().contiguous() for a in (sb, bd, bo))
+    wdp, wop = pack_layers(wd, wo, plan.cp)
     err = _build.lib().dsvc_stack_train_fwd(
-        _DTYPES[x0.dtype], _DTYPES[sd], x.data_ptr(), h.data_ptr(),
-        skip.data_ptr(), xsave.data_ptr(), sbf.data_ptr(), b * c, c,
-        cond_proj.data_ptr(), wd.data_ptr(), bdf.data_ptr(), wo.data_ptr(),
-        bof.data_ptr(), b, t, c, n_layers, cycle, _build.stream())
+        _DTYPES[x0.dtype], _DTYPES[sd], x.data_ptr(), y.data_ptr(),
+        h.data_ptr(), skip.data_ptr(), xsave.data_ptr(), sbf.data_ptr(),
+        b * c, c, cond_proj.data_ptr(), wdp.data_ptr(), bdf.data_ptr(),
+        wop.data_ptr(), bof.data_ptr(), b, t, c, n_layers, cycle,
+        plan.c_array(), _build.stream())
     _build.check(err, "dsvc_stack_train_fwd")
     launches += 1
     return skip, xsave
@@ -240,19 +372,32 @@ def check_bwd(xsave, sb, cond_proj, wd, bd, wo, dout, dout_dtype,
                              f"{wd.device}")
 
 
-def bwd_scratch(b: int, t: int, c: int, seg_rows: int, sd, dev):
+def bwd_scratch(b: int, t: int, c: int, seg_rows: int, plan: TrainPlan, sd,
+                dev):
     """Scratch of the backward (``diffnet_train_bwd.cuh:run_bwd``) with
     weight-grad segments of ``seg_rows`` rows, in the C entry points'
-    order: z, h, do, dy, wpart, cpart."""
+    order: z, do, dy (f32); the seven operand planes in the stream dtype
+    ``sd``, zeroed (:func:`operand_planes`); wpart, cpart (f32)."""
     rows = b * t
     nseg = rows // seg_rows
     f32 = dict(dtype=torch.float32, device=dev)
-    return (torch.empty(rows, 2 * c, **f32),
-            torch.empty(rows, c, dtype=sd, device=dev),
-            torch.empty(rows, 2 * c, **f32), torch.empty(rows, c, **f32),
-            torch.empty(nseg * -(-seg_rows // RCH), 3 * c, 2 * c, **f32),
+    return (torch.empty(rows, 2 * c, **f32), torch.empty(rows, 2 * c, **f32),
+            torch.empty(rows, c, **f32),
+            *operand_planes(rows, plan, sd, dev),
+            torch.empty(plan.nchunk, 3 * c, 2 * c, **f32),
             torch.empty(max(nseg * -(-seg_rows // CCH) * 2 * c,
                             b * -(-t // CCH) * c), **f32))
+
+
+def operand_planes(rows: int, plan: TrainPlan, sd, dev):
+    """The backward's product operands for one layer, zeroed (pad channels
+    and pad positions stay zero): ys [R, cp], yt [3cp, rp], ht [cp, rp], dos
+    [R, 2cp], dot [2cp, rp], dzs [R, 2cp], dzt [2cp, rp], each with
+    ``plan.planes`` planes in front (hi and lo at f32)."""
+    cp, rp, p = plan.cp, plan.rp, plan.planes
+    shapes = ((rows, cp), (3 * cp, rp), (cp, rp), (rows, 2 * cp),
+              (2 * cp, rp), (rows, 2 * cp), (2 * cp, rp))
+    return tuple(torch.zeros(p, *s, dtype=sd, device=dev) for s in shapes)
 
 
 def bwd_outputs(n_layers: int, b: int, t: int, c: int, dcp_dtype, dev):
@@ -279,14 +424,16 @@ def residual_stack_train_batched_bwd(xsave, sb, cond_proj, wd, bd, wo, dout,
         return residual_stack_train_batched_bwd_plain(
             xsave, sb, cond_proj, wd, bd, wo, dout, cycle=cycle)
     sd = wd.dtype
+    plan = train_plan(b, t, c, b * t, sd)
     out = bwd_outputs(n_layers, b, t, c, sd, xsave.device)
-    scratch = bwd_scratch(b, t, c, b * t, sd, xsave.device)
+    scratch = bwd_scratch(b, t, c, b * t, plan, sd, xsave.device)
     sbf, bdf = sb.float().contiguous(), bd.float().contiguous()
+    packed = pack_bwd(wd, wo, plan.cp)
     err = _build.lib().dsvc_stack_train_bwd(
         _DTYPES[sd], xsave.data_ptr(), sbf.data_ptr(), cond_proj.data_ptr(),
-        wd.data_ptr(), bdf.data_ptr(), wo.data_ptr(), dout.data_ptr(),
+        *(w.data_ptr() for w in packed), bdf.data_ptr(), dout.data_ptr(),
         *(a.data_ptr() for a in out), *(a.data_ptr() for a in scratch),
-        b, t, c, n_layers, cycle, RCH, CCH, _build.stream())
+        b, t, c, n_layers, cycle, RCH, CCH, plan.c_array(), _build.stream())
     _build.check(err, "dsvc_stack_train_bwd")
     launches += 1
     bwd_launches += 1

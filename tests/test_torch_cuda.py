@@ -104,6 +104,70 @@ def test_residual_stack_train_per_sample_ragged(cuda, dtype, tol):
         assert torch.equal(got[k], tot)
 
 
+@pytest.mark.parametrize("b,t,c", [(3, 1000, 384), (2, 77, 40)])
+@pytest.mark.parametrize("stream,tol", [("f32", 1e-5), ("bf16", 1e-2)])
+def test_residual_stack_train_tensor_cores(cuda, stream, tol, b, t, c):
+    """K4 on wgmma in both streams (bf16 operands; f32 as 3xTF32 split
+    products) against the true-f32 plain versions at K4's limits, over 4
+    layers with a cycle of 4 (dilations up to 8): B=3, T=1000, C=384, whose
+    3000 rows make a second weight-grad chunk of 952 rows (padded to 2048
+    positions), and C=40 at T=77 (channels padded to 64); the backward twice
+    gives the same bits."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    sd = torch.bfloat16 if stream == "bf16" else torch.float32
+    a = stack_inputs(torch.float32, cuda, b=b, t=t, c=c, layers=4)
+    for k in ("cond_proj", "wd", "wo"):
+        a[k] = a[k].to(sd).contiguous()
+    g = torch.Generator().manual_seed(4)
+    dout = torch.randn(b, t, c, generator=g).to(cuda, sd)
+    ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"], dout)
+    skip, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
+    got = k4.residual_stack_train_batched_bwd(xsave, *ops, cycle=4)
+    skip_p, xsave_p = k4.residual_stack_train_fwd_plain(**a, cycle=4)
+    ref = k4.residual_stack_train_batched_bwd_plain(xsave_p, *ops, cycle=4)
+    assert _rel(skip, skip_p) <= tol
+    for x, y in zip(got, ref):
+        assert torch.isfinite(x).all() and _rel(x, y) <= tol
+    again = k4.residual_stack_train_batched_bwd(xsave, *ops, cycle=4)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("b,t,c", [(3, 1000, 384), (2, 2100, 40)])
+def test_residual_stack_train_per_sample_tensor_cores(cuda, b, t, c):
+    """K5 at f32 (3xTF32 on wgmma) against its true-f32 plain version at
+    its limit, 4 layers, cycle 4: B=3, T=1000, C=384; and T=2100 at C=40,
+    two weight-grad chunks per sample (2048 rows and 52).  The batch equals,
+    bit for bit, the in-order sum of its B=1 runs."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_per_sample as k5
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(torch.float32, cuda, b=b, t=t, c=c, layers=4)
+    g = torch.Generator().manual_seed(5)
+    dout = torch.randn(b, t, c, generator=g).to(cuda)
+    ops = (a["sb"], a["cond_proj"], a["wd"], a["bd"], a["wo"])
+    _, xsave = k4.residual_stack_train_fwd(**a, cycle=4)
+    got = k5.residual_stack_train_bwd(xsave, *ops, dout, cycle=4)
+    _, xsave_p = k4.residual_stack_train_fwd_plain(**a, cycle=4)
+    ref = k5.residual_stack_train_bwd_plain(xsave_p, *ops, dout, cycle=4)
+    for x, y in zip(got, ref):
+        assert torch.isfinite(x).all() and _rel(x, y) <= 1e-5
+    ones = [k5.residual_stack_train_bwd(
+        xsave[:, i:i + 1].contiguous(), a["sb"][:, i:i + 1],
+        a["cond_proj"][:, i:i + 1].contiguous(), a["wd"], a["bd"], a["wo"],
+        dout[i:i + 1], cycle=4) for i in range(b)]
+    assert torch.equal(got[0], torch.cat([o[0] for o in ones]))
+    for k in (1, 2):
+        assert torch.equal(got[k], torch.cat([o[k] for o in ones], dim=1))
+    for k in range(3, 7):
+        tot = torch.zeros_like(got[k])
+        for o in ones:
+            tot = tot + o[k]
+        assert torch.equal(got[k], tot)
+
+
 @pytest.mark.parametrize("dilation", [1, 8, 128])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 1e-2)])

@@ -5,8 +5,11 @@ the K-major weight packing and, at f32, its split into hi and lo planes;
 the zero padding of channels and mel bins (bit-identical through the plain
 versions, and bit-exact zeros in both planes), and the ladder's workspace
 (a CPU run of the per-evaluation program over the workspace and the packed
-weights gives today's plain ladder bit for bit).  The kernels themselves
-run in ``test_torch_cuda.py`` (``gpu``) and ``chip_smoke.py``."""
+weights gives today's plain ladder bit for bit).  And the training stack's
+backward (K4, K5): its plan (shared memory, row and weight grids, chunks),
+the rows' positions in its transposed planes, and its transposed weight
+packing with the f32 hi/lo split.  The kernels themselves run in
+``test_torch_cuda.py`` (``gpu``) and ``chip_smoke.py``."""
 
 import os
 import re
@@ -16,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
 from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
 
 CSRC = os.path.join(os.path.dirname(ds.__file__), "..", "..", "csrc")
@@ -365,3 +369,183 @@ def test_f32_workspace(b, t, c, m):
         assert ws[k].shape == (2, b, t, plan.cp)
         assert ws[k].dtype == torch.float32 and not ws[k].any()
     assert ws["y"].data_ptr() != ws["h"].data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# The training stack's backward (K4, K5): its plan, chunk positions and
+# transposed weight packing
+# ---------------------------------------------------------------------------
+
+HEADER_TRAIN = os.path.join(CSRC, "diffnet_train_bwd.cuh")
+
+# K4's check and training batches (B=24, T=1024; the gpu tests' ragged
+# shapes) and K5's (B=32 at T=1024; config_44k's own 88 x 768; T > 2048):
+# (B, T, C, seg_rows)
+TRAIN_SHAPES = [(24, 1024, 384, 24 * 1024), (3, 1000, 384, 3000),
+                (2, 77, 40, 154), (3, 77, 40, 231), (1, 64, 384, 64),
+                (32, 1024, 384, 1024), (88, 768, 384, 768),
+                (3, 1000, 384, 1000), (2, 2100, 40, 2100), (3, 77, 40, 77)]
+
+
+def _mode_constants(src, mode):
+    body = re.search(r"struct %s \{([^}]*)\}" % mode, src).group(1)
+    return {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", body)}
+
+
+def test_train_plan_matches_the_kernels_constants():
+    """The backward's plan fields (enum Q_*), tiles and modes as
+    csrc/diffnet_train_bwd.cuh declares them."""
+    consts, fields = _header_constants(HEADER_TRAIN)
+    assert tuple(fields) == k4.TRAIN_PLAN_FIELDS
+    assert (consts["BM"], consts["BN"], consts["THREADS"], consts["KC_ALIGN"],
+            consts["SMEM_MAX"], consts["WG_WGS"], consts["WG_NB"]) == (
+        64, 64, ds.TC_THREADS, k4.KC_ALIGN, ds.SMEM_MAX, k4.WG_WGS, k4.WG_NB)
+    with open(HEADER_TRAIN) as f:
+        src = f.read()
+    for mode, dtype in (("Bf16", torch.bfloat16), ("Tf32x3", torch.float32)):
+        m = _mode_constants(src, mode)
+        plan = k4.train_plan(2, 300, 40, 600, dtype)
+        assert (m["P"], m["BK"], m["STAGES"]) == (plan.planes, plan.bk,
+                                                  plan.stages)
+        assert m["BK"] * (2 if dtype == torch.bfloat16 else 4) == 128
+        assert m["EPC"] * (2 if dtype == torch.bfloat16 else 4) == 16
+        assert plan.mode == ds._DTYPES[dtype]
+        assert list(plan.c_array()) == [getattr(plan, f)
+                                        for f in k4.TRAIN_PLAN_FIELDS]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,c,seg", TRAIN_SHAPES)
+def test_train_plan_fits_and_covers(b, t, c, seg, dtype):
+    """Shared memory within 227 KB (two row-tiled CTAs an SM at f32); the
+    row grids cover each sample's T rows and the B*T rows; the weight grids'
+    128 x 128 tiles cover [C, 2C] (dWo) and [3C, 2C] (dW_j), no tile wholly
+    past the padded channels; the chunk count and padded length cover every
+    segment."""
+    plan = k4.train_plan(b, t, c, seg, dtype)
+    tile = 64 * 128
+    assert plan.threads == 128
+    assert plan.smem >= plan.stages * 2 * plan.planes * tile + ds.TC_ALIGN
+    assert plan.smem_w >= plan.stages * plan.planes * (
+        k4.WG_WGS * tile + k4.WG_NB * 128) + ds.TC_ALIGN
+    assert max(plan.smem, plan.smem_w) <= ds.SMEM_MAX
+    if dtype == torch.float32:
+        assert 2 * (plan.smem + 1024) <= 228 * 1024
+    assert plan.cp % 64 == 0 and 0 <= plan.cp - c < 64
+    assert plan.grid_t * 64 >= t > (plan.grid_t - 1) * 64
+    assert plan.grid_r * 64 >= b * t > (plan.grid_r - 1) * 64
+    assert plan.grid_c * 64 == plan.cp and plan.grid_pair * 32 == plan.cp
+    wm = k4.WG_WGS * 64
+    for grid, rows in ((plan.grid_wo, plan.cp), (plan.grid_wd, 3 * plan.cp),
+                       (plan.grid_wn, 2 * plan.cp)):
+        assert grid * wm >= rows > (grid - 1) * wm
+    nseg = b * t // seg
+    assert plan.cps * k4.RCH >= seg > (plan.cps - 1) * k4.RCH
+    assert plan.nchunk == nseg * plan.cps and plan.rp == plan.nchunk * plan.kc
+    assert plan.kc % plan.bk == 0 and plan.kc % k4.KC_ALIGN == 0
+    assert min(seg, k4.RCH) <= plan.kc < min(seg, k4.RCH) + k4.KC_ALIGN
+
+
+def test_train_plan_rejects_a_ragged_segment():
+    with pytest.raises(ValueError):
+        k4.train_plan(3, 100, 40, 200, torch.float32)
+
+
+@pytest.mark.parametrize("b,t,c,seg", TRAIN_SHAPES)
+def test_chunk_positions(b, t, c, seg):
+    """Every row has its own position; the chunks start at each segment's
+    first row (K4: one segment; K5: each sample) and hold at most RCH rows
+    in order, each inside its own kc positions; a sample's positions in a
+    batch are those of its B=1 run shifted by whole chunks."""
+    plan = k4.train_plan(b, t, c, seg, torch.float32)
+    pos = k4.chunk_positions(b, t, seg, plan.kc)
+    assert pos.shape == (b * t,) and len(set(pos.tolist())) == b * t
+    assert int(pos.min()) >= 0 and int(pos.max()) < plan.rp
+    r = torch.arange(b * t)
+    within = r % seg
+    chunk = (r // seg) * plan.cps + within // k4.RCH
+    assert torch.equal(pos // plan.kc, chunk)
+    assert torch.equal(pos % plan.kc, within % k4.RCH)
+    assert (pos[r % seg == 0] % plan.kc == 0).all()
+    if seg == t:
+        one = k4.chunk_positions(1, t, t, plan.kc)
+        for i in range(b):
+            assert torch.equal(pos[i * t:(i + 1) * t],
+                               one + i * plan.cps * plan.kc)
+
+
+@pytest.mark.parametrize("c", [40, 64, 384])
+def test_pack_dh_roundtrip(c):
+    """dh's B: row o of [cp, 2cp] holds wo[o] with each half of its 2C
+    columns at h cp + k, zero padded; the product over the padded do
+    layout is wo's."""
+    g = torch.Generator().manual_seed(0)
+    wo = torch.randn(2, c, 2 * c, generator=g)
+    cp = k4.train_plan(1, 64, c, 64, torch.float32).cp
+    p = k4.pack_dh(wo, cp)
+    assert p.shape == (2, cp, 2 * cp) and p.is_contiguous()
+    back = torch.cat([p[:, :c, :c], p[:, :c, cp:cp + c]], -1)
+    assert torch.equal(back, wo)
+    real = k4.pack_dh(torch.ones_like(wo), cp) != 0
+    assert not p[~real].any() and int(real.sum()) == wo.numel()
+    do = torch.randn(5, 2 * c, generator=g).double()
+    do_p = torch.cat([F.pad(do[:, :c], (0, cp - c)),
+                      F.pad(do[:, c:], (0, cp - c))], -1)
+    want = do @ wo[1].double().t()
+    assert torch.allclose((do_p @ p[1].double().t())[:, :c], want)
+
+
+@pytest.mark.parametrize("c", [40, 64, 384])
+def test_pack_dy_roundtrip(c):
+    """dy's B: row o of [cp, 6cp] holds tap j's row o of wd at columns j 2cp
+    + h cp + k (column h C + k of W_j), zero padded."""
+    g = torch.Generator().manual_seed(1)
+    wd = torch.randn(2, 3, c, 2 * c, generator=g)
+    cp = k4.train_plan(1, 64, c, 64, torch.float32).cp
+    p = k4.pack_dy(wd, cp)
+    assert p.shape == (2, cp, 6 * cp) and p.is_contiguous()
+    q = p.view(2, cp, 3, 2, cp)
+    back = torch.cat([q[:, :c, :, 0, :c], q[:, :c, :, 1, :c]], -1)
+    assert torch.equal(back.permute(0, 2, 1, 3), wd)
+    real = k4.pack_dy(torch.ones_like(wd), cp) != 0
+    assert not p[~real].any() and int(real.sum()) == wd.numel()
+    # tap j, output channel 5, column C + 7 of W_j
+    assert p[1, 5, 2 * 2 * cp + cp + 7] == wd[1, 2, 5, c + 7]
+
+
+@pytest.mark.parametrize("c", [40, 384])
+def test_pack_bwd_planes(c):
+    """At f32 each of the backward's packed weights is a hi and a lo plane
+    of its K-major layout (exact TF32 values, hi + lo within 2^-22 of each
+    weight, padding +0 in both); at bf16 one plane, unsplit."""
+    g = torch.Generator().manual_seed(2)
+    wd = torch.randn(2, 3, c, 2 * c, generator=g) / 10
+    wo = torch.randn(2, c, 2 * c, generator=g) / 10
+    cp = k4.train_plan(1, 64, c, 64, torch.float32).cp
+    plain = (ds.pack_paired(wd, cp), k4.pack_dh(wo, cp), k4.pack_dy(wd, cp))
+    for p, w in zip(k4.pack_bwd(wd, wo, cp), plain):
+        assert p.shape == (2, 2, *w.shape[1:]) and p.is_contiguous()
+        hi, lo = p[:, 0], p[:, 1]
+        for plane in (hi, lo):
+            assert not (plane.view(torch.int32) & 0x1FFF).any()
+        err = (hi.double() + lo.double() - w.double()).abs()
+        assert (err <= 2.0 ** -22 * w.double().abs()).all()
+        assert not hi.view(torch.int32)[w == 0].any()
+        assert not lo.view(torch.int32)[w == 0].any()
+    bf = k4.pack_bwd(wd.bfloat16(), wo.bfloat16(), cp)
+    for p, w in zip(bf, plain):
+        assert p.dtype == torch.bfloat16 and torch.equal(p, w.bfloat16())
+
+
+def test_operand_planes_are_zero():
+    """The backward's per-layer operand planes: shapes by the plan, zeros
+    (their pad channels and positions are never written)."""
+    b, t, c = 3, 77, 40
+    for dtype in (torch.bfloat16, torch.float32):
+        plan = k4.train_plan(b, t, c, b * t, dtype)
+        planes = k4.operand_planes(b * t, plan, dtype, "cpu")
+        cp, rp, p = plan.cp, plan.rp, plan.planes
+        assert [tuple(x.shape) for x in planes] == [
+            (p, b * t, cp), (p, 3 * cp, rp), (p, cp, rp), (p, b * t, 2 * cp),
+            (p, 2 * cp, rp), (p, b * t, 2 * cp), (p, 2 * cp, rp)]
+        assert all(x.dtype == dtype and not x.any() for x in planes)
