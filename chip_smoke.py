@@ -21,7 +21,8 @@ Phases, in order; any failure exits non-zero and no result line is printed:
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
    geometry on 5 s of 44.1 kHz audio; K4 at the training shape B=24; K5 at
-   B=32, a per-sample shape; K6, one layer, at B=1 and dilations 1-8), in
+   B=32, a per-sample shape; K6, one layer, at B=1 and dilations 1-8; K2
+   and K3 again at B=4, the batched serving routes' B), in
    f32 and bf16 for K1/K2/K4/K6 and f32 for K3/K5: relative-L2 and max-abs
    error (K4/K5: of the forward and each of the seven grads), both times
    (CUDA events, in turns) and the bound (the larger of the FLOPs over the
@@ -97,10 +98,28 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    which must run K5 on the 3xTF32 tensor-core kernels and none of the
    SIMT training kernels; one step through the kernels against the plain
    versions on the card, with a planted fault.
+7. Serving on phase 4's project and its 14 s clip (``[serve]`` lines):
+   ``run_clip(fused=True)`` in bf16 and f32, where each length bucket is
+   captured once as a CUDA graph and a replay must equal the same body run
+   eagerly on the card bit for bit; a 0.5 s fused conversion on the card
+   against the same one on the CPU at phase 4's limits (and the skip-bias
+   fault above them); a profile of one fused chunk, in which no
+   device-to-host copy may start before its last kernel; per route
+   (modular ``Svc.infer``, fused eager, fused graph, batched
+   ``--batch_chunks``) the wall, RTF, device busy share and graph memory;
+   a 17 s clip whose three voiced chunks the collate pads to one length,
+   where the batched route must run K2 and K3 once per conversion at B=3,
+   and ``FusedSvc.batched`` at B=3 against each chunk's B=1 call on the
+   same padding and noise (1e-4 at f32); the
+   server (``diffsvc_tpu_torch.flask_api``) in this process on 127.0.0.1:
+   three fused and three streamed requests answered 200 with the posted
+   duration, a malformed one 400.  K2's and K3's counters, reset before
+   each of these, must move in each.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
-the path that runs it, errors, times, bound); the last line is
+the path that runs it and on each serving route, errors, times, bound);
+the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -217,6 +236,7 @@ CLIPS = [(6.5, 196.0, [(2.0, 2.6)]),
          (9.0, 262.0, [(5.5, 6.4)]),
          (14.0, 330.0, [(6.0, 7.0), (12.3, 12.6)])]
 ACC = 20
+SERVE_B = 4      # phase 3's K2 and K3 at the batched serving routes' B
 
 
 class SmokeError(RuntimeError):
@@ -405,11 +425,11 @@ def cublas_products_ms(a) -> float:
     return cuda_time_ms(run, reps=10)
 
 
-def ladder_inputs(dtype, device):
+def ladder_inputs(dtype, device, batch: int = 1):
     """A DiffNet at the main path's widths with torch's default init drawn
     from seed 0 (the reference, and DiffNet's own init, zero the output
     projection, which would make eps == 0 and the comparison vacuous) and
-    the K=1000 PLMS acc=20 tables: J = 51 evaluations."""
+    the K=1000 PLMS acc=20 tables: J = 51 evaluations; ``batch`` clips."""
     import numpy as np
     import torch
 
@@ -427,9 +447,9 @@ def ladder_inputs(dtype, device):
     step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(device), C)
     sb = diffnet.step_bias(p, step, dtype).transpose(0, 1).contiguous()
     g = torch.Generator().manual_seed(1)
-    cond = (torch.randn(1, T, H, generator=g) * 0.5).to(device)
+    cond = (torch.randn(batch, T, H, generator=g) * 0.5).to(device)
     cp = diffnet.prepare_cond(net, cond).to(dtype).contiguous()
-    x = torch.randn(1, T, M, generator=g).to(device)
+    x = torch.randn(batch, T, M, generator=g).to(device)
     return dict(x_init=x, scal=torch.from_numpy(np.ascontiguousarray(scal)).to(device),
                 sb_tab=sb, cond_proj=cp, win=p["win"], bin_=p["bin"],
                 wskip=p["wskip"], bskip=p["bskip"], wout=p["wout"],
@@ -437,12 +457,12 @@ def ladder_inputs(dtype, device):
                 bo=p["bo"])
 
 
-def check_plms_ladder(device, dtype_name):
+def check_plms_ladder(device, dtype_name, batch: int = 1):
     import torch
 
     from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
 
-    a = ladder_inputs(_dtype(dtype_name), device)
+    a = ladder_inputs(_dtype(dtype_name), device, batch)
     kern = lambda: pl.plms_ladder(**a, cycle=4)                 # noqa: E731
     plain = lambda: pl.plms_ladder_plain(**a, cycle=4)          # noqa: E731
     got, ref = kern(), plain()
@@ -460,22 +480,23 @@ def check_plms_ladder(device, dtype_name):
             fault_rel["lo products dropped"] = rel_l2(kern() - base,
                                                       ref - base)
     ms, plain_ms = time_in_turns(kern, plain, reps=2)
-    return {"breakdown": kernel_breakdown(kern, reps=1),
-            "plan": plan_ctas(dtype_name, M),
+    extra = {} if batch > 1 else {
+        "breakdown": kernel_breakdown(kern, reps=1),
+        "plan": plan_ctas(dtype_name, M)}
+    return {**extra, "batch": batch,
             "max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got - base, ref - base),
             "final_x_rel_l2": rel_l2(got, ref),
             "eps_share": rel_l2(ref, base), "fault_rel_l2": fault_rel,
             "evals": int(a["scal"].shape[0]), "ms": ms, "plain_ms": plain_ms,
-            **tc_bound(int(a["scal"].shape[0]) * (stack_flops(T, L, 16)
-                                                  + 2.0 * T * (2 * M * C
-                                                               + C * C)),
+            **tc_bound(int(a["scal"].shape[0]) * batch * (
+                stack_flops(T, L, 16) + 2.0 * T * (2 * M * C + C * C)),
                        nbytes(*a.values(), got), dtype_name)}
 
 
-def check_vocoder_tail(device, dtype_name):
-    """The generator tail's inputs at the openvpi geometry; the prologue and
-    the NSF noise convs run in plain torch."""
+def check_vocoder_tail(device, dtype_name, batch: int = 1):
+    """The generator tail's inputs at the openvpi geometry (``batch``
+    clips); the prologue and the NSF noise convs run in plain torch."""
     import math
 
     import torch
@@ -487,11 +508,12 @@ def check_vocoder_tail(device, dtype_name):
     cfg = gen_mod.HifiGanConfig.from_dict(VOC_H, use_nsf=True)
     gen = gen_mod.Generator(cfg).to(device).eval()
     g = torch.Generator().manual_seed(1)
-    mel = (torch.randn(1, TAIL_FRAMES, cfg.num_mels, generator=g) - 4.0
+    mel = (torch.randn(batch, TAIL_FRAMES, cfg.num_mels, generator=g) - 4.0
            ).to(device)
-    f0 = torch.full((1, TAIL_FRAMES), 220.0).to(device)
+    f0 = (220.0 * 1.25 ** torch.arange(batch, dtype=torch.float32)[:, None]
+          ).expand(batch, TAIL_FRAMES).contiguous().to(device)
     length = TAIL_FRAMES * int(math.prod(cfg.upsample_rates))
-    randoms = gen_mod.draw_randoms(1, length, cfg.harmonic_num, g)
+    randoms = gen_mod.draw_randoms(batch, length, cfg.harmonic_num, g)
     randoms = tuple(r.to(device) for r in randoms)
     s0 = gen_mod.tail_start_stage(cfg)
     with torch.no_grad():
@@ -512,23 +534,27 @@ def check_vocoder_tail(device, dtype_name):
             "lo products dropped": rel_l2(vt.tail(
                 x, injs, tail_lo_planes_dropped(plan)), ref)}
         ms, plain_ms = time_in_turns(kern, plain, reps=5)
-        unfused_ms, fused_ms = time_in_turns(unfused, kern, reps=5)
-        pairs = {"unfused_ms": unfused_ms, "fused_ms": fused_ms,
-                 "unfused_rel_l2": rel_l2(unfused(), ref),
-                 "unfused_breakdown": kernel_breakdown(unfused, reps=3)}
         flops = tail_flops(vt, x, injs, plan)
-        breakdown = kernel_breakdown(kern, reps=3)
-        stages = tail_stages(vt, plan, x.shape, device)
+        extra = {}
+        if batch == 1:
+            unfused_ms, fused_ms = time_in_turns(unfused, kern, reps=5)
+            breakdown = kernel_breakdown(kern, reps=3)
+            extra = {"breakdown": breakdown,
+                     "pairs": {"unfused_ms": unfused_ms, "fused_ms": fused_ms,
+                               "unfused_rel_l2": rel_l2(unfused(), ref),
+                               "unfused_breakdown": kernel_breakdown(
+                                   unfused, reps=3)},
+                     "stages": tail_stages(vt, plan, x.shape, device),
+                     "tail_launches": sum(n for _, n in breakdown.values())}
     weights = [t for cp in [plan.post] + [c for st in plan.stages for br in
                                           st.branches for c in br]
                for t in (cp.w_t, cp.b)]
     weights += [t for st in plan.stages if st.convt is not None
                 for t in (st.convt.w_t, st.convt.b)]
-    return {"max_abs_err": float((got - ref).abs().max()),
+    return {**extra, "batch": batch,
+            "max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got, ref), "fault_rel_l2": fault_rel,
             "samples": int(got.shape[1]), "ms": ms, "plain_ms": plain_ms,
-            "breakdown": breakdown, "pairs": pairs, "stages": stages,
-            "tail_launches": sum(n for _, n in breakdown.values()),
             **tc_bound(flops, nbytes(x, *injs, *weights, got), dtype_name)}
 
 
@@ -799,7 +825,11 @@ CHECKS = [("residual_stack", "f32", check_residual_stack),
           ("residual_stack", "bf16", check_residual_stack),
           ("plms_ladder", "f32", check_plms_ladder),
           ("plms_ladder", "bf16", check_plms_ladder),
+          # the batched serving routes' B (phase 7)
+          ("plms_ladder", "f32", check_plms_ladder, SERVE_B),
+          ("plms_ladder", "bf16", check_plms_ladder, SERVE_B),
           ("vocoder_tail", "f32", check_vocoder_tail),
+          ("vocoder_tail", "f32", check_vocoder_tail, SERVE_B),
           ("residual_stack_train_batched", "f32",
            check_residual_stack_train_batched),
           ("residual_stack_train_batched", "bf16",
@@ -811,12 +841,14 @@ CHECKS = [("residual_stack", "f32", check_residual_stack),
 
 def phase_kernels(device):
     out = {}
-    for name, dt, fn in CHECKS:
-        res = fn(device, dt)
+    for name, dt, fn, *batch in CHECKS:
+        res = fn(device, dt, *batch)
         tol = TOL[(name, dt)]
         res["tol_rel_l2"] = tol
         faults = " ".join(f"[{k}: {v:.3e}]"
                           for k, v in res["fault_rel_l2"].items())
+        if batch:       # recorded as e.g. "f32 B=4"
+            dt = f"{dt} B={batch[0]}"
         log(f"[kernel] {name} {dt}: rel_l2={res['rel_l2']:.3e} (tol {tol:g}) "
             f"max_abs={res['max_abs_err']:.3e} kernel_ms={res['ms']:.3f} "
             f"plain_ms={res['plain_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
@@ -946,11 +978,12 @@ def phase_slice(device, workdir):
         for fn, (secs, _, _) in zip(wavs, CLIPS):
             out_fn = fn[:-4] + f"_{dt or 'f32'}_out.wav"
             t0 = time.time()
-            _, f0_pred, audio = infer_cli.run_clip(
-                svc, key=0, acc=ACC, use_pe=False, use_crepe=False,
-                thre=0.05, use_gt_mel=False, add_noise_step=500,
-                file_path=fn, out_path=out_fn)
-            torch.cuda.synchronize()
+            with phase_sums(svc) as phases:
+                _, f0_pred, audio = infer_cli.run_clip(
+                    svc, key=0, acc=ACC, use_pe=False, use_crepe=False,
+                    thre=0.05, use_gt_mel=False, add_noise_step=500,
+                    file_path=fn, out_path=out_fn)
+                torch.cuda.synchronize()
             wall = time.time() - t0
             src, _ = load_wav(fn)
             got, got_sr = load_wav(out_fn)
@@ -958,10 +991,13 @@ def phase_slice(device, workdir):
             rec = {"dtype": dt or "float32", "secs": secs, "wall_s": wall,
                    "rtf": wall / secs, "out_len": len(got),
                    "in_len": len(src), "peak": float(np.abs(audio).max()),
-                   "timings_last_chunk": dict(svc.timings)}
+                   "phases_s": phases,
+                   "outside_phases_s": wall - sum(phases.values())}
             log(f"[slice] {rec['dtype']} clip {secs:.1f}s: wall={wall:.3f}s "
-                f"rtf={rec['rtf']:.4f} peak={rec['peak']:.3f} "
-                f"phases={ {k: round(v, 4) for k, v in svc.timings.items()} }")
+                f"rtf={rec['rtf']:.4f} peak={rec['peak']:.3f} host phases "
+                f"summed over its chunks "
+                f"{ {k: round(v, 4) for k, v in phases.items()} }, outside "
+                f"them {rec['outside_phases_s']:.4f}s")
             if got_sr != sr or len(got) != len(src) or len(audio) != len(src):
                 raise SmokeError(f"output length {len(got)} != input {len(src)}")
             if not np.isfinite(audio).all():
@@ -1016,7 +1052,27 @@ def phase_slice(device, workdir):
         if simt or not any("tail::conv_tc_kernel" in n for n in ns):
             raise SmokeError(f"the {dt} conversion's profile lacks K3's "
                              f"tensor-core kernels or runs SIMT ones: {simt}")
-    return results
+    project = {"cfg_fn": cfg_fn, "ckpt": ckpt, "wavs": wavs, "svcs": svcs}
+    return results, project
+
+
+@contextlib.contextmanager
+def phase_sums(svc):
+    """``Svc.timings`` (seconds per phase of one ``infer``) summed over every
+    ``infer`` inside the block, into the dict it yields."""
+    sums, real = {}, svc.infer
+
+    def summed(*args, **kwargs):
+        out = real(*args, **kwargs)
+        for k, v in svc.timings.items():
+            sums[k] = sums.get(k, 0.0) + v
+        return out
+
+    svc.infer = summed
+    try:
+        yield sums
+    finally:
+        del svc.infer
 
 
 def profile_clip(svc, wav_fn, out_fn):
@@ -1133,7 +1189,19 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
     got = convert(svc_dev)
     with zeroed(svc_dev.model.denoise_fn.skip_projection.bias):
         fault = convert(svc_dev)
+    # diagnostic: the card's conversion with the CPU's f0 track (the AC
+    # tracker runs on each side's device; cuFFT's ACF moves the track by
+    # ~1e-6 relative), so that what remains is the kernels' difference
+    from diffsvc_tpu_torch.data import features
+
+    svc_dev._cached_pitch = lambda wav, mel, use_crepe: features.get_pitch(
+        wav, mel, svc_dev.hp, use_crepe, device="cpu")
+    try:
+        same_f0 = convert(svc_dev)
+    finally:
+        del svc_dev._cached_pitch
     res = {"rel_l2": rel_l2(got - base, ref - base),
+           "rel_l2_cpu_f0": rel_l2(same_f0 - base, ref - base),
            "wav_rel_l2": rel_l2(got, ref), "eps_share": rel_l2(ref, base),
            "max_abs_err": float((got - ref).abs().max()),
            "fault_rel_l2": rel_l2(fault - base, ref - base),
@@ -1141,11 +1209,450 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
     log(f"[slice] {dt} card vs CPU on {secs}s: rel_l2={res['rel_l2']:.3e} "
         f"(tol {tol:g}; waveform itself {res['wav_rel_l2']:.3e}, eps "
         f"part of it {res['eps_share']:.3e}) max_abs={res['max_abs_err']:.3e}"
-        f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]")
+        f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]; with "
+        f"the CPU's f0 track on the card too: {res['rel_l2_cpu_f0']:.3e}")
     if not res["rel_l2"] <= tol:
         raise SmokeError(f"card and CPU conversions disagree: {res}")
     if not res["fault_rel_l2"] > tol:
         raise SmokeError(f"the planted fault passes the card-vs-CPU check: {res}")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: serving (the fused program, batched chunks, the HTTP server)
+# ---------------------------------------------------------------------------
+
+# Batched fused conversion against each chunk's own B=1 fused call on the
+# same padding and noise, at f32: relative L2 of the waveform.  The rows of
+# a batch meet only in the kernels' tiling, so they agree to the f32 sums'
+# order.
+BATCHED_TOL = 1e-4
+SERVE_CLIP = -1          # the 14 s clip of phase 4
+# (seconds, f0 Hz, silent spans): three voiced chunks of 5.2-5.6 s, which
+# the collate pads to one length (512 frames): one group, B = 3
+BATCH_CLIP = (17.0, 262.0, [(5.6, 6.4), (11.4, 12.2)])
+SERVER_SECS = 2.0        # the fused requests' buffer
+STREAM_SECS = 0.5        # the streamed requests' buffer
+
+
+def kernel_counts() -> dict:
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
+                                              vocoder_tail)
+
+    return {"residual_stack": diffnet_stack.launches,
+            "plms_ladder": plms_ladder.launches,
+            "vocoder_tail": vocoder_tail.launches}
+
+
+@contextlib.contextmanager
+def counted(label: str, into: dict):
+    """Every kernel counter set to 0 before the block and read after it;
+    K2's and K3's must have moved."""
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
+                                              vocoder_tail)
+
+    for mod in (diffnet_stack, plms_ladder, vocoder_tail):
+        mod.launches = 0
+    yield
+    import torch
+
+    torch.cuda.synchronize()
+    into[label] = kernel_counts()
+    log(f"[serve] {label}: kernel launches {into[label]}")
+    for name in ("plms_ladder", "vocoder_tail"):
+        if into[label][name] <= 0:
+            raise SmokeError(f"{label} did not launch {name}")
+
+
+def voiced_chunks(wav_fn):
+    """The slicer's voiced chunks of a clip (float32 at its rate)."""
+    from diffsvc_tpu_torch.infer import slicer
+
+    chunks = slicer.cut(wav_fn, db_thresh=-40)
+    data, _ = slicer.chunks2audio(wav_fn, chunks)
+    return [d.astype("float32") for tag, d in data if not tag]
+
+
+def fused_trace(label, fn):
+    """torch.profiler over one fused chunk: the device busy share, and no
+    device-to-host copy may start before the chunk's last kernel ends (the
+    program keeps everything on the card until its outputs)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    kernels, d2h, spans = [], [], []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        span = (e.time_range.start, e.time_range.end)
+        spans.append(span)
+        if "DtoH" in e.name or "Device -> Pageable" in e.name \
+                or "Device -> Pinned" in e.name:
+            d2h.append((span, e.name))
+        elif "Memcpy" not in e.name and "Memset" not in e.name:
+            kernels.append((span, e.name))
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy_us += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    last_kernel = max(b for (_, b), _ in kernels)
+    early = [n for (a, _), n in d2h if a < last_kernel]
+    res = {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+           "busy_share": busy_us / 1e6 / wall, "kernels": len(kernels),
+           "d2h": len(d2h), "d2h_before_last_kernel": early,
+           "k3_traced": any("tail::" in n for _, n in kernels),
+           "k1_traced": any("gate" in n for _, n in kernels)}
+    log(f"[serve] profile of {label}: wall={wall:.4f}s device_busy="
+        f"{res['device_busy_ms']:.2f}ms busy_share={res['busy_share']:.3f} "
+        f"kernels={len(kernels)} (K1 traced {res['k1_traced']}, K3 traced "
+        f"{res['k3_traced']}); device-to-host copies {len(d2h)}, before the "
+        f"last kernel {len(early)}")
+    if early:
+        raise SmokeError(f"{label}: device-to-host copies before the last "
+                         f"kernel: {early}")
+    if not (res["k1_traced"] and res["k3_traced"]):
+        raise SmokeError(f"{label}: the trace lacks the program's kernels")
+    return res
+
+
+def route_run(label, secs, n_chunks, fn, pools=0):
+    """A route's wall over one conversion (host clock, ending in a sync),
+    then a profiled one for the device busy share."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    prof = profile_run(f"{label} (serve)", fn)
+    prof.pop("names")
+    rec = {"wall_s": wall, "rtf": wall / secs, "chunks": n_chunks,
+           "wall_per_chunk_s": wall / n_chunks,
+           "busy_share": prof["busy_share"],
+           "device_busy_ms": prof["device_busy_ms"],
+           "graph_pool_mib": pools / 2 ** 20}
+    log(f"[serve] route {label}: wall={wall:.4f}s rtf={rec['rtf']:.4f} "
+        f"per chunk {rec['wall_per_chunk_s']:.4f}s busy_share="
+        f"{rec['busy_share']:.3f} device_busy={rec['device_busy_ms']:.1f}ms "
+        f"graph pools {rec['graph_pool_mib']:.1f} MiB")
+    return rec
+
+
+def fused_cpu_agreement(svc_dev, project, chunk):
+    """A 0.5 s fused conversion on the card against the same fused
+    conversion on the CPU (plain versions), the same noise, compared on
+    what the denoiser put in the waveform (each minus the CPU's conversion
+    with eps = 0), at phase 4's limits; the card's program with the
+    denoiser's skip-projection bias dropped must exceed them."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.infer.fused import FusedSvc
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    dt = svc_dev.hp["diff_compute_dtype"] or "float32"
+    tol = SLICE_TOL_BF16 if dt == "bfloat16" else SLICE_TOL
+    svc_cpu = Svc("proj", project["cfg_fn"], True, project["ckpt"],
+                  device="cpu")
+    wav = chunk[: int(0.5 * 44100)]
+    hp = dict(svc_dev.hp, fused_bucket_samples=0)
+
+    def fused_of(svc, cuda_graphs=True):
+        return FusedSvc(type(svc.hp)(hp), svc.model, svc.vocoder,
+                        svc.hubert.model, speedup=ACC,
+                        cuda_graphs=cuda_graphs)
+
+    f_cpu = fused_of(svc_cpu)
+    geo = f_cpu.geometry(len(wav))
+    g = torch.Generator().manual_seed(3)
+    noise = torch.randn(1, geo["pad_t"], svc_cpu.mel_bins, generator=g)
+    randoms = draw_randoms(1, geo["n_voc"], svc_cpu.vocoder.cfg.harmonic_num,
+                           g)
+
+    def convert(f):
+        return torch.from_numpy(np.asarray(f(wav, init_noise=noise,
+                                             voc_randoms=randoms)[0]))
+
+    ref = convert(f_cpu)
+    out_proj = svc_cpu.model.denoise_fn.output_projection
+    with zeroed(out_proj.weight, out_proj.bias):
+        base = convert(fused_of(svc_cpu))
+    f_dev = fused_of(svc_dev)
+    got = convert(f_dev)
+    with zeroed(svc_dev.model.denoise_fn.skip_projection.bias):
+        fault = convert(fused_of(svc_dev, cuda_graphs=False))
+    # diagnostic: the card's program (eager) with the tracker run on the CPU
+    from diffsvc_tpu_torch.ops import f0_ac
+
+    real_track = f0_ac.track
+    f0_ac.track = lambda w, **kw: real_track(w.cpu(), **kw).to(w.device)
+    try:
+        cpu_f0 = convert(fused_of(svc_dev, cuda_graphs=False))
+    finally:
+        f0_ac.track = real_track
+    res = {"rel_l2": rel_l2(got - base, ref - base),
+           "rel_l2_cpu_f0": rel_l2(cpu_f0 - base, ref - base),
+           "wav_rel_l2": rel_l2(got, ref), "eps_share": rel_l2(ref, base),
+           "max_abs_err": float((got - ref).abs().max()),
+           "fault_rel_l2": rel_l2(fault - base, ref - base),
+           "tol_rel_l2": tol}
+    log(f"[serve] {dt} fused card vs CPU on 0.5s: rel_l2={res['rel_l2']:.3e} "
+        f"(tol {tol:g}; waveform itself {res['wav_rel_l2']:.3e}, eps part "
+        f"{res['eps_share']:.3e}) max_abs={res['max_abs_err']:.3e}; planted "
+        f"fault [bskip dropped: {res['fault_rel_l2']:.3e}]; with the tracker "
+        f"on the CPU on both sides: {res['rel_l2_cpu_f0']:.3e}")
+    if not res["rel_l2"] <= tol:
+        raise SmokeError(f"fused card and CPU conversions disagree: {res}")
+    if not res["fault_rel_l2"] > tol:
+        raise SmokeError(f"the planted fault passes the fused check: {res}")
+    return res
+
+
+def replay_equals_eager(svc, chunk):
+    """The same chunk, noise and padding through the captured program and
+    through the same body run eagerly on the card: equal bit for bit."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.infer.fused import FusedSvc
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    graphed = svc.fused_model(ACC)
+    eager = FusedSvc(graphed.hp, svc.model, svc.vocoder, svc.hubert.model,
+                     speedup=ACC, cuda_graphs=False)
+    geo = graphed.geometry(graphed._padded_length(len(chunk)))
+    g = torch.Generator(device=svc.device).manual_seed(11)
+    noise = torch.randn(1, geo["pad_t"], svc.mel_bins, generator=g,
+                        device=svc.device)
+    randoms = draw_randoms(1, geo["n_voc"], svc.vocoder.cfg.harmonic_num, g,
+                           svc.device)
+    outs = [f(chunk, init_noise=noise, voc_randoms=randoms)
+            for f in (graphed, eager, graphed)]
+    same = all(np.array_equal(a, b) for o in outs[1:]
+               for a, b in zip(outs[0], o))
+    if not same:
+        diffs = [float(np.abs(a.astype(np.float64) - b).max())
+                 for a, b in zip(outs[0], outs[1])]
+        raise SmokeError(f"graph replay differs from eager: max |diff| "
+                         f"(wav, f0, mel) {diffs}")
+    return same
+
+
+def batched_vs_single(svc, chunks):
+    """FusedSvc.batched at B = len(chunks) against each chunk's B=1 fused
+    call on the same padding and noise."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    fused = svc.fused_model(ACC)
+    n = len(chunks)
+    n44 = fused._padded_length(max(len(c) for c in chunks))
+    geo = fused.geometry(n44)
+    g = torch.Generator(device=svc.device).manual_seed(5)
+    noise = torch.randn(n, geo["pad_t"], svc.mel_bins, generator=g,
+                        device=svc.device)
+    randoms = draw_randoms(n, geo["n_voc"], svc.vocoder.cfg.harmonic_num, g,
+                           svc.device)
+    outs = fused.batched(chunks, init_noise=noise, voc_randoms=randoms)
+    rels = []
+    for i, c in enumerate(chunks):
+        padded = np.zeros(n44, np.float32)
+        padded[: len(c)] = c
+        ref = fused(padded, init_noise=noise[i: i + 1],
+                    voc_randoms=tuple(r[i: i + 1] for r in randoms))[0]
+        got = fused.to_float(outs[i][0])
+        rels.append(rel_l2(torch.from_numpy(np.asarray(got, np.float32)),
+                           torch.from_numpy(np.asarray(fused.to_float(
+                               ref[: len(c)]), np.float32))))
+    log(f"[serve] fused batched B={n} vs B=1 calls (f32, same padding and "
+        f"noise): rel_l2 per chunk {[f'{r:.2e}' for r in rels]} (tol "
+        f"{BATCHED_TOL:g})")
+    if not max(rels) <= BATCHED_TOL:
+        raise SmokeError(f"batched chunks disagree with their B=1 calls: "
+                         f"{rels}")
+    return rels
+
+
+def serve_http(svc):
+    """The port's server in this process on 127.0.0.1: three fused
+    requests, three streamed ones (each answered 200 with the posted
+    duration) and a malformed one (400)."""
+    import io
+    import threading
+    import urllib.error
+    import urllib.request
+    from http.server import HTTPServer
+
+    import numpy as np
+    from scipy.io import wavfile
+
+    from diffsvc_tpu_torch import flask_api
+    from diffsvc_tpu_torch.utils import synth
+
+    sr = 44100
+    flask_api.warmup_fused(svc, ACC, SERVER_SECS)
+    boundary = "smokeboundary"
+
+    def body(wav, pitch="0"):
+        buf = io.BytesIO()
+        wavfile.write(buf, sr, (wav * 32767).astype(np.int16))
+        out = b""
+        for k, v in {"fPitchChange": pitch, "sampleRate": str(sr)}.items():
+            out += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                    f'name="{k}"\r\n\r\n{v}\r\n').encode()
+        out += (f"--{boundary}\r\nContent-Disposition: form-data; "
+                'name="sample"; filename="in.wav"\r\nContent-Type: '
+                "audio/wav\r\n\r\n").encode()
+        return out + buf.getvalue() + f"\r\n--{boundary}--\r\n".encode()
+
+    def post(port, data):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/voiceChangeModel", data=data,
+            headers={"Content-Type":
+                     f"multipart/form-data; boundary={boundary}"},
+            method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                _, out = wavfile.read(io.BytesIO(resp.read()))
+                return resp.status, len(out)
+        except urllib.error.HTTPError as e:
+            return e.code, 0
+
+    wav = synth.voiced_wav(3 * SERVER_SECS, sr, 240.0, seed=7)
+    answers = {}
+    stream = flask_api.make_stream(svc, ACC, fused=True)
+    for label, st in (("fused", None), ("stream", stream)):
+        server = HTTPServer(("127.0.0.1", 0),
+                            flask_api.make_handler(svc, ACC, fused=True,
+                                                   stream=st))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            n = int((SERVER_SECS if st is None else STREAM_SECS) * sr)
+            got = []
+            for k in range(3):
+                t0 = time.time()
+                status, length = post(server.server_address[1],
+                                      body(wav[k * n: (k + 1) * n], "2"))
+                got.append({"status": status, "samples": length,
+                            "want": n, "wall_s": time.time() - t0})
+            if st is None:
+                got.append({"malformed": post(server.server_address[1],
+                                              body(wav[:n])[:200])[0]})
+            answers[label] = got
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+    log(f"[serve] HTTP answers: {answers}")
+    for label, got in answers.items():
+        for r in got[:3]:
+            if r["status"] != 200 or r["samples"] != r["want"]:
+                raise SmokeError(f"server {label} answered {r}")
+    if answers["fused"][3]["malformed"] != 400:
+        raise SmokeError(f"a malformed request was answered "
+                         f"{answers['fused'][3]}")
+    return answers
+
+
+def phase_serve(device, project):
+    """Phase 7 on phase 4's project: the fused routes (bf16 and f32), the
+    batched routes, and the server."""
+    import torch
+
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import save_wav
+
+    wav_fn = project["wavs"][SERVE_CLIP]
+    secs = CLIPS[SERVE_CLIP][0]
+    chunks = voiced_chunks(wav_fn)
+    res = {"launches": {}, "routes": {}, "captures": {}}
+
+    def clip(svc, file_path=wav_fn, **route):
+        return infer_cli.run_clip(
+            svc, key=0, acc=ACC, use_pe=False, use_crepe=False, thre=0.05,
+            use_gt_mel=False, add_noise_step=500, file_path=file_path,
+            out_path=file_path[:-4] + "_serve.wav", **route)
+
+    batch_fn = os.path.join(os.path.dirname(wav_fn), "batch_clip.wav")
+    secs_b, f0_b, gaps_b = BATCH_CLIP
+    save_wav(synth.voiced_wav(secs_b, 44100, f0_b, gaps_b, seed=5), batch_fn,
+             44100)
+    batch_chunks = voiced_chunks(batch_fn)
+    for dt, svc in project["svcs"].items():
+        name = dt or "float32"
+        # (a) fused: every bucket captured once on the first conversion
+        with counted(f"fused {name}", res["launches"]):
+            clip(svc, fused=True)
+        fused = svc.fused_model(ACC)
+        res["captures"][name] = {str(k[:2]): v
+                                 for k, v in fused.captures.items()}
+        routes = res["routes"].setdefault(name, {})
+        routes["modular"] = route_run(f"modular {name}", secs, len(chunks),
+                                      lambda: clip(svc))
+        routes["fused graph"] = route_run(
+            f"fused graph {name}", secs, len(chunks),
+            lambda: clip(svc, fused=True),
+            sum(fused.pool_bytes().values()))
+        saved = fused.cuda_graphs, fused._fns
+        fused.cuda_graphs, fused._fns = False, {}
+        try:
+            routes["fused eager"] = route_run(
+                f"fused eager {name}", secs, len(chunks),
+                lambda: clip(svc, fused=True))
+        finally:
+            fused.cuda_graphs, fused._fns = saved
+        routes["batched"] = route_run(f"batched {name}", secs, len(chunks),
+                                      lambda: clip(svc, batch_chunks=True))
+        # (b) the batched route where the chunks form one group: K2 and K3
+        # once per conversion, at B = the voiced chunks
+        groups = res.setdefault("batch_clip", {}).setdefault(name, {})
+        for route, kw in (("modular", {}), ("fused graph", {"fused": True}),
+                          ("batched", {"batch_chunks": True})):
+            with counted(f"{route} {name}, batch clip", res["launches"]):
+                groups[route] = route_run(
+                    f"{route} {name}, {len(batch_chunks)}-chunk clip",
+                    BATCH_CLIP[0], len(batch_chunks),
+                    lambda kw=kw: clip(svc, file_path=batch_fn, **kw))
+        got = res["launches"][f"batched {name}, batch clip"]
+        if (got["plms_ladder"], got["vocoder_tail"]) != (2, 2):
+            raise SmokeError(f"the {len(batch_chunks)}-chunk clip's batched "
+                             f"conversions did not run K2 and K3 once each "
+                             f"at B = {len(batch_chunks)}: {got}")
+        if any(v != 1 for v in fused.captures.values()):
+            raise SmokeError(f"a bucket was captured more than once: "
+                             f"{fused.captures}")
+        res.setdefault("replay_equals_eager", {})[name] = \
+            replay_equals_eager(svc, chunks[0])
+        log(f"[serve] {name}: graph replay equals eager bit for bit; "
+            f"captures per bucket {res['captures'][name]}; graph pools "
+            f"{ {str(k[:2]): round(v / 2 ** 20, 1) for k, v in fused.pool_bytes().items()} } MiB")
+        res.setdefault("trace", {})[name] = fused_trace(
+            f"one fused chunk ({name}, {len(chunks[0]) / 44100:.2f}s)",
+            lambda: svc.infer_fused(chunks[0], key=0, acc=ACC))
+        res.setdefault("cpu_agreement", {})[name] = fused_cpu_agreement(
+            svc, project, chunks[0])
+    # (b) batched fused at B = the voiced chunks, against B=1 calls (f32)
+    svc32 = project["svcs"][""]
+    with counted("fused batched float32", res["launches"]):
+        res["batched_rel_l2"] = batched_vs_single(svc32, batch_chunks)
+    # (c) the server (bf16, the production serving mode)
+    with counted("server bfloat16", res["launches"]):
+        res["server"] = serve_http(project["svcs"]["bfloat16"])
+    torch.cuda.synchronize()
     return res
 
 
@@ -1763,16 +2270,17 @@ def main(argv=None) -> int:
             cwd = os.getcwd()
             os.chdir(tmp)     # Svc keeps its ./infer_tools caches here
             try:
-                record["slice"] = phase_slice(device, tmp)
+                record["slice"], project = phase_slice(device, tmp)
                 record["train"] = phase_train(device, tmp)
                 cfg = train_config(tmp)
                 record["own_batch"] = phase_train_own_batch(
                     device, tmp, cfg["hubert_path"], cfg["vocoder_ckpt"])
+                record["serve"] = phase_serve(device, project)
             finally:
                 os.chdir(cwd)
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-6: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-7: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -1809,6 +2317,9 @@ def main(argv=None) -> int:
                         "launches_tf32x3": tc_launches["float32"][
                             "launches_tf32x3"].get(name),
                         "main_path": name != "fused_residual_block",
+                        "launches_serving": {
+                            route: counts.get(name, 0) for route, counts in
+                            record["serve"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -4,8 +4,9 @@ Counterpart of ``diffsvc_tpu/data/features.py`` (reference
 ``preprocessing/process_pipeline.py`` / ``infer_tool.py``): wav2spec through
 the vocoder, the AC f0 tracker, the uniform ``get_align`` stretch, the
 binarizer's ``process_item``, ``getitem`` and the pad-to-longest collate.
-Host-side numpy except the mel, which runs on the given device.  The JAX
-package's batched binarization pipeline is not ported.
+Host-side numpy except the mel and the AC f0 tracker, which run on the
+given device.  The JAX package's batched binarization pipeline is not
+ported.
 """
 
 from __future__ import annotations
@@ -32,8 +33,10 @@ def get_align_uniform(mel_len: int, n_units: int) -> np.ndarray:
     return mel2ph
 
 
-def get_pitch(wav: np.ndarray, mel: np.ndarray, hp, use_crepe: bool = False):
-    """(f0 [T_mel] f32, coarse [T_mel]) from the AC tracker.  CREPE is not
+def get_pitch(wav: np.ndarray, mel: np.ndarray, hp, use_crepe: bool = False,
+              device="cpu"):
+    """(f0 [T_mel] f32, coarse [T_mel]) from the AC tracker, run on
+    ``device`` (the caller's: the card under ``Svc``).  CREPE is not
     ported yet, so asking for it raises: the JAX package would run CREPE
     where its weights are installed, and a silent AC track would give other
     audio for the same flags."""
@@ -41,7 +44,7 @@ def get_pitch(wav: np.ndarray, mel: np.ndarray, hp, use_crepe: bool = False):
         raise NotImplementedError("CREPE is not ported to torch yet; pass "
                                   "use_crepe=False (--no_crepe) for the AC "
                                   "tracker")
-    return get_pitch_ac(wav, len(mel), hp)
+    return get_pitch_ac(wav, len(mel), hp, device)
 
 
 def wav2spec_for(hp, wav_fn, device="cpu") -> tuple:
@@ -87,7 +90,8 @@ def process_item(item_name: str, wav_fn, hp, hubert_encode,
             "spec_min": np.min(mel, axis=0), "spec_max": np.max(mel, axis=0),
         }
         if ba.get("with_f0", True):
-            f0, coarse = get_pitch(wav, mel, hp, hp.get("use_crepe", False))
+            f0, coarse = get_pitch(wav, mel, hp, hp.get("use_crepe", False),
+                                   device=device)
             if f0.sum() == 0:
                 raise ValueError("Empty **gt** f0")
             processed["f0"], processed["pitch"] = f0, coarse

@@ -6,16 +6,23 @@ hubert_gpu, model_path)`` loads the diffusion model, HuBERT-soft and the
 vocoder onto ``device`` (the card when there is one); ``infer(in_path, key,
 acc, ...)`` runs feature extraction -> key shift (+key/12 in log2, ceiling
 zeroing) -> sampling -> vocoder and returns (f0_gt, f0_pred, wav_pred).
+The serving routes: ``infer_fused`` (the whole chain as one program per
+length bucket, a CUDA graph on the card: ``infer/fused.py``),
+``infer_fused_batched`` (N chunks in one such program) and
+``infer_batched`` (the modular front end per clip, then one sampling and
+one vocoder call per group of equal padded length).
 
 Not ported yet: pe and CREPE, so ``use_crepe`` defaults to False here (the
 JAX facade defaults to True).  Asking for CREPE raises NotImplementedError
 unless the md5 f0 cache holds the clip's CREPE track; asking for pe raises
 when pe weights are configured (without them the JAX package, too, keeps
-the conditioner's f0).  Batched and fused serving are not ported either.
+the conditioner's f0).  The fused routes run the AC tracker whatever
+``use_crepe`` says, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+import copy
 import hashlib
 import io
 import json
@@ -28,8 +35,10 @@ import torch
 from ..config import set_hparams
 from ..data import features
 from ..models.diffusion import GaussianDiffusion
+from ..ops import mel as mel_ops
 from ..ops.pitch import denorm_f0
 from ..utils import convert
+from ..vocoders import generator as gen_mod
 from ..vocoders.base import get_vocoder_cls
 from .hubert_encoder import Hubertencoder
 
@@ -115,6 +124,53 @@ class Svc:
                 with open(smp, encoding="utf-8") as f:
                     self.spk_map = json.load(f)
         self.timings = {}   # seconds per phase of the last infer()
+        self._fused = None
+        self._fused_key = None
+
+    # ------------------------------------------------------------------
+    def fused_model(self, acc: int = 20, compute_dtype=None):
+        """The :class:`~.fused.FusedSvc` of this model at ``acc`` (built on
+        first use; it snapshots ``hp`` then, so set serving flags such as
+        ``fused_bucket_samples`` before)."""
+        key = (int(acc), compute_dtype)
+        if self._fused is None or self._fused_key != key:
+            from .fused import FusedSvc
+
+            hub = self.hubert.model
+            if hub is not None and next(hub.parameters()).device \
+                    != self.device:
+                hub = copy.deepcopy(hub).to(self.device)
+            self._fused = FusedSvc(self.hp, self.model, self.vocoder, hub,
+                                   speedup=int(acc),
+                                   compute_dtype=compute_dtype)
+            self._fused_key = key
+        return self._fused
+
+    def infer_fused(self, wav, key: int = 0, acc: int = 20, seed: int = 0,
+                    compute_dtype=None, use_gt_mel: bool = False,
+                    add_noise_step: int = 500, init_noise=None,
+                    voc_randoms=None):
+        """Serving fast path: one chunk (float32 or int16 at the model's
+        rate) through the fused program; returns (wav, f0, mel) as host
+        numpy.  The noise comes from ``seed`` unless ``init_noise`` /
+        ``voc_randoms`` are given."""
+        fused = self.fused_model(acc, compute_dtype)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return fused(wav, gen, key_shift=key,
+                     spk_id=self.resolve_spk_id(None), use_gt_mel=use_gt_mel,
+                     add_noise_step=int(add_noise_step),
+                     init_noise=init_noise, voc_randoms=voc_randoms)
+
+    def infer_fused_batched(self, wavs, key: int = 0, acc: int = 20,
+                            seed: int = 0, compute_dtype=None,
+                            init_noise=None, voc_randoms=None):
+        """N chunks in one fused program at B = N (FusedSvc.batched);
+        returns a list of (wav, f0, mel) per chunk."""
+        fused = self.fused_model(acc, compute_dtype)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        return fused.batched(list(wavs), gen, key_shifts=key,
+                             spk_id=self.resolve_spk_id(None),
+                             init_noise=init_noise, voc_randoms=voc_randoms)
 
     # ------------------------------------------------------------------
     def infer(self, in_path, key: int, acc: int, use_pe=True, use_crepe=False,
@@ -161,6 +217,86 @@ class Svc:
         return self.after_infer(batch, singer, in_path, seed=seed,
                                 voc_randoms=kwargs.get("voc_randoms"))
 
+    @torch.no_grad()
+    def infer_batched(self, inputs, key: int, acc: int, use_pe=True,
+                      use_crepe=False, thre=0.05, seed=0, init_noise=None,
+                      voc_randoms=None):
+        """Convert many clips or chunks: the front end per clip, then per
+        group of equal padded (mel, unit) length one sampling call (K2 at
+        B = the group's size) and one vocoder call (K3 at that B).  Returns
+        (f0_gt, f0_pred, wav_pred) per input, in input order.
+
+        ``init_noise`` (one [T, M] array per input, T its padded mel length)
+        and ``voc_randoms`` (one (rand_ini [H+1], unit_noise [H+1, T*hop])
+        pair per input) replace the draws from ``seed``."""
+        if use_pe and self.pe_configured:
+            raise NotImplementedError("pe is not ported to torch yet; pass "
+                                      "use_pe=False")
+        hp, dev = self.hp, self.device
+        samples = []
+        for in_path in inputs:
+            b1 = self.pre(in_path, acc, use_crepe, thre)
+            b1["f0"] = b1["f0"] + (key / 12)
+            b1["f0"][b1["f0"] > np.log2(hp["f0_max"])] = 0
+            samples.append(b1)
+        groups = {}
+        for i, b1 in enumerate(samples):
+            groups.setdefault((b1["mels"].shape[1], b1["hubert"].shape[1]),
+                              []).append(i)
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        cfg = self.vocoder.cfg
+        results = [None] * len(samples)
+        for idxs in groups.values():
+            stack = {k: np.concatenate([samples[i][k] for i in idxs])
+                     for k in ("hubert", "mels", "mel2ph", "energy", "f0",
+                               "uv")}
+            tb = {k: torch.from_numpy(v).to(dev) for k, v in stack.items()}
+            if hp.get("use_spk_id") and "spk_ids" in samples[idxs[0]]:
+                tb["spk_embed"] = torch.from_numpy(np.concatenate(
+                    [samples[i]["spk_ids"] for i in idxs])).to(dev)
+            noise = None if init_noise is None else torch.from_numpy(
+                np.stack([np.asarray(init_noise[i], np.float32)
+                          for i in idxs]))
+            out = self.model.infer(tb, speedup=int(acc), init_noise=noise,
+                                   generator=gen)
+            mel_out = out["mel_out"]
+            f0_pred_all = out["f0_denorm"]
+            # collate-padding frames are exact-0 mel: as log-mel that is
+            # loud broadband energy that would bleed into the kept frames
+            # through the generator's receptive field, so floor them to the
+            # silence level before vocoding
+            pad = (mel_out.abs().sum(-1) <= 0)[:, :, None]
+            mel_clip = torch.clamp(mel_out, hp["mel_vmin"], hp["mel_vmax"])
+            mel_clip = torch.where(pad, torch.full_like(mel_clip,
+                                                        hp["mel_vmin"]),
+                                   mel_clip)
+            b, t_mel = mel_out.shape[:2]
+            n_voc = t_mel * int(np.prod(cfg.upsample_rates))
+            if voc_randoms is None:
+                randoms = gen_mod.draw_randoms(b, n_voc, cfg.harmonic_num,
+                                               gen, dev)
+            else:
+                randoms = tuple(torch.from_numpy(np.stack(
+                    [np.asarray(voc_randoms[i][k], np.float32)
+                     for i in idxs])).to(dev) for k in (0, 1))
+            wavs = gen_mod.apply_serving(
+                self.vocoder.gen, mel_clip * mel_ops.LN_10,
+                f0_pred_all if hp.get("use_nsf") else None, randoms)
+            mel_out, wavs = mel_out.cpu().numpy(), wavs.cpu().numpy()
+            f0_pred_all = f0_pred_all.cpu().numpy()
+            f0_gt_all = denorm_f0(
+                stack["f0"], stack["uv"], pitch_norm=hp.get("pitch_norm", "log"),
+                use_uv=hp.get("use_uv", False),
+                f0_mean=float(hp.get("f0_mean", 0.0) or 0.0),
+                f0_std=float(hp.get("f0_std", 1.0) or 1.0))
+            hop_up = wavs.shape[1] // t_mel
+            for j, i in enumerate(idxs):
+                # real frames are a prefix: the padding is trailing
+                mask = np.abs(mel_out[j]).sum(-1) > 0
+                results[i] = (f0_gt_all[j][mask], f0_pred_all[j][mask],
+                              wavs[j][: int(mask.sum()) * hop_up])
+        return results
+
     def after_infer(self, prediction, singer=False, in_path="", seed=0,
                     voc_randoms=None):
         """Unpad by the nonzero-mel mask, clip, vocode (infer_tool.py:171-201)."""
@@ -197,7 +333,8 @@ class Svc:
                 print("load temp crepe f0")
                 return (np.array(self.f0_dict[f"{md5}_gt"]["f0"]),
                         np.array(self.f0_dict[f"{md5}_coarse"]["f0"]))
-        return features.get_pitch(wav, mel, self.hp, use_crepe)
+        return features.get_pitch(wav, mel, self.hp, use_crepe,
+                                  device=self.device)
 
     def temporary_dict2processed_input(self, item_name, temp_dict,
                                        use_crepe=False, thre=0.05):

@@ -236,10 +236,42 @@ class GaussianDiffusion(nn.Module):
         self.register_buffer("spec_max", torch.from_numpy(spec_max[:keep]),
                              persistent=False)
         self.mel_bins = m
+        self._device_tables = {}
+
+    def _on_device(self, key, device, make):
+        """``make()``'s host arrays uploaded to ``device`` once and kept:
+        sampling under a CUDA graph cannot capture an upload from pageable
+        host memory."""
+        key = (key, torch.device(device))
+        if key not in self._device_tables:
+            self._device_tables[key] = {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in make().items()}
+        return self._device_tables[key]
 
     def tables(self, device) -> dict:
-        return {k: torch.from_numpy(v).to(device)
-                for k, v in self.tables_np.items()}
+        """The schedule tables (float32) on ``device``."""
+        return self._on_device("schedule", device, lambda: self.tables_np)
+
+    def ladder_tables(self, t_start: int, interval: int, sampler: str,
+                      clip: bool, device) -> dict:
+        """K2's per-evaluation tables on ``device``: 't_eval' [J] and
+        'scal' [J, NS] for this trajectory."""
+        ac = self.tables_np["alphas_cumprod"]
+        if sampler in DPMPP_NAMES:
+            grid = str(self.hp.get("dpmpp_grid", "lambda"))
+            key = ("dpmpp", t_start, interval, grid)
+
+            def make():
+                return dict(zip(("t_eval", "scal"), _pl.dpmpp_eval_tables(
+                    ac, t_start, interval, grid=grid)))
+        else:
+            key = ("plms", t_start, interval, bool(clip))
+
+            def make():
+                return dict(zip(("t_eval", "scal"), _pl.plms_eval_tables(
+                    ac, t_start, interval, clip=bool(clip))))
+        return self._on_device(key, device, make)
 
     def denoise_closure(self, cond: torch.Tensor):
         """denoise_fn(x f32, t) for the step-by-step samplers: the compute
@@ -299,20 +331,13 @@ class GaussianDiffusion(nn.Module):
         net = self.denoise_fn
         p = net.stacked(dt)
         cond_proj = diffnet.prepare_cond(net, cond).to(dt).contiguous()
-        ac = self.tables_np["alphas_cumprod"]
-        if sampler in DPMPP_NAMES:
-            t_eval, scal = _pl.dpmpp_eval_tables(
-                ac, t_start, interval,
-                grid=str(self.hp.get("dpmpp_grid", "lambda")))
-        else:
-            t_eval, scal = _pl.plms_eval_tables(ac, t_start, interval,
-                                                clip=clip_v > 0)
-        dev = x.device
-        step = diffnet.step_embedding(
-            p, torch.from_numpy(t_eval).to(dev), net.residual_channels)
+        tabs = self.ladder_tables(t_start, interval, sampler, clip_v > 0,
+                                  x.device)
+        step = diffnet.step_embedding(p, tabs["t_eval"],
+                                      net.residual_channels)
         sb = diffnet.step_bias(p, step, dt).transpose(0, 1).contiguous()
         return _pl.plms_ladder(
-            x.float().contiguous(), torch.from_numpy(scal).to(dev), sb,
+            x.float().contiguous(), tabs["scal"], sb,
             cond_proj, p["win"], p["bin"], p["wskip"], p["bskip"], p["wout"],
             p["bout"], p["wd"], p["bd"], p["wo"], p["bo"], cycle=net.cycle,
             clip_v=clip_v)

@@ -10,10 +10,11 @@ pitch_floor=f0_min, pitch_ceiling=f0_max)``):
   4. Viterbi path search with Praat's default costs,
   5. voiced frames -> f0 Hz, unvoiced -> 0.
 
-Steps 1-3 are torch on the given device (CPU by default: the tracker is a
-host-side preprocessing stage of the reference); the Viterbi is the
-sequential dynamic program over [T, 15] candidates in numpy float32 (the
-JAX package's associative scan is a TPU choice).
+:func:`track` runs all five on the wav's device in one pass, as JAX's
+``_track`` does, with JAX's max-plus associative-scan Viterbi
+(:func:`_viterbi`); nothing leaves the device before the f0.  The
+sequential numpy Viterbi (:func:`_viterbi_seq`) is the plain reference.
+Every function takes leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .mel import hann_window
+from .mel import hann_window_on
 from .pitch import f0_to_coarse_np
 
 MAX_CANDIDATES = 15
@@ -43,36 +44,41 @@ def _praat_frame_grid(n_samples: int, sr: float, dt: float,
 
 def _frame_acf(wav: torch.Tensor, *, hop: int, n_frames: int,
                win_samples: int, fft_size: int, start0: int):
-    """Midpoint-centred frames -> (r [n_frames, max_lag+1], local_peak)."""
+    """Midpoint-centred frames of wav [..., n] -> (r [..., n_frames,
+    max_lag+1], local_peak [..., n_frames])."""
     pad_left = max(0, -start0)
     base = start0 + pad_left
     need = (n_frames - 1) * hop + win_samples
-    right = max(0, base + need - wav.shape[0] - pad_left)
+    right = max(0, base + need - wav.shape[-1] - pad_left)
     xp = torch.nn.functional.pad(wav, (pad_left, right))
-    frames = xp[base: base + need].unfold(0, win_samples, hop)[:n_frames]
-    frames = frames - frames.mean(dim=1, keepdim=True)
-    local_peak = frames.abs().amax(dim=1)
-    win = torch.from_numpy(hann_window(win_samples)).to(wav.device)
-    spec = torch.fft.rfft(frames * win, n=fft_size, dim=1)
-    acf = torch.fft.irfft(spec.real ** 2 + spec.imag ** 2, n=fft_size, dim=1)
-    acf = acf / torch.clamp(acf[:, :1], min=1e-12)
-    wspec = torch.fft.rfft(win[None, :], n=fft_size, dim=1)
-    wacf = torch.fft.irfft(wspec.real ** 2 + wspec.imag ** 2, n=fft_size, dim=1)
+    frames = xp[..., base: base + need].unfold(-1, win_samples, hop)
+    frames = frames[..., :n_frames, :]
+    frames = frames - frames.mean(dim=-1, keepdim=True)
+    local_peak = frames.abs().amax(dim=-1)
+    win = hann_window_on(win_samples, wav.device)
+    spec = torch.fft.rfft(frames * win, n=fft_size, dim=-1)
+    acf = torch.fft.irfft(spec.real ** 2 + spec.imag ** 2, n=fft_size, dim=-1)
+    acf = acf / torch.clamp(acf[..., :1], min=1e-12)
+    wspec = torch.fft.rfft(win[None, :], n=fft_size, dim=-1)
+    wacf = torch.fft.irfft(wspec.real ** 2 + wspec.imag ** 2, n=fft_size,
+                           dim=-1)
     wacf = wacf / torch.clamp(wacf[:, :1], min=1e-12)
     max_lag = win_samples // 2
-    r = acf[:, : max_lag + 1] / torch.clamp(wacf[:, : max_lag + 1], min=1e-6)
+    r = acf[..., : max_lag + 1] / torch.clamp(wacf[..., : max_lag + 1],
+                                              min=1e-6)
     return r, local_peak
 
 
 def _find_candidates(r, local_peak, global_peak, sr, f0_min, f0_max,
                      voicing_threshold):
-    """Top-K local maxima of r(tau) -> (freq, strength) [n_frames, K];
-    candidate 0 is the unvoiced one."""
-    n_frames, n_lags = r.shape
+    """Top-K local maxima of r(tau) [..., n_frames, lags] -> (freq,
+    strength) [..., n_frames, K]; candidate 0 is the unvoiced one.
+    ``global_peak`` is a tensor broadcasting against ``local_peak``."""
+    n_lags = r.shape[-1]
     lag = torch.arange(n_lags, dtype=torch.float32, device=r.device)
     lag_min, lag_max = sr / f0_max, sr / f0_min
-    left = torch.cat([r[:, :1], r[:, :-1]], dim=1)
-    right = torch.cat([r[:, 1:], r[:, -1:]], dim=1)
+    left = torch.cat([r[..., :1], r[..., :-1]], dim=-1)
+    right = torch.cat([r[..., 1:], r[..., -1:]], dim=-1)
     is_peak = ((r > left) & (r >= right) & (lag >= max(lag_min, 2.0))
                & (lag <= min(lag_max, n_lags - 2)))
     denom = left - 2.0 * r + right
@@ -89,26 +95,28 @@ def _find_candidates(r, local_peak, global_peak, sr, f0_min, f0_max,
     strength = peak_val - OCTAVE_COST * torch.log2(f0_min * tau_sec)
     strength = torch.where(is_peak, strength,
                            torch.full_like(strength, -float("inf")))
-    top_s, top_i = torch.topk(strength, MAX_CANDIDATES - 1, dim=1)
-    top_f = torch.gather(freq, 1, top_i)
-    top_r = torch.gather(peak_val, 1, top_i)
-    intensity = torch.clamp(local_peak / max(global_peak, 1e-12), max=1.0)
+    top_s, top_i = torch.topk(strength, MAX_CANDIDATES - 1, dim=-1)
+    top_f = torch.gather(freq, -1, top_i)
+    top_r = torch.gather(peak_val, -1, top_i)
+    intensity = torch.clamp(local_peak / torch.clamp(global_peak, min=1e-12),
+                            max=1.0)
     unvoiced = voicing_threshold + torch.clamp(
         2.0 - intensity / (SILENCE_THRESHOLD / (1.0 + voicing_threshold)),
         min=0.0)
-    cand_freq = torch.cat([torch.zeros_like(top_f[:, :1]), top_f], dim=1)
-    cand_strength = torch.cat([unvoiced[:, None], top_s], dim=1)
-    valid = torch.cat([torch.ones_like(top_f[:, :1], dtype=torch.bool),
-                       torch.isfinite(top_s) & (top_r > 0.0)], dim=1)
+    cand_freq = torch.cat([torch.zeros_like(top_f[..., :1]), top_f], dim=-1)
+    cand_strength = torch.cat([unvoiced[..., None], top_s], dim=-1)
+    valid = torch.cat([torch.ones_like(top_f[..., :1], dtype=torch.bool),
+                       torch.isfinite(top_s) & (top_r > 0.0)], dim=-1)
     cand_strength = torch.where(valid, cand_strength,
                                 torch.full_like(cand_strength, -1e9))
     return cand_freq, cand_strength
 
 
-def _viterbi(cand_freq: np.ndarray, cand_strength: np.ndarray,
-             time_step_correction: float) -> np.ndarray:
-    """Sequential max-sum Viterbi over [T, K] candidates (float32); ties
-    resolve to the lowest candidate index."""
+def _viterbi_seq(cand_freq: np.ndarray, cand_strength: np.ndarray,
+                 time_step_correction: float) -> np.ndarray:
+    """Sequential max-sum Viterbi over [T, K] candidates in numpy float32
+    (JAX's ``_viterbi_scan``): the plain reference of :func:`_viterbi`.
+    Ties resolve to the lowest candidate index."""
     f = cand_freq.astype(np.float32)
     s = cand_strength.astype(np.float32)
     voiced = f > 0
@@ -134,32 +142,129 @@ def _viterbi(cand_freq: np.ndarray, cand_strength: np.ndarray,
     return path
 
 
-def track(wav: torch.Tensor, *, sr: int, hop: int, f0_min: float,
-          f0_max: float, voicing_threshold: float = 0.6) -> np.ndarray:
-    """Full tracker on a 1-D wav tensor: per-Praat-frame f0 (0 = unvoiced)."""
-    dt = hop / sr
+def _along(dim: int, ndim: int, sl: slice) -> tuple:
+    idx = [slice(None)] * ndim
+    idx[dim] = sl
+    return tuple(idx)
+
+
+def associative_scan(fn, elems: torch.Tensor, dim: int,
+                     reverse: bool = False) -> torch.Tensor:
+    """Inclusive scan of an associative ``fn`` along ``dim`` in ~log2(n)
+    levels of batched calls: the recursion of ``jax.lax.associative_scan``
+    (pairs combined, the half scanned, the even elements filled in), so
+    the combines happen in JAX's order.  ``reverse`` scans from the end,
+    ``fn`` still receiving the earlier-combined (higher-index) operand
+    first, as JAX's does."""
+    dim = dim % elems.ndim
+    nd = elems.ndim
+
+    def scan(e):
+        n = e.shape[dim]
+        if n < 2:
+            return e
+        odd = scan(fn(e[_along(dim, nd, slice(0, n - 1, 2))],
+                      e[_along(dim, nd, slice(1, None, 2))]))
+        rest = e[_along(dim, nd, slice(2, None, 2))]
+        if n % 2 == 0:
+            even = fn(odd[_along(dim, nd, slice(0, -1))], rest)
+        else:
+            even = fn(odd, rest)
+        even = torch.cat([e[_along(dim, nd, slice(0, 1))], even], dim=dim)
+        k = odd.shape[dim]
+        pairs = torch.stack([even[_along(dim, nd, slice(0, k))], odd],
+                            dim=dim + 1).flatten(dim, dim + 1)
+        if even.shape[dim] > k:
+            pairs = torch.cat([pairs, even[_along(dim, nd, slice(k, None))]],
+                              dim=dim)
+        return pairs
+
+    if reverse:
+        return scan(elems.flip(dim)).flip(dim)
+    return scan(elems)
+
+
+def _trans_cost(f_prev, v_prev, f_cur, v_cur, ojc: float, vuc: float):
+    both = v_prev & v_cur
+    jump = torch.abs(torch.log2(torch.clamp(f_prev, min=1e-6)
+                                / torch.clamp(f_cur, min=1e-6)))
+    zero = torch.zeros((), dtype=jump.dtype, device=jump.device)
+    return torch.where(both, ojc * jump,
+                       torch.where(v_prev == v_cur, zero, zero + vuc))
+
+
+def _maxplus(a, b):
+    """(A (x) B)[i, k] = max_j A[i, j] + B[j, k], batched."""
+    return (a[..., :, :, None] + b[..., None, :, :]).amax(dim=-2)
+
+
+def _compose(a, b):
+    """Backpointer maps composed: x -> b[a[x]]."""
+    return torch.gather(b, -1, a)
+
+
+def _viterbi(cand_freq: torch.Tensor, cand_strength: torch.Tensor,
+             time_step_correction: float) -> torch.Tensor:
+    """Viterbi over [..., T, K] candidates as JAX's ``_viterbi``: a max-plus
+    associative scan over the [T-1, K, K] transition matrices
+    M_t[i, j] = -cost_t(i, j) + s_t[j] gives every frame's forward scores;
+    the backpointers (lowest index on ties, the sequential step's formula)
+    are composed by a reverse associative scan.  Returns the path
+    [..., T] (int64) on the candidates' device."""
+    n_frames = cand_freq.shape[-2]
+    if n_frames == 1:
+        return cand_strength[..., 0, :].argmax(dim=-1)[..., None]
+    voiced = cand_freq > 0
+    ojc = OCTAVE_JUMP_COST * time_step_correction
+    vuc = VOICED_UNVOICED_COST * time_step_correction
+    cost = _trans_cost(cand_freq[..., :-1, :, None], voiced[..., :-1, :, None],
+                       cand_freq[..., 1:, None, :], voiced[..., 1:, None, :],
+                       ojc, vuc)
+    m = -cost + cand_strength[..., 1:, None, :]          # [..., T-1, K, K]
+    prefix = associative_scan(_maxplus, m, dim=-3)
+    scores = (cand_strength[..., :1, :, None] + prefix).amax(dim=-2)
+    scores_all = torch.cat([cand_strength[..., :1, :], scores], dim=-2)
+    bp = (scores_all[..., :-1, :, None] + m).argmax(dim=-2)   # [..., T-1, K]
+    suffix = associative_scan(_compose, bp, dim=-2, reverse=True)
+    last = scores_all[..., -1, :].argmax(dim=-1, keepdim=True)   # [..., 1]
+    head = torch.gather(suffix, -1, last[..., None, :].expand(
+        *suffix.shape[:-1], 1))[..., 0]
+    return torch.cat([head, last], dim=-1)
+
+
+def frame_grid(n_samples: int, sr: int, hop: int, f0_min: float) -> dict:
+    """The tracker's static geometry for ``n_samples``: Praat's frame count,
+    window, first window start and FFT size."""
     window_len_s = PERIODS_PER_WINDOW / f0_min
     win_samples = int(round(window_len_s * sr))
-    n_frames, t1 = _praat_frame_grid(wav.shape[0], sr, dt, window_len_s)
-    start0 = int(round((t1 - window_len_s / 2) * sr))
-    fft_size = int(2 ** np.ceil(np.log2(2 * win_samples)))
-    r, local_peak = _frame_acf(wav, hop=hop, n_frames=n_frames,
-                               win_samples=win_samples, fft_size=fft_size,
-                               start0=start0)
-    global_peak = float((wav - wav.mean()).abs().max())
+    n_frames, t1 = _praat_frame_grid(n_samples, sr, hop / sr, window_len_s)
+    return dict(n_frames=n_frames, win_samples=win_samples,
+                start0=int(round((t1 - window_len_s / 2) * sr)),
+                fft_size=int(2 ** np.ceil(np.log2(2 * win_samples))))
+
+
+def track(wav: torch.Tensor, *, sr: int, hop: int, f0_min: float,
+          f0_max: float, voicing_threshold: float = 0.6) -> torch.Tensor:
+    """Full tracker in one pass on the wav's device, as JAX's ``_track``:
+    ACF -> candidates -> Viterbi -> per-Praat-frame f0 (0 = unvoiced).
+    wav [..., n] -> f0 [..., n_frames]; nothing leaves the device."""
+    g = frame_grid(wav.shape[-1], sr, hop, f0_min)
+    r, local_peak = _frame_acf(wav, hop=hop, **{k: g[k] for k in (
+        "n_frames", "win_samples", "fft_size", "start0")})
+    global_peak = (wav - wav.mean(dim=-1, keepdim=True)).abs().amax(dim=-1)
     cand_freq, cand_strength = _find_candidates(
-        r, local_peak, global_peak, float(sr), f0_min, f0_max,
+        r, local_peak, global_peak[..., None], float(sr), f0_min, f0_max,
         voicing_threshold)
-    cf = cand_freq.cpu().numpy()
-    path = _viterbi(cf, cand_strength.cpu().numpy(), 0.01 / dt)
-    return cf[np.arange(len(path)), path]
+    path = _viterbi(cand_freq, cand_strength, 0.01 / (hop / sr))
+    return torch.gather(cand_freq, -1, path[..., None])[..., 0]
 
 
 def get_pitch_ac(wav: np.ndarray, mel_len: int, hp, device="cpu") -> tuple:
     """parselmouth-compatible entry: (f0 [mel_len] f32, coarse [mel_len]).
 
-    The wav is zero-padded to a ``wav_bucket_frames`` multiple like the JAX
-    package, and the Praat track is centred into the mel timeline with
+    The tracker runs on ``device``.  The wav is zero-padded to a
+    ``wav_bucket_frames`` multiple like the JAX package, and the Praat
+    track is centred into the mel timeline with
     ``pad = (len(wav)//hop - len(f0) + 1)//2`` (data_gen_utils.py:152-188).
     """
     sr, hop = hp["audio_sample_rate"], hp["hop_size"]
@@ -170,7 +275,7 @@ def get_pitch_ac(wav: np.ndarray, mel_len: int, hp, device="cpu") -> tuple:
         pad_len = -(-len(wav) // (bucket * hop)) * (bucket * hop)
         wav = np.pad(wav, (0, pad_len - len(wav)))
     f0 = track(torch.from_numpy(wav).to(device), sr=sr, hop=hop,
-               f0_min=f0_min, f0_max=f0_max)
+               f0_min=f0_min, f0_max=f0_max).cpu().numpy()
     pad_size = (int(len(wav) // hop) - len(f0) + 1) // 2
     rpad = mel_len - len(f0) - pad_size
     if rpad < 0:

@@ -4,7 +4,8 @@ Counterpart of ``diffsvc_tpu/ops/mel.py`` (``wav2mel_nsf``, ``stft_mag``,
 ``mel_filterbank``), parity target ``nvSTFT.get_mel``: reflect pad of
 (n_fft-hop)/2, no centering, ``sqrt(re^2+im^2+1e-9)``, Slaney mel,
 ``ln(clip(x, 1e-5))``, converted to log10 (``* 0.434294``).  Runs on the
-wav tensor's device.  The 24 kHz ``pwg`` variant is not ported yet.
+wav tensor's device (window and filterbank uploaded once per device), over
+leading batch dimensions.  The 24 kHz ``pwg`` variant is not ported yet.
 """
 
 from __future__ import annotations
@@ -76,6 +77,19 @@ def hann_window(n: int) -> np.ndarray:
     return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def hann_window_on(n: int, device: torch.device, n_fft: int = 0
+                   ) -> torch.Tensor:
+    """:func:`hann_window` on ``device``, zero-padded centred to ``n_fft``
+    when that is larger; uploaded once per device (a CUDA graph cannot
+    capture the upload)."""
+    win = hann_window(n)
+    if n_fft > n:
+        lp = (n_fft - n) // 2
+        win = np.pad(win, (lp, n_fft - n - lp))
+    return torch.from_numpy(win).to(device)
+
+
 def _basis_support(basis: np.ndarray):
     """[first, last+1) rDFT bins with any filterbank weight (the others
     multiply zero, so skipping them is exact)."""
@@ -88,17 +102,14 @@ def _basis_support(basis: np.ndarray):
 def stft_mag(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
              mag_eps: float = 0.0, bin_lo: int = 0,
              bin_hi: int = -1) -> torch.Tensor:
-    """Magnitude STFT [n_frames, bin_hi-bin_lo] of an already padded 1-D
-    signal (no centering); a win_length window is zero-padded centered in
-    the n_fft frame."""
+    """Magnitude STFT [..., n_frames, bin_hi-bin_lo] of an already padded
+    signal [..., n] (no centering); a win_length window is zero-padded
+    centered in the n_fft frame."""
     if bin_hi < 0:
         bin_hi = n_fft // 2 + 1
-    win = hann_window(win_length)
-    if win_length < n_fft:
-        lp = (n_fft - win_length) // 2
-        win = np.pad(win, (lp, n_fft - win_length - lp))
-    frames = y.unfold(0, n_fft, hop) * torch.from_numpy(win).to(y.device)
-    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)[:, bin_lo:bin_hi]
+    frames = y.unfold(-1, n_fft, hop) * hann_window_on(win_length, y.device,
+                                                       n_fft)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)[..., bin_lo:bin_hi]
     power = spec.real ** 2 + spec.imag ** 2
     if mag_eps > 0:
         return torch.sqrt(power + mag_eps)
@@ -108,13 +119,26 @@ def stft_mag(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
 def wav2mel_nsf(wav: torch.Tensor, *, sr: int, n_fft: int, hop: int,
                 win_length: int, n_mels: int, fmin: float, fmax: float,
                 clip_val: float = 1e-5) -> torch.Tensor:
-    """44.1 kHz NSF-style mel [T, n_mels] in the **log10** domain."""
+    """44.1 kHz NSF-style mel [..., T, n_mels] of wav [..., n] in the
+    **log10** domain."""
     pad = (n_fft - hop) // 2
-    y = F.pad(wav.float()[None, None], (pad, pad), mode="reflect")[0, 0]
-    basis_np = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
-    b_lo, b_hi = _basis_support(basis_np)
+    lead = wav.shape[:-1]
+    y = F.pad(wav.float().reshape(-1, 1, wav.shape[-1]), (pad, pad),
+              mode="reflect").reshape(*lead, -1)
+    b_lo, b_hi, basis_t = _basis_on(sr, n_fft, n_mels, fmin, fmax,
+                                    wav.device)
     spc = stft_mag(y, n_fft, hop, win_length, mag_eps=1e-9, bin_lo=b_lo,
                    bin_hi=b_hi)
-    basis = torch.from_numpy(np.ascontiguousarray(basis_np[:, b_lo:b_hi]))
-    mel = spc @ basis.to(wav.device).T
+    mel = spc @ basis_t
     return torch.log(torch.clamp(mel, min=clip_val)) * LOG10_E
+
+
+@functools.lru_cache(maxsize=16)
+def _basis_on(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
+              device: torch.device):
+    """(first bin, last bin + 1, the filterbank's support transposed
+    [bins, n_mels]) on ``device``, uploaded once per device."""
+    basis = mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+    b_lo, b_hi = _basis_support(basis)
+    basis_t = torch.from_numpy(np.ascontiguousarray(basis[:, b_lo:b_hi].T))
+    return b_lo, b_hi, basis_t.to(device)

@@ -118,7 +118,7 @@ def source_module_from_randoms(l_linear: nn.Linear, rand_ini, unit_noise,
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     """torch.nn.Upsample(scale_factor=f) default 'nearest' on [B, T]."""
-    return torch.repeat_interleave(x, factor, dim=1)
+    return x[:, :, None].expand(*x.shape, factor).reshape(x.shape[0], -1)
 
 
 # ---------------------------------------------------------------------------

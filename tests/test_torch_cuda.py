@@ -463,3 +463,76 @@ def test_task_draws_on_the_card(cuda):
     assert np.isfinite(losses[0]) and losses[0] == losses[1]
     assert task.val_step(batch) == task.val_step(batch)
     assert torch.isfinite(task.sample(batch)["mel_out"]).all()
+
+
+def test_device_tracker_matches_cpu(cuda):
+    """The AC tracker's one device pass on the card against the same pass on
+    the CPU: the same frames voiced, f0 to test_torch_frontend.py's
+    tolerances (cuFFT against the CPU's FFT)."""
+    from _torch_fixtures import HOP, SR, voiced_wav
+    from diffsvc_tpu_torch.ops import f0_ac
+
+    wavs = torch.from_numpy(np.stack([
+        voiced_wav(secs=1.5, f0=f0, gaps=[(0.6, 0.8)], seed=i)
+        for i, f0 in enumerate((110.0, 220.0, 440.0))]))
+    kw = dict(sr=SR, hop=HOP, f0_min=40.0, f0_max=1100.0)
+    ref = f0_ac.track(wavs, **kw).numpy()
+    got = f0_ac.track(wavs.to(cuda), **kw).cpu().numpy()
+    np.testing.assert_array_equal(got > 0, ref > 0)
+    v = ref > 0
+    rel = np.abs(got[v] - ref[v]) / ref[v]
+    assert (rel <= 1e-4).mean() >= 0.97 and rel.max() <= 5e-3
+
+
+def test_fused_graph_replay_equals_eager(cuda, tmp_path, monkeypatch):
+    """The fused program at the tiny project's widths on the card: each
+    bucket captured once; a replay equals the same body run eagerly on the
+    card bit for bit; each replay moves K2's and K3's counters by what the
+    capture recorded; batched at B=2 against B=1 replays within 1e-5."""
+    from _torch_fixtures import TINY_HP, TINY_VOC, voiced_wav
+    from diffsvc_tpu_torch.infer.fused import FusedSvc
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.models.hubert import HubertConfig
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder, vocoder_tail
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.synth import write_hubert
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    monkeypatch.chdir(tmp_path)          # Svc keeps ./infer_tools caches
+    cfg_fn, ckpt = synth.write_project(
+        str(tmp_path / "proj"),
+        dict(TINY_HP, vocoder="diffsvc_tpu.vocoders.nsf_hifigan.NsfHifiGAN",
+             fused_bucket_samples=64 * 64), TINY_VOC)
+    hub = write_hubert(str(tmp_path / "hub.pt"), HubertConfig(
+        dim=32, num_heads=2, num_layers=2, ffn_dim=64, proj_dim=32))
+    svc = Svc("proj", cfg_fn, False, ckpt, device=cuda)
+    hub = hub.to(cuda).eval()
+    graphed = FusedSvc(svc.hp, svc.model, svc.vocoder, hub, speedup=10)
+    eager = FusedSvc(svc.hp, svc.model, svc.vocoder, hub, speedup=10,
+                     cuda_graphs=False)
+    wav = voiced_wav(secs=0.9, f0=220.0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    geo = graphed.geometry(graphed._padded_length(len(wav)))
+    noise = torch.randn(2, geo["pad_t"], 16, generator=g, device=cuda)
+    randoms = draw_randoms(2, geo["n_voc"], 8, g, cuda)
+    one = dict(init_noise=noise[:1],
+               voc_randoms=tuple(r[:1] for r in randoms))
+    first = graphed(wav, **one)
+    k2, k3 = plms_ladder.launches, vocoder_tail.launches
+    again = graphed(wav, **one)
+    assert (plms_ladder.launches - k2, vocoder_tail.launches - k3) == (1, 1)
+    ref = eager(wav, **one)
+    for a, b, c in zip(first, again, ref):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)
+    assert list(graphed.captures.values()) == [1]
+    outs = graphed.batched([wav, wav[:3000]], init_noise=noise,
+                           voc_randoms=randoms)
+    padded = np.zeros(len(wav), np.float32)
+    padded[:3000] = wav[:3000]
+    alone = graphed(padded, init_noise=noise[1:],
+                    voc_randoms=tuple(r[1:] for r in randoms))
+    assert _rel(torch.from_numpy(outs[0][0]),
+                torch.from_numpy(first[0])) <= 1e-5
+    assert _rel(torch.from_numpy(outs[1][0]),
+                torch.from_numpy(alone[0][:3000])) <= 1e-5

@@ -138,6 +138,8 @@ sys.path.insert(0, {tests!r})
 import numpy as np
 import diffsvc_tpu_torch
 import diffsvc_tpu_torch.binarize, diffsvc_tpu_torch.run
+import diffsvc_tpu_torch.batch, diffsvc_tpu_torch.flask_api
+from diffsvc_tpu_torch.infer import fused, streaming
 from diffsvc_tpu_torch.data import batching, binarizer, dataset, indexed_datasets
 from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train
 from diffsvc_tpu_torch.training import checkpoint, scheduler, task, trainer
@@ -149,17 +151,26 @@ save_wav(voiced_wav(secs=1.0), "in.wav", SR)
 svc = Svc("proj", cfg_fn, False, ckpt, device="cpu")
 svc.hubert.encode = fake_units
 _, _, wav = svc.infer("in.wav", key=0, acc=10, use_pe=False, use_crepe=False)
+from diffsvc_tpu_torch.models.hubert import HubertConfig
+from diffsvc_tpu_torch.utils.synth import write_hubert
+hub = write_hubert("hub.pt", HubertConfig(dim=32, num_heads=2, num_layers=2,
+                                          ffn_dim=64, proj_dim=32))
+fwav, _, _ = fused.FusedSvc(svc.hp, svc.model, svc.vocoder, hub.eval(),
+                            speedup=10)(np.zeros(4000, np.float32))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
 print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
-                  "n": int(len(wav)), "finite": bool(np.isfinite(wav).all())}}))
+                  "n": int(len(wav)), "finite": bool(np.isfinite(wav).all()
+                                                     and np.isfinite(fwav).all())}}))
 """
 
 
 def test_port_never_imports_jax(tmp_path):
-    """``import diffsvc_tpu_torch``, its training modules and its two
-    training entry points (``run``, ``binarize``), plus a tiny CPU
-    conversion through the port's Svc, in a fresh process: neither jax nor
-    any module of the JAX package ``diffsvc_tpu`` may be in sys.modules."""
+    """``import diffsvc_tpu_torch``, its training modules, its entry points
+    (``run``, ``binarize``, ``batch``, ``flask_api``) and the serving
+    modules (``infer.fused``, ``infer.streaming``), plus a tiny CPU
+    conversion through the port's Svc and one through the fused program,
+    in a fresh process: neither jax nor any module of the JAX package
+    ``diffsvc_tpu`` may be in sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -225,8 +236,11 @@ def test_crepe_and_pe_requests_raise(in_root, tmp_path):
 
 def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     """Without a card, ``default_device`` and every entry point that runs
-    on it by default raise; ``device="cpu"`` (``--device cpu``) runs."""
+    on it by default raise (among them the server's and the folder
+    batch's ``main``); ``device="cpu"`` (``--device cpu``) runs."""
     from _torch_fixtures import TINY_HP
+    from diffsvc_tpu_torch import batch as tbatch
+    from diffsvc_tpu_torch import flask_api
     from diffsvc_tpu_torch.config import HParams
     from diffsvc_tpu_torch.data.binarizer import binarize
     from diffsvc_tpu_torch.infer.svc import default_device
@@ -244,7 +258,14 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
                  lambda: binarize(hp),
                  lambda: infer_cli.main(["--project", "proj", "--model", ckpt,
                                          "--config", cfg_fn, "--files",
-                                         wav_fn])):
+                                         wav_fn]),
+                 lambda: infer_cli.main(["--project", "proj", "--model", ckpt,
+                                         "--config", cfg_fn, "--files",
+                                         wav_fn, "--fused"]),
+                 lambda: flask_api.main(["--project", "proj", "--model", ckpt,
+                                         "--config", cfg_fn, "--fused"]),
+                 lambda: tbatch.main(["--project", "proj", "--model", ckpt,
+                                      "--config", cfg_fn])):
         with pytest.raises(RuntimeError, match="--device cpu"):
             call()
     assert default_device("cpu") == torch.device("cpu")
