@@ -13,42 +13,45 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    f32 product PyTorch computes (the plain versions, cuDNN's convolutions)
    is true f32.  The port's own f32 K1, K2 (the denoiser's residual
    layers and its input, skip and output projections inside the ladder),
-   K3 (the vocoder tail), K4's f32 stream and K5 (the training stack) are
-   no longer pure f32: they multiply on the tensor cores as 3xTF32 split
-   products, good to ~2^-21 relative, and are held against those true-f32
-   plain versions at their f32 limits.  K6 stays true f32 (SIMT).
+   K3 (the vocoder tail), K4's f32 stream, K5 (the training stack) and K6
+   (the single residual layer) are no longer pure f32: they multiply on
+   the tensor cores as 3xTF32 split products, good to ~2^-21 relative, and
+   are held against those true-f32 plain versions at their f32 limits.
 2. Build the hand-written kernels from ``diffsvc_tpu_torch/csrc`` (timed).
 3. Kernel vs plain PyTorch version on the card, at the main path's shapes
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
    geometry on 5 s of 44.1 kHz audio; K4 at the training shape B=24; K5 at
    B=32, a per-sample shape; K6, one layer, at B=1 and dilations 1-8; K2
-   and K3 again at B=4, the batched serving routes' B), in
-   f32 and bf16 for K1/K2/K4/K6 and f32 for K3/K5: relative-L2 and max-abs
-   error (K4/K5: of the forward and each of the seven grads), both times
-   (CUDA events, in turns) and the bound (the larger of the FLOPs over the
-   operand type's peak and the bytes over the memory rate).  K5's batch
-   must equal the in-order sum of its B=1 runs bit for bit, and is printed
-   against K4 at the f32 stream.  Each tolerance must also be exceeded by
-   the same kernel fed inputs that stand for a known bug (a planted fault:
-   K1's last conditioner dropped; K2's skip-projection bias dropped, or its
-   history not pushed; at f32, K1's, K2's and K3's weights split with
-   their lo planes zeroed, so the a_hi b_lo products drop out of the 3xTF32
-   sums; K3's last NSF injection dropped; K4's and K5's last
-   sample's cotangent dropped, K4's layer or K5's sample with the next
-   one's saved x, and at f32 their weights split with zero lo planes; K6's
-   taps read at 2d), so a check that cannot see a wrong kernel fails.  Beside K1 bf16, cuBLAS's time for the same products
-   alone (``torch.matmul``, the gate and output GEMM of each layer, no
-   gather and no epilogue) as a diagnostic floor, which the port never
-   calls; for K1 and K2 in both dtypes, their device time by kernel and
-   their tensor-core plan's CTAs per layer launch; for K3, its device time
-   by kernel (one template instance per stage), its launches per tail, the
-   tail with every ResBlock1 pair as two conv launches (the path fuses the
-   pairs of the narrow stages), and per stage the launch plans (CTAs,
+   and K3 again at B=4, the batched serving routes' B), in f32 and bf16 for
+   K1/K2/K4/K6 and f32 for K3/K5: relative-L2 and max-abs error (K4/K5: of
+   the forward and each of the seven grads), both times (CUDA events, in
+   turns) and the bound (the larger of the FLOPs over the operand type's
+   peak and the bytes over the memory rate).  K5's batch must equal the
+   in-order sum of its B=1 runs bit for bit, and is printed against K4 at
+   the f32 stream.  Each tolerance must also be exceeded by the same kernel
+   fed inputs that stand for a known bug (a planted fault: K1's last
+   conditioner dropped; K2's skip-projection bias dropped, or its history
+   not pushed; at f32, K1's, K2's and K3's weights split with their lo
+   planes zeroed, so the a_hi b_lo products drop out of the 3xTF32 sums;
+   K3's last NSF injection dropped; K4's and K5's last sample's cotangent
+   dropped, K4's layer or K5's sample with the next one's saved x, and at
+   f32 their weights split with zero lo planes; K6's taps read at 2d, and
+   at f32 its weights split with zero lo planes), so a check that cannot
+   see a wrong kernel fails.  Beside K1 bf16, cuBLAS's time for the same
+   products alone (``torch.matmul``, the gate and output GEMM of each
+   layer, no gather and no epilogue) as a diagnostic floor, which the port
+   never calls; for K1 and K2 in both dtypes, their device time by kernel
+   and their tensor-core plan's CTAs per layer launch; for K3, its device
+   time by kernel (one template instance per stage), its launches per tail,
+   the tail with every ResBlock1 pair as two conv launches (the path fuses
+   the pairs of the narrow stages), and per stage the launch plans (CTAs,
    shared memory) and one k=11 conv against one true-f32 ``F.conv1d`` of
    the same shape (the library call); for K4 and K5, their device time by
-   kernel.  The f32 tensor-core rows' bound is the tensor cores' at 3xTF32
-   (495 TFLOP/s over three passes); the CUDA cores' f32 bound is printed
-   beside it.
+   kernel; for K6, its device time by kernel (which must show its
+   tensor-core kernels and no SIMT layer kernel), and its weight pack's
+   time apart, beside a first call, which packs.  The f32 tensor-core rows'
+   bound is the tensor cores' at 3xTF32 (495 TFLOP/s over three passes);
+   the CUDA cores' f32 bound is printed beside it.
 4. The slice: reference-format checkpoints with random weights from a seed
    at the full ``configs/config_44k.yaml`` widths (diffusion ckpt, HuBERT-
    soft .pt 768x12, NSF-HiFiGAN generator + config.json) in a temporary
@@ -177,9 +180,11 @@ TOL = {
     # the weights' lo planes zeroed must read above the limit too).
     ("residual_stack_train", "f32"): 1e-5,
     # K6, one layer at B=1, T=1024, C=384, dilations 1, 2, 4, 8: the largest
-    # rel-L2 over x' and skip.  f32: one layer's products in another order
-    # (sound 6.9e-7); bf16: the same roundings, a few flipped by another f32
-    # sum (sound 9.8e-5).  The taps read at 2d read 0.68 in both dtypes.
+    # rel-L2 over x' and skip.  f32: one layer's 3xTF32 products against the
+    # plain version's true-f32 ones (sound 5.2e-7 on the H100); bf16: the
+    # same roundings, a few flipped by the tensor cores' f32 sums (sound
+    # 1.9e-4).  The taps read at 2d read 0.68 in both dtypes; at f32 the
+    # weights' lo planes zeroed read 3.1e-4.
     ("fused_residual_block", "f32"): 1e-5,
     ("fused_residual_block", "bf16"): 1e-3,
 }
@@ -789,36 +794,79 @@ def check_residual_stack_train(device, dtype_name):
                        nbytes(*a.values(), dout, *got), dtype_name)}
 
 
+# K6's kernels in its profile: y = x + step, the gate and the output
+# projection on the tensor cores, by dtype; and the SIMT layer kernels it ran
+# before (gate_kernel<T>, block_out_kernel), which no profile may show
+K6_KERNELS = {"bf16": ("tc::y0_kernel", "tc::gate_tc_kernel",
+                       "k6::block_out_tc_kernel"),
+              "f32": ("tf32x3::y0_kernel", "tf32x3::gate_kernel",
+                      "tf32x3::out_kernel")}
+SIMT_LAYER = re.compile(r"\b(gate|out)_kernel<|\bblock_out_kernel\b")
+
+
 def check_fused_residual_block(device, dtype_name):
     """K6 at B=1, T=1024, C=384 for each dilation of a cycle against its
-    plain version; the planted fault reads the taps at 2d.  Times are per
-    call (the four dilations' total over four)."""
+    plain version.  Planted faults: the taps read at 2d and, at f32, the
+    weights split with zero lo planes (for copies of the weights: K6 keeps
+    its packed weights per weight tensor).  Times are per call (the four
+    dilations' total over four) with the packed weights kept; beside them
+    the pack alone and a first call, which packs.  Its device time by
+    kernel must show its tensor-core kernels and no SIMT layer kernel."""
     from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
     from diffsvc_tpu_torch.utils.synth import stack_inputs
 
     a = stack_inputs(_dtype(dtype_name), device, 1, T, C, 1)
     args = (a["x0"], a["sb"][0].contiguous(), a["cond_proj"][0], a["wd"][0],
             a["bd"][0], a["wo"][0], a["bo"][0])
-
-    def run(fn, stretch=1):
-        return [fn(*args, dilation=stretch * d) for d in DILATIONS]
-
-    got = run(k6.fused_residual_block)
-    ref = run(k6.fused_residual_block_plain)
-    fault = run(k6.fused_residual_block, stretch=2)
-    pairs = [(x, y) for g, r in zip(got, ref) for x, y in zip(g, r)]
-    ms, plain_ms = time_in_turns(lambda: run(k6.fused_residual_block),
-                                 lambda: run(k6.fused_residual_block_plain),
-                                 reps=10)
     n = len(DILATIONS)
+
+    def run(fn, stretch=1, ops=args):
+        return [fn(*ops, dilation=stretch * d) for d in DILATIONS]
+
+    kern = lambda: run(k6.fused_residual_block)                 # noqa: E731
+    plain = lambda: run(k6.fused_residual_block_plain)          # noqa: E731
+    got, ref = kern(), plain()
+
+    def fault(outs):
+        return min(max(rel_l2(x, y) for x, y in zip(f, r))
+                   for f, r in zip(outs, ref))
+
+    fault_rel = {"taps read at 2d": fault(run(k6.fused_residual_block, 2))}
+    if dtype_name == "f32":
+        copies = tuple(w.clone() if i in (3, 5) else w
+                       for i, w in enumerate(args))
+        with lo_planes_dropped():
+            fault_rel["lo products dropped"] = fault(
+                run(k6.fused_residual_block, ops=copies))
+        del copies
+    pairs = [(x, y) for g, r in zip(got, ref) for x, y in zip(g, r)]
+    ms, plain_ms = time_in_turns(kern, plain, reps=10)
+    cp = ds.tc_plan(1, T, C, dtype=_dtype(dtype_name)).cp
+
+    def first_call():
+        k6._packed.clear()
+        k6.fused_residual_block(*args, dilation=1)
+
+    pack_ms = cuda_time_ms(lambda: k6.pack_weights(args[3], args[5], cp),
+                           reps=10)
+    first_ms = cuda_time_ms(first_call, reps=10)
+    breakdown = {k: [v[0] / n, v[1] / n]
+                 for k, v in kernel_breakdown(kern, reps=5).items()}
+    simt = [k for k in breakdown if SIMT_LAYER.search(k)]
+    missing = [k for k in K6_KERNELS[dtype_name]
+               if not any(k in name for name in breakdown)]
+    if simt or missing:
+        raise SmokeError(f"fused_residual_block {dtype_name}: its profile "
+                         f"lacks {missing} or runs SIMT kernels {simt}: "
+                         f"{sorted(breakdown)}")
     return {"max_abs_err": max(float((x - y).abs().max()) for x, y in pairs),
             "rel_l2": max(rel_l2(x, y) for x, y in pairs),
-            "fault_rel_l2": {"taps read at 2d": min(
-                max(rel_l2(x, y) for x, y in zip(f, r))
-                for f, r in zip(fault, ref))},
-            "ms": ms / n, "plain_ms": plain_ms / n,
-            **bound(stack_flops(T, 1, 16), nbytes(*args, *got[0]),
-                    dtype_name)}
+            "fault_rel_l2": fault_rel, "ms": ms / n, "plain_ms": plain_ms / n,
+            "pack_ms": pack_ms, "first_call_ms": first_ms,
+            "breakdown": breakdown,
+            **tc_bound(stack_flops(T, 1, 16), nbytes(*args, *got[0]),
+                       dtype_name)}
 
 
 CHECKS = [("residual_stack", "f32", check_residual_stack),
@@ -862,6 +910,11 @@ def phase_kernels(device):
             log(f"[kernel] {name} {dt}: bound {res['bound_ms']:.4f} ms at "
                 f"3xTF32 on the tensor cores; {res['cuda_core_bound_ms']:.4f}"
                 " ms at the CUDA cores' f32 rate")
+        if "pack_ms" in res:
+            log(f"[kernel] {name} {dt}: packed weights kept per weight "
+                f"tensor: a call {res['ms']:.4f} ms; a first call, which "
+                f"packs, {res['first_call_ms']:.4f} ms; the pack alone "
+                f"{res['pack_ms']:.4f} ms")
         if "plan" in res:
             log(f"[kernel] {name} {dt}: tensor-core plan at B=1: " + ", ".join(
                 f"T={t}: " + " ".join(f"{k}={v}" for k, v in p.items())
@@ -2265,7 +2318,8 @@ def main(argv=None) -> int:
         record["kernels"] = phase_kernels(device)
         from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
 
-        k6.launches = 0     # K6 is on no path: phases 4-6 must not launch it
+        # K6 is on no path: phases 4-7 must not launch it
+        k6.launches = k6.launches_tc = k6.launches_tf32x3 = 0
         with tempfile.TemporaryDirectory() as tmp:
             cwd = os.getcwd()
             os.chdir(tmp)     # Svc keeps its ./infer_tools caches here

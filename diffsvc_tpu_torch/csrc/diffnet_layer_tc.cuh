@@ -1,6 +1,7 @@
 // One gated residual layer of DiffNet at bf16 on Hopper's tensor cores
 // (K1's bf16 route; K2 runs it once per evaluation; the training forward,
-// diffnet_stack_train.cu, runs it with an f32 state).  Replaces, for bf16
+// diffnet_stack_train.cu, runs it with an f32 state; the single block K6,
+// diffnet_block.cu, its y0 and gate kernels).  Replaces, for bf16
 // operands, diffsvc_tpu/ops/pallas/diffnet_stack.py:residual_stack (kernel
 // _kernel), whose products all take bf16 operands with an f32 sum: exactly
 // what wgmma computes.  Per layer l, with d = 2^(l mod cycle):
@@ -259,6 +260,25 @@ gate_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ wp,
     }
 }
 
+// This thread's cp.async copies of K block kb of an output projection into
+// a ring stage: rows t0.. of one sample's h [T, Cp] (zero-filled past T),
+// then this N tile's BN rows of the packed wo [2Cp, Cp] (K1's out_tc_kernel
+// and K6's, diffnet_block.cu).
+__device__ __forceinline__ void load_out_stage(const bf16* hb, const bf16* wt,
+                                               int T, int t0, int cp, int kb,
+                                               uint32_t st) {
+  const int c0 = kb * BK;
+#pragma unroll
+  for (int i = 0; i < BM * 8 / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS, r = e >> 3, ch = e & 7;
+    const bool ok = t0 + r < T;
+    cp_async16(st + swz(r, ch),
+               ok ? hb + (size_t)(t0 + r) * cp + c0 + ch * 8 : hb, ok);
+    cp_async16(st + TILE + swz(r, ch), wt + (size_t)r * cp + c0 + ch * 8,
+               true);
+  }
+}
+
 // Output projection: o = h wo + bo; x <- XT((x + o[:C]) / sqrt 2) in place,
 // skip (f32) = o[C:] (first layer) or skip + o[C:], and, unless y is null,
 // the next layer's y = bf16(x + sb_next), from x in XT.  XT, the state's
@@ -273,21 +293,11 @@ out_tc_kernel(const bf16* __restrict__ h, const bf16* __restrict__ wp,
               bf16* __restrict__ xsave, int T, int C, int cp, int first) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t ring = smem_u32(smem_raw) + align_pad(smem_raw);
-  const int tid = threadIdx.x, t0 = blockIdx.x * BM, nt = blockIdx.y;
-  const int b = blockIdx.z;
+  const int t0 = blockIdx.x * BM, nt = blockIdx.y, b = blockIdx.z;
   const bf16* hb = h + (size_t)b * T * cp;
   const bf16* wt = wp + (size_t)nt * BN * cp;
   auto load = [&](int kb, uint32_t st) {
-    const int c0 = kb * BK;
-#pragma unroll
-    for (int i = 0; i < BM * 8 / THREADS; ++i) {
-      const int e = tid + i * THREADS, r = e >> 3, ch = e & 7;
-      const bool ok = t0 + r < T;
-      cp_async16(st + swz(r, ch),
-                 ok ? hb + (size_t)(t0 + r) * cp + c0 + ch * 8 : hb, ok);
-      cp_async16(st + TILE + swz(r, ch), wt + (size_t)r * cp + c0 + ch * 8,
-                 true);
-    }
+    load_out_stage(hb, wt, T, t0, cp, kb, st);
   };
   float acc[32];
 #pragma unroll

@@ -1,6 +1,7 @@
 // One gated residual layer of DiffNet at f32 on Hopper's tensor cores, as
 // 3xTF32 split products (K1's f32 route; K2 runs it once per evaluation,
-// and the training forward at the f32 stream, diffnet_stack_train.cu).
+// the training forward at the f32 stream, diffnet_stack_train.cu, and the
+// single block K6, diffnet_block.cu, once).
 // Replaces, for f32 operands, diffsvc_tpu/ops/pallas/diffnet_stack.py:
 // residual_stack (kernel _kernel).  The TPU kernel has no f32 form: JAX
 // refuses f32 there, since single-pass MXU products would make the f32

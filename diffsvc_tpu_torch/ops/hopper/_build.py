@@ -51,7 +51,7 @@ SIGNATURES = {
     "dsvc_stack_train_bwd_per_sample": [I, *[P] * 28, I, I, I, I, I, I, I, P,
                                         P],
     # diffnet_block.cu
-    "dsvc_residual_block": [I, *[P] * 10, I, I, I, I, P],
+    "dsvc_residual_block": [I, *[P] * 11, I, I, I, I, P, P],
     # plms_ladder.cu
     "dsvc_plms_ladder": [I, *[P] * 20, I, I, I, I, I, I, I, F, P, P],
     # vocoder_tail.cu

@@ -173,17 +173,38 @@ def test_residual_stack_train_per_sample_tensor_cores(cuda, b, t, c):
                                        (torch.bfloat16, 1e-2)])
 def test_residual_block_ragged(cuda, dtype, tol, dilation):
     """K6 against its plain version at B=2, T=77, C=40 (a dilation of 128
-    reads only zeros at the taps)."""
+    reads only zeros at the taps), on the tensor-core kernels of its
+    dtype."""
+    _check_residual_block(cuda, dtype, tol, dilation, b=2, t=77, c=40)
+
+
+@pytest.mark.parametrize("dilation", [1, 8])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-3)])
+def test_residual_block_full_width(cuda, dtype, tol, dilation):
+    """K6 at B=3, T=1024, C=384 (no channel padding) against its plain
+    version at chip_smoke.py's limits."""
+    _check_residual_block(cuda, dtype, tol, dilation, b=3, t=1024, c=384)
+
+
+def _check_residual_block(cuda, dtype, tol, dilation, b, t, c):
+    """K6's outputs against the plain version's; bf16 moves only
+    ``launches_tc``, f32 only ``launches_tf32x3``."""
     from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
     from diffsvc_tpu_torch.utils.synth import stack_inputs
 
-    a = stack_inputs(dtype, cuda, b=2, t=77, c=40, layers=1)
+    a = stack_inputs(dtype, cuda, b=b, t=t, c=c, layers=1)
     args = (a["x0"], a["sb"][0].contiguous(), a["cond_proj"][0], a["wd"][0],
             a["bd"][0], a["wo"][0], a["bo"][0])
+    before = (k6.launches, k6.launches_tc, k6.launches_tf32x3)
     got = k6.fused_residual_block(*args, dilation=dilation)
+    bf16 = dtype == torch.bfloat16
+    assert (k6.launches, k6.launches_tc, k6.launches_tf32x3) == (
+        before[0] + 1, before[1] + bf16, before[2] + (not bf16))
     ref = k6.fused_residual_block_plain(*args, dilation=dilation)
     for x, y in zip(got, ref):
-        assert x.dtype == dtype and _rel(x, y) <= tol
+        assert x.dtype == dtype and torch.isfinite(x).all()
+        assert _rel(x, y) <= tol
 
 
 @pytest.mark.parametrize("sampler", ["plms", "plms-clip", "dpmpp"])
