@@ -22,7 +22,9 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    (T=1024, C=384, L=20, M=128, H=256; the vocoder tail at the openvpi
    geometry on 5 s of 44.1 kHz audio; K4 at the training shape B=24; K5 at
    B=32, a per-sample shape; K6, one layer, at B=1 and dilations 1-8; K2
-   and K3 again at B=4, the batched serving routes' B), in f32 and bf16 for
+   and K3 again at B=4, the batched serving routes' B; K1 and K2 at
+   config_24k's widths, C=256 and M=80, and K3 at its HiFi-GAN V1 on 5 s of
+   24 kHz audio), in f32 and bf16 for
    K1/K2/K4/K6 and f32 for K3/K5: relative-L2 and max-abs error (K4/K5: of
    the forward and each of the seven grads), both times (CUDA events, in
    turns) and the bound (the larger of the FLOPs over the operand type's
@@ -37,7 +39,10 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    dropped, K4's layer or K5's sample with the next one's saved x, and at
    f32 their weights split with zero lo planes; K6's taps read at 2d, and
    at f32 its weights split with zero lo planes), so a check that cannot
-   see a wrong kernel fails.  Beside K1 bf16, cuBLAS's time for the same
+   see a wrong kernel fails (K1 keeps its packed weights per weight tensor
+   and version, so its lo-planes fault runs on copies of the weights; its
+   repeated calls must pack nothing, and a first call, which packs, is
+   timed beside them).  Beside K1 bf16, cuBLAS's time for the same
    products alone (``torch.matmul``, the gate and output GEMM of each
    layer, no gather and no epilogue) as a diagnostic floor, which the port
    never calls; for K1 and K2 in both dtypes, their device time by kernel
@@ -118,10 +123,37 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    three fused and three streamed requests answered 200 with the posted
    duration, a malformed one 400.  K2's and K3's counters, reset before
    each of these, must move in each.
+8. The rest of conversion (``[rest]`` lines; every counter reset before
+   each route and read after it):
+   (a) DDPM (``acc=1``, 1000 steps) on phase 4's project: a 3 s voiced
+   clip through ``run_clip``, modular and fused graph, in bf16 and f32 (the
+   output's length, finite, non-silent; K1's counter a whole number of
+   1000-step trajectories, at least one per chunk, and K2's 0); the
+   sampler alone timed and profiled (ms, launches and device ms per step),
+   a fused chunk's replay per step, the acc=1 bucket's warm-up, capture
+   and pool; a 0.5 s conversion card vs CPU with ``use_gt_mel`` at 50 steps
+   and the per-step noise shared, at phase 4's limits, the skip-bias fault
+   above them.
+   (b) CREPE (random weights in torchcrepe's ``full.pth`` layout): the 14 s
+   clip through ``get_pitch`` on the card (tracker ``crepe``), the network
+   and the Viterbi timed apart; its posteriors card vs CPU on a block of
+   128 frames (rel-L2 <= 1e-4, both true f32) and the share of frames
+   whose decoded f0 agrees; the binarizer on config_44k as shipped
+   (``use_crepe: true``) on 6 clips, every item tracked by CREPE with
+   weights and by the AC tracker without.
+   (c) A config_24k project at full width (DiffNet 256 x 20, 80 mel,
+   HuBERT-soft 768 x 12, pe, HiFi-GAN V1 512 / rates 8, 8, 2, ContentVec
+   768 x 12): the 14 s clip at 24 kHz through the modular and batched
+   routes (with pe) and the fused graph, bf16 and f32, K2 and K3 moving on
+   each; wall, RTF and busy share per route; card vs CPU at phase 4's
+   limits with the fault; pe's time and its card-vs-CPU agreement
+   (1e-4); ContentVec's encode beside HuBERT-soft's and one conversion
+   through it.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
-the path that runs it and on each serving route, errors, times, bound);
+the path that runs it, on each serving route and on each of phase 8's
+routes, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -225,6 +257,9 @@ PEAK_BYTES = 3.35e12
 # main-path shapes at config_44k: frames, residual channels, layers, mel
 # bins, conditioner width
 T, C, L, M, H = 1024, 384, 20, 128, 256
+# (residual channels, mel bins) of each profile: config_44k's, and
+# config_24k's (DiffNet 256 x 20, 80 mel; the same frames and layers)
+GEOS = {"44k": (C, M), "24k": (256, 80)}
 # openvpi 44.1 kHz NSF-HiFiGAN geometry
 VOC_H = dict(num_mels=128, upsample_initial_channel=512,
              upsample_rates=[8, 8, 2, 2, 2],
@@ -233,6 +268,14 @@ VOC_H = dict(num_mels=128, upsample_initial_channel=512,
              resblock_dilation_sizes=[[1, 3, 5]] * 3, sampling_rate=44100,
              n_fft=2048, win_size=2048, hop_size=512, fmin=40, fmax=16000)
 TAIL_FRAMES = 431           # 5.0 s of 44.1 kHz audio
+# config_24k's HiFi-GAN V1 (0109_hifigan_bigpopcs_hop128's geometry): 512
+# initial channels, rates 8, 8, 2 (= hop 128), K3 from its 128-channel stage
+VOC24_H = dict(num_mels=80, upsample_initial_channel=512,
+               upsample_rates=[8, 8, 2], upsample_kernel_sizes=[16, 16, 4],
+               resblock="1", resblock_kernel_sizes=[3, 7, 11],
+               resblock_dilation_sizes=[[1, 3, 5]] * 3, sampling_rate=24000,
+               n_fft=512, win_size=512, hop_size=128, fmin=30, fmax=12000)
+TAIL_FRAMES_24K = 938       # 5.0 s of 24 kHz audio at hop 128
 TRAIN_B = 24                # the training batch (max_sentences) of K4's check
 PS_B = 32                   # K5's check: per-sample in JAX at T=1024 (f32)
 DILATIONS = (1, 2, 4, 8)    # K6's check
@@ -328,7 +371,7 @@ def lo_planes_dropped():
         yield
 
 
-def plan_ctas(dtype_name: str, m: int = 0) -> dict:
+def plan_ctas(dtype_name: str, m: int = 0, c: int = C) -> dict:
     """K1's (or K2's, m > 0) tensor-core plan at B=1 for the collate's
     frame counts: CTAs and shared memory per layer launch, and for K2 the
     CTAs of its projections."""
@@ -336,7 +379,7 @@ def plan_ctas(dtype_name: str, m: int = 0) -> dict:
 
     out = {}
     for t in (512, 768, 1024):
-        p = ds.tc_plan(1, t, C, m, _dtype(dtype_name))
+        p = ds.tc_plan(1, t, c, m, _dtype(dtype_name))
         out[t] = {"ctas_layer": p.ctas_layer, "smem_layer": p.smem_layer}
         if m:
             out[t]["ctas_in"] = p.grid_m * p.grid_n_in
@@ -345,22 +388,28 @@ def plan_ctas(dtype_name: str, m: int = 0) -> dict:
     return out
 
 
-def stack_flops(rows: int, layers: int, per_row: int) -> float:
-    """``per_row`` C^2 FLOPs per row and layer: 16 for a forward layer
+def stack_flops(rows: int, layers: int, per_row: int, c: int = C) -> float:
+    """``per_row`` c^2 FLOPs per row and layer: 16 for a forward layer
     (gate 12 + output 4), 60 for forward and backward (the backward's
     recomputed gate 12, dh 4, dy 12, dWo 4, dW_j 12)."""
-    return float(per_row) * rows * C * C * layers
+    return float(per_row) * rows * c * c * layers
 
 
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_residual_stack(device, dtype_name):
+def check_residual_stack(device, dtype_name, geo="44k"):
+    """K1 at B=1, T=1024, L=20 and ``geo``'s channels.  Its packed weights
+    are kept per weight tensor and version: the times are repeated calls
+    (which must pack nothing), beside a first call, which packs; the f32
+    fault "lo planes zeroed" reaches the kernel through copies of the
+    weights (the originals' packs are kept)."""
     from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
     from diffsvc_tpu_torch.utils.synth import stack_inputs
 
-    a = stack_inputs(_dtype(dtype_name), device, 1, T, C, L)
+    c = GEOS[geo][0]
+    a = stack_inputs(_dtype(dtype_name), device, 1, T, c, L)
     kern = lambda: ds.residual_stack(**a, cycle=4)              # noqa: E731
     plain = lambda: ds.residual_stack_plain(**a, cycle=4)       # noqa: E731
     got, ref = kern(), plain()
@@ -371,17 +420,30 @@ def check_residual_stack(device, dtype_name):
     fault_rel = {k: rel_l2(ds.residual_stack(**f, cycle=4), ref)
                  for k, f in faults.items()}
     if dtype_name == "f32":
+        copies = dict(a, wd=a["wd"].clone(), wo=a["wo"].clone())
         with lo_planes_dropped():
-            fault_rel["lo products dropped"] = rel_l2(kern(), ref)
+            fault_rel["lo products dropped"] = rel_l2(
+                ds.residual_stack(**copies, cycle=4), ref)
+        del copies
+    packs = ds.packs
     ms, plain_ms = time_in_turns(kern, plain, reps=10)
+    if ds.packs != packs:
+        raise SmokeError(f"residual_stack {dtype_name} {geo}: repeated calls "
+                         f"packed the weights {ds.packs - packs} times")
+
+    def first_call():
+        ds._packed.clear()
+        kern()
+
     res = {"max_abs_err": float((got - ref).abs().max()),
            "rel_l2": rel_l2(got, ref), "fault_rel_l2": fault_rel,
            "ms": ms, "plain_ms": plain_ms,
-           **tc_bound(stack_flops(T, L, 16), nbytes(*a.values(), got),
+           "first_call_ms": cuda_time_ms(first_call, reps=5),
+           **tc_bound(stack_flops(T, L, 16, c), nbytes(*a.values(), got),
                       dtype_name)}
     res["breakdown"] = kernel_breakdown(kern, reps=5)
-    res["plan"] = plan_ctas(dtype_name)
-    if dtype_name == "bf16":
+    res["plan"] = plan_ctas(dtype_name, c=c)
+    if dtype_name == "bf16" and geo == "44k":
         res["cublas_products_ms"] = cublas_products_ms(a)
     return res
 
@@ -430,11 +492,12 @@ def cublas_products_ms(a) -> float:
     return cuda_time_ms(run, reps=10)
 
 
-def ladder_inputs(dtype, device, batch: int = 1):
-    """A DiffNet at the main path's widths with torch's default init drawn
-    from seed 0 (the reference, and DiffNet's own init, zero the output
-    projection, which would make eps == 0 and the comparison vacuous) and
-    the K=1000 PLMS acc=20 tables: J = 51 evaluations; ``batch`` clips."""
+def ladder_inputs(dtype, device, batch: int = 1, c: int = C, m: int = M):
+    """A DiffNet at ``c`` residual channels and ``m`` mel bins (the main
+    path's by default) with torch's default init drawn from seed 0 (the
+    reference, and DiffNet's own init, zero the output projection, which
+    would make eps == 0 and the comparison vacuous) and the K=1000 PLMS
+    acc=20 tables: J = 51 evaluations; ``batch`` clips."""
     import numpy as np
     import torch
 
@@ -443,18 +506,18 @@ def ladder_inputs(dtype, device, batch: int = 1):
     from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
     from diffsvc_tpu_torch.utils.synth import randomize
 
-    net = diffnet.DiffNet(M, H, L, C, 4)
+    net = diffnet.DiffNet(m, H, L, c, 4)
     randomize(net, 0)
     net = net.to(device)
     p = net.stacked(dtype)
     ac = make_tables(1000, "linear", 0.02)["alphas_cumprod"]
     t_eval, scal = pl.plms_eval_tables(ac, 1000, ACC)
-    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(device), C)
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(device), c)
     sb = diffnet.step_bias(p, step, dtype).transpose(0, 1).contiguous()
     g = torch.Generator().manual_seed(1)
     cond = (torch.randn(batch, T, H, generator=g) * 0.5).to(device)
     cp = diffnet.prepare_cond(net, cond).to(dtype).contiguous()
-    x = torch.randn(batch, T, M, generator=g).to(device)
+    x = torch.randn(batch, T, m, generator=g).to(device)
     return dict(x_init=x, scal=torch.from_numpy(np.ascontiguousarray(scal)).to(device),
                 sb_tab=sb, cond_proj=cp, win=p["win"], bin_=p["bin"],
                 wskip=p["wskip"], bskip=p["bskip"], wout=p["wout"],
@@ -462,12 +525,13 @@ def ladder_inputs(dtype, device, batch: int = 1):
                 bo=p["bo"])
 
 
-def check_plms_ladder(device, dtype_name, batch: int = 1):
+def check_plms_ladder(device, dtype_name, batch: int = 1, geo="44k"):
     import torch
 
     from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
 
-    a = ladder_inputs(_dtype(dtype_name), device, batch)
+    c, m = GEOS[geo]
+    a = ladder_inputs(_dtype(dtype_name), device, batch, c, m)
     kern = lambda: pl.plms_ladder(**a, cycle=4)                 # noqa: E731
     plain = lambda: pl.plms_ladder_plain(**a, cycle=4)          # noqa: E731
     got, ref = kern(), plain()
@@ -487,7 +551,7 @@ def check_plms_ladder(device, dtype_name, batch: int = 1):
     ms, plain_ms = time_in_turns(kern, plain, reps=2)
     extra = {} if batch > 1 else {
         "breakdown": kernel_breakdown(kern, reps=1),
-        "plan": plan_ctas(dtype_name, M)}
+        "plan": plan_ctas(dtype_name, m, c)}
     return {**extra, "batch": batch,
             "max_abs_err": float((got - ref).abs().max()),
             "rel_l2": rel_l2(got - base, ref - base),
@@ -495,13 +559,15 @@ def check_plms_ladder(device, dtype_name, batch: int = 1):
             "eps_share": rel_l2(ref, base), "fault_rel_l2": fault_rel,
             "evals": int(a["scal"].shape[0]), "ms": ms, "plain_ms": plain_ms,
             **tc_bound(int(a["scal"].shape[0]) * batch * (
-                stack_flops(T, L, 16) + 2.0 * T * (2 * M * C + C * C)),
+                stack_flops(T, L, 16, c) + 2.0 * T * (2 * m * c + c * c)),
                        nbytes(*a.values(), got), dtype_name)}
 
 
-def check_vocoder_tail(device, dtype_name, batch: int = 1):
-    """The generator tail's inputs at the openvpi geometry (``batch``
-    clips); the prologue and the NSF noise convs run in plain torch."""
+def check_vocoder_tail(device, dtype_name, batch: int = 1, geo="44k"):
+    """The generator tail's inputs at the openvpi geometry on 5 s of 44.1
+    kHz audio, or (``geo`` "24k") config_24k's HiFi-GAN V1 on 5 s of 24 kHz
+    audio (``batch`` clips); the prologue and the NSF noise convs run in
+    plain torch."""
     import math
 
     import torch
@@ -509,15 +575,17 @@ def check_vocoder_tail(device, dtype_name, batch: int = 1):
     from diffsvc_tpu_torch.ops.hopper import vocoder_tail as vt
     from diffsvc_tpu_torch.vocoders import generator as gen_mod
 
+    voc_h, frames = (VOC_H, TAIL_FRAMES) if geo == "44k" \
+        else (VOC24_H, TAIL_FRAMES_24K)
     torch.manual_seed(0)
-    cfg = gen_mod.HifiGanConfig.from_dict(VOC_H, use_nsf=True)
+    cfg = gen_mod.HifiGanConfig.from_dict(voc_h, use_nsf=True)
     gen = gen_mod.Generator(cfg).to(device).eval()
     g = torch.Generator().manual_seed(1)
-    mel = (torch.randn(batch, TAIL_FRAMES, cfg.num_mels, generator=g) - 4.0
+    mel = (torch.randn(batch, frames, cfg.num_mels, generator=g) - 4.0
            ).to(device)
     f0 = (220.0 * 1.25 ** torch.arange(batch, dtype=torch.float32)[:, None]
-          ).expand(batch, TAIL_FRAMES).contiguous().to(device)
-    length = TAIL_FRAMES * int(math.prod(cfg.upsample_rates))
+          ).expand(batch, frames).contiguous().to(device)
+    length = frames * int(math.prod(cfg.upsample_rates))
     randoms = gen_mod.draw_randoms(batch, length, cfg.harmonic_num, g)
     randoms = tuple(r.to(device) for r in randoms)
     s0 = gen_mod.tail_start_stage(cfg)
@@ -869,15 +937,21 @@ def check_fused_residual_block(device, dtype_name):
                        dtype_name)}
 
 
+# (kernel, dtype, check[, keyword arguments of a variant: "batch", the
+# batched serving routes' B (phase 7); "geo", config_24k's widths (phase 8)])
 CHECKS = [("residual_stack", "f32", check_residual_stack),
           ("residual_stack", "bf16", check_residual_stack),
+          ("residual_stack", "f32", check_residual_stack, {"geo": "24k"}),
+          ("residual_stack", "bf16", check_residual_stack, {"geo": "24k"}),
           ("plms_ladder", "f32", check_plms_ladder),
           ("plms_ladder", "bf16", check_plms_ladder),
-          # the batched serving routes' B (phase 7)
-          ("plms_ladder", "f32", check_plms_ladder, SERVE_B),
-          ("plms_ladder", "bf16", check_plms_ladder, SERVE_B),
+          ("plms_ladder", "f32", check_plms_ladder, {"batch": SERVE_B}),
+          ("plms_ladder", "bf16", check_plms_ladder, {"batch": SERVE_B}),
+          ("plms_ladder", "f32", check_plms_ladder, {"geo": "24k"}),
+          ("plms_ladder", "bf16", check_plms_ladder, {"geo": "24k"}),
           ("vocoder_tail", "f32", check_vocoder_tail),
-          ("vocoder_tail", "f32", check_vocoder_tail, SERVE_B),
+          ("vocoder_tail", "f32", check_vocoder_tail, {"batch": SERVE_B}),
+          ("vocoder_tail", "f32", check_vocoder_tail, {"geo": "24k"}),
           ("residual_stack_train_batched", "f32",
            check_residual_stack_train_batched),
           ("residual_stack_train_batched", "bf16",
@@ -889,14 +963,16 @@ CHECKS = [("residual_stack", "f32", check_residual_stack),
 
 def phase_kernels(device):
     out = {}
-    for name, dt, fn, *batch in CHECKS:
-        res = fn(device, dt, *batch)
+    for name, dt, fn, *variant in CHECKS:
+        kw = variant[0] if variant else {}
+        res = fn(device, dt, **kw)
         tol = TOL[(name, dt)]
         res["tol_rel_l2"] = tol
         faults = " ".join(f"[{k}: {v:.3e}]"
                           for k, v in res["fault_rel_l2"].items())
-        if batch:       # recorded as e.g. "f32 B=4"
-            dt = f"{dt} B={batch[0]}"
+        # recorded as e.g. "f32 B=4", "bf16 24k"
+        dt = " ".join([dt] + [f"B={v}" if k == "batch" else str(v)
+                              for k, v in kw.items()])
         log(f"[kernel] {name} {dt}: rel_l2={res['rel_l2']:.3e} (tol {tol:g}) "
             f"max_abs={res['max_abs_err']:.3e} kernel_ms={res['ms']:.3f} "
             f"plain_ms={res['plain_ms']:.3f} bound_ms={res['bound_ms']:.4f} "
@@ -910,6 +986,11 @@ def phase_kernels(device):
             log(f"[kernel] {name} {dt}: bound {res['bound_ms']:.4f} ms at "
                 f"3xTF32 on the tensor cores; {res['cuda_core_bound_ms']:.4f}"
                 " ms at the CUDA cores' f32 rate")
+        if name == "residual_stack":
+            log(f"[kernel] {name} {dt}: packed weights kept per weight "
+                f"tensor and version: a repeated call {res['ms']:.4f} ms "
+                "(no pack); a first call, which packs, "
+                f"{res['first_call_ms']:.4f} ms")
         if "pack_ms" in res:
             log(f"[kernel] {name} {dt}: packed weights kept per weight "
                 f"tensor: a call {res['ms']:.4f} ms; a first call, which "
@@ -1196,10 +1277,16 @@ def zeroed(*params):
                 p.copy_(v)
 
 
-def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
+def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
+                  same_f0=False, **infer_kw):
     """The same short conversion on the card and on the CPU (plain
-    versions), at ``svc_dev``'s diff_compute_dtype, with the sampler noise
-    and the NSF source draws shared.  As for the ladder, the waveforms are
+    versions), at ``svc_dev``'s diff_compute_dtype and ``acc`` (at acc=1
+    DDPM, its per-step noise shared too; ``infer_kw``: e.g. use_gt_mel),
+    with the sampler noise and the NSF source draws shared.  ``same_f0``:
+    the card's conversions take the CPU's f0 track, and the one with the
+    card's own track is the diagnostic (for a check of the sampler whose
+    denoiser part is too small a share of the waveform to see past the
+    tracker's device difference).  As for the ladder, the waveforms are
     compared on what the denoiser put in them: each minus the CPU's
     conversion with eps = 0 (output projection zeroed).  They must agree to
     SLICE_TOL in f32 (f32 sums in other orders through ~1000 denoiser layers
@@ -1220,50 +1307,71 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn):
     tol = SLICE_TOL_BF16 if dt == "bfloat16" else SLICE_TOL
     svc_cpu = Svc("proj", cfg_fn, False, ckpt, device="cpu")
     svc_cpu.hp["diff_compute_dtype"] = svc_dev.hp["diff_compute_dtype"]
-    batch = svc_cpu.pre(short, ACC, use_crepe=False)
+    batch = svc_cpu.pre(short, acc, use_crepe=False)
     t_mel = batch["mels"].shape[1]
     g = torch.Generator().manual_seed(3)
     noise = torch.randn(1, t_mel, svc_cpu.mel_bins, generator=g)
+    if acc <= 1:
+        n_steps = int(infer_kw["add_noise_step"]) if infer_kw.get(
+            "use_gt_mel") else svc_cpu.model.K_step
+        infer_kw = dict(infer_kw, step_noise=torch.randn(
+            n_steps, 1, t_mel, svc_cpu.mel_bins, generator=g))
     n_real = int((np.abs(batch["mels"][0]).sum(-1) > 0).sum())
     hop = int(svc_cpu.hp["hop_size"])
     randoms = draw_randoms(1, n_real * hop, svc_cpu.vocoder.cfg.harmonic_num, g)
 
     def convert(svc):
         dev_randoms = tuple(r.to(svc.device) for r in randoms)
-        _, _, out = svc.infer(short, key=0, acc=ACC, use_pe=False,
+        _, _, out = svc.infer(short, key=0, acc=acc, use_pe=False,
                               use_crepe=False, init_noise=noise,
-                              voc_randoms=dev_randoms)
+                              voc_randoms=dev_randoms, **infer_kw)
         return torch.from_numpy(np.asarray(out, np.float32))
 
     ref = convert(svc_cpu)
     out_proj = svc_cpu.model.denoise_fn.output_projection
     with zeroed(out_proj.weight, out_proj.bias):
         base = convert(svc_cpu)
-    got = convert(svc_dev)
-    with zeroed(svc_dev.model.denoise_fn.skip_projection.bias):
-        fault = convert(svc_dev)
-    # diagnostic: the card's conversion with the CPU's f0 track (the AC
-    # tracker runs on each side's device; cuFFT's ACF moves the track by
-    # ~1e-6 relative), so that what remains is the kernels' difference
     from diffsvc_tpu_torch.data import features
 
-    svc_dev._cached_pitch = lambda wav, mel, use_crepe: features.get_pitch(
-        wav, mel, svc_dev.hp, use_crepe, device="cpu")
-    try:
-        same_f0 = convert(svc_dev)
-    finally:
-        del svc_dev._cached_pitch
+    @contextlib.contextmanager
+    def cpu_track(on=True):
+        """The card's conversions with the CPU's f0 track (the AC tracker
+        runs on each side's device; cuFFT's ACF moves the track by ~1e-6
+        relative), so that what remains is the kernels' difference."""
+        if on:
+            svc_dev._cached_pitch = lambda wav, mel, use_crepe, thre: \
+                features.get_pitch(wav, mel, svc_dev.hp, use_crepe, thre,
+                                   device="cpu")
+        try:
+            yield
+        finally:
+            if on:
+                del svc_dev._cached_pitch
+
+    with cpu_track(same_f0):
+        got = convert(svc_dev)
+        with zeroed(svc_dev.model.denoise_fn.skip_projection.bias):
+            fault = convert(svc_dev)
+    # the diagnostic: the other track on the card
+    with cpu_track(not same_f0):
+        other_f0 = convert(svc_dev)
     res = {"rel_l2": rel_l2(got - base, ref - base),
-           "rel_l2_cpu_f0": rel_l2(same_f0 - base, ref - base),
+           "f0_track_of_card": "cpu" if same_f0 else "card",
+           "rel_l2_other_f0": rel_l2(other_f0 - base, ref - base),
            "wav_rel_l2": rel_l2(got, ref), "eps_share": rel_l2(ref, base),
            "max_abs_err": float((got - ref).abs().max()),
            "fault_rel_l2": rel_l2(fault - base, ref - base),
            "tol_rel_l2": tol, "secs": secs}
-    log(f"[slice] {dt} card vs CPU on {secs}s: rel_l2={res['rel_l2']:.3e} "
+    res["mode"] = f"acc={acc}" + (
+        f", use_gt_mel at {infer_kw['add_noise_step']} steps"
+        if infer_kw.get("use_gt_mel") else "")
+    log(f"[{tag}] {dt} card vs CPU on {secs}s ({res['mode']}): "
+        f"rel_l2={res['rel_l2']:.3e} "
         f"(tol {tol:g}; waveform itself {res['wav_rel_l2']:.3e}, eps "
         f"part of it {res['eps_share']:.3e}) max_abs={res['max_abs_err']:.3e}"
-        f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]; with "
-        f"the CPU's f0 track on the card too: {res['rel_l2_cpu_f0']:.3e}")
+        f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]; the "
+        f"card's conversions on the {res['f0_track_of_card']}'s f0 track; "
+        f"on the other one: {res['rel_l2_other_f0']:.3e}")
     if not res["rel_l2"] <= tol:
         raise SmokeError(f"card and CPU conversions disagree: {res}")
     if not res["fault_rel_l2"] > tol:
@@ -1298,9 +1406,11 @@ def kernel_counts() -> dict:
 
 
 @contextlib.contextmanager
-def counted(label: str, into: dict):
+def counted(label: str, into: dict, moved=("plms_ladder", "vocoder_tail"),
+            still=(), tag="serve"):
     """Every kernel counter set to 0 before the block and read after it;
-    K2's and K3's must have moved."""
+    the kernels in ``moved`` (K2's and K3's) must have moved and those in
+    ``still`` must not."""
     from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
                                               vocoder_tail)
 
@@ -1311,10 +1421,14 @@ def counted(label: str, into: dict):
 
     torch.cuda.synchronize()
     into[label] = kernel_counts()
-    log(f"[serve] {label}: kernel launches {into[label]}")
-    for name in ("plms_ladder", "vocoder_tail"):
+    log(f"[{tag}] {label}: kernel launches {into[label]}")
+    for name in moved:
         if into[label][name] <= 0:
             raise SmokeError(f"{label} did not launch {name}")
+    for name in still:
+        if into[label][name] != 0:
+            raise SmokeError(f"{label} launched {name} "
+                             f"{into[label][name]} times")
 
 
 def voiced_chunks(wav_fn):
@@ -1727,7 +1841,7 @@ TRAIN_STEP_TOL = 5e-3
 def train_config(workdir: str) -> dict:
     """config_44k at full width with max_sentences 24; 6 steps, validation
     and a checkpoint every 3; every step logged; no validation plots; the
-    AC f0 tracker (CREPE is not ported)."""
+    AC f0 tracker (``use_crepe: false``; phase 8 binarizes with CREPE)."""
     return {"base_config": [os.path.join(ROOT, "configs", "config_44k.yaml")],
             "raw_data_dir": os.path.join(workdir, "raw"),
             "binary_data_dir": os.path.join(workdir, "bin"),
@@ -2237,6 +2351,426 @@ def phase_train_own_batch(device, workdir, hubert_path, vocoder_ckpt):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the rest of conversion (DDPM, CREPE, the 24 kHz profile)
+# ---------------------------------------------------------------------------
+
+# a voiced clip of 3 s with no silence: one chunk (two fused buckets)
+DDPM_CLIP = (3.0, 262.0, [])
+# the card-vs-CPU DDPM check: use_gt_mel from the input's mel q-sampled to
+# step 49, then 50 DDPM steps, on 0.5 s
+DDPM_CPU_STEPS = 50
+# CREPE's card-vs-CPU check: its posteriors on this block of frames of the
+# 14 s clip (the CPU's network costs ~2.8 GFLOP a frame)
+CREPE_BLOCK = (1000, 1128)
+# the network's posteriors, card against CPU, both true f32 (cuDNN's
+# convolutions against MKL-DNN's, 6 layers, f32 sums in other orders)
+CREPE_TOL = 1e-4
+# pe on the 14 s clip's mel, card against CPU, both true f32
+PE_TOL = 1e-4
+BINARIZE_CLIPS = 6     # the binarizer keeps 1 as train, 5 as valid = test
+
+
+def clip_checks(label, audio, src_len):
+    """Length of the input, finite, not silent."""
+    import numpy as np
+
+    audio = np.asarray(audio, np.float32)
+    peak = float(np.abs(audio).max()) if len(audio) else 0.0
+    if len(audio) != src_len or not np.isfinite(audio).all() or peak < 1e-3:
+        raise SmokeError(f"{label}: output of {len(audio)} samples (input "
+                         f"{src_len}), finite {np.isfinite(audio).all()}, "
+                         f"peak {peak}")
+    return peak
+
+
+def ddpm_step_times(svc, wav_fn) -> dict:
+    """Sampling alone at acc=1 on the clip's batch (``model.infer``): wall
+    per step (host clock ending in a sync) and, from a profiled run, the
+    device kernels per step and the device busy time per step."""
+    import numpy as np
+    import torch
+
+    k_step = svc.model.K_step
+    b = svc.pre(wav_fn, 1, use_crepe=False)
+    tb = {k: torch.from_numpy(np.asarray(b[k])).to(svc.device)
+          for k in ("hubert", "mels", "mel2ph", "energy", "f0", "uv")}
+    torch.cuda.synchronize()
+    t0 = time.time()
+    svc.model.infer(tb, speedup=1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    prof = profile_run(f"{svc.hp['diff_compute_dtype'] or 'float32'} DDPM "
+                       f"sampling, {k_step} steps at T={b['mels'].shape[1]}",
+                       lambda: svc.model.infer(tb, speedup=1))
+    return {"frames": int(b["mels"].shape[1]), "steps": k_step,
+            "ms_per_step": wall * 1e3 / k_step,
+            "launches_per_step": prof["device_events"] / k_step,
+            "device_ms_per_step": prof["device_busy_ms"] / k_step,
+            "busy_share": prof["busy_share"]}
+
+
+def phase_ddpm(project, workdir, launches):
+    """(a) DDPM at acc=1 on phase 4's project: a 3 s clip through run_clip,
+    modular and fused graph, in bf16 and f32 (K1 one launch per step, K2
+    none); ms per step, launches per step, RTF, the acc=1 bucket's capture
+    and pool; a 0.5 s conversion card vs CPU with use_gt_mel at 50 steps."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    secs, f0, gaps = DDPM_CLIP
+    wav_fn = os.path.join(workdir, "ddpm_clip.wav")
+    save_wav(synth.voiced_wav(secs, 44100, f0, gaps, seed=8), wav_fn, 44100)
+    src_len = len(load_wav(wav_fn)[0])
+    n_chunks = len(voiced_chunks(wav_fn))
+    res = {"clip_s": secs, "chunks": n_chunks}
+    for dt, svc in project["svcs"].items():
+        name = dt or "float32"
+        k_step = svc.model.K_step
+        rec = res.setdefault(name, {})
+        for route, kw in (("modular", {}), ("fused graph", {"fused": True})):
+            label = f"DDPM {route} {name}"
+            with counted(label, launches, moved=("residual_stack",
+                                                 "vocoder_tail"),
+                         still=("plms_ladder",), tag="rest"):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                _, _, audio = infer_cli.run_clip(
+                    svc, key=0, acc=1, use_pe=False, use_crepe=False,
+                    thre=0.05, use_gt_mel=False, add_noise_step=500,
+                    file_path=wav_fn, out_path=wav_fn[:-4] + "_ddpm.wav",
+                    **kw)
+                torch.cuda.synchronize()
+                wall = time.time() - t0
+            k1 = launches[label]["residual_stack"]
+            # a fused bucket's first call warms up once and captures: K1
+            # runs the trajectory once more per new bucket
+            calls = k1 / k_step
+            if k1 % k_step or calls < n_chunks:
+                raise SmokeError(f"{label}: K1 launched {k1} times for "
+                                 f"{n_chunks} chunks of {k_step} steps")
+            rec[route] = {"wall_s": wall, "rtf": wall / secs,
+                          "peak": clip_checks(label, audio, src_len),
+                          "k1_launches": k1, "trajectories": calls}
+        # ms per step: the modular sampler alone, and a fused graph replay
+        rec["sampling"] = ddpm_step_times(svc, wav_fn)
+        fused = svc.fused_model(1)
+        chunk = voiced_chunks(wav_fn)[0]
+        svc.infer_fused(chunk, key=0, acc=1)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        svc.infer_fused(chunk, key=0, acc=1)
+        torch.cuda.synchronize()
+        rec["fused_chunk_ms_per_step"] = (time.time() - t0) * 1e3 / k_step
+        prof = profile_run(f"{name} DDPM fused graph replay, one chunk",
+                           lambda: svc.infer_fused(chunk, key=0, acc=1))
+        rec["fused_launches_per_step"] = prof["device_events"] / k_step
+        rec["captures"] = {str(k[:2]): {"warmup_s": w, "capture_s": c,
+                                        "pool_mib": fused.pool_bytes()[k]
+                                        / 2 ** 20}
+                           for k, (w, c) in fused.capture_seconds().items()}
+        # each route again, warm (packs built, the bucket captured)
+        for route, kw in (("modular", {}), ("fused graph", {"fused": True})):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            infer_cli.run_clip(svc, key=0, acc=1, use_pe=False,
+                               use_crepe=False, thre=0.05, use_gt_mel=False,
+                               add_noise_step=500, file_path=wav_fn,
+                               out_path=wav_fn[:-4] + "_ddpm.wav", **kw)
+            torch.cuda.synchronize()
+            rec[route]["rtf_warm"] = (time.time() - t0) / secs
+        smp = rec["sampling"]
+        log(f"[rest] DDPM {name}: {secs:.1f}s clip ({n_chunks} chunk) RTF "
+            f"modular {rec['modular']['rtf']:.4f} (warm "
+            f"{rec['modular']['rtf_warm']:.4f}), fused graph "
+            f"{rec['fused graph']['rtf_warm']:.4f} (first, with its "
+            f"captures, {rec['fused graph']['rtf']:.4f}); sampling alone "
+            f"{smp['ms_per_step']:.4f} ms/step at T={smp['frames']}, "
+            f"{smp['launches_per_step']:.1f} launches/step, device "
+            f"{smp['device_ms_per_step']:.4f} ms/step (busy share "
+            f"{smp['busy_share']:.3f}); fused chunk replay "
+            f"{rec['fused_chunk_ms_per_step']:.4f} ms/step, "
+            f"{rec['fused_launches_per_step']:.1f} device events/step; "
+            "captures "
+            f"{ {k: {kk: round(vv, 3) for kk, vv in v.items()} for k, v in rec['captures'].items()} }")
+        # the denoiser's part of this waveform is ~5e-4 of it, below what
+        # the AC tracker's device difference moves: the CPU's track on both
+        # sides (phase 4 holds the card's tracker, at acc=20)
+        rec["cpu_agreement"] = cpu_agreement(
+            svc, project["cfg_fn"], project["ckpt"], project["wavs"][0],
+            acc=1, tag="DDPM", same_f0=True, use_gt_mel=True,
+            add_noise_step=DDPM_CPU_STEPS)
+    return res
+
+
+def crepe_binarize_tags(device, project, workdir, crepe_path):
+    """Binarize config_44k as shipped (``use_crepe: true``) on a few clips,
+    with CREPE's weights at ``crepe_path`` and without: the tracker each
+    item used."""
+    import numpy as np
+    import yaml
+
+    from diffsvc_tpu_torch.config import set_hparams
+    from diffsvc_tpu_torch.data import features
+    from diffsvc_tpu_torch.data.binarizer import binarize
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import save_wav
+
+    with open(project["cfg_fn"]) as f:
+        proj = yaml.safe_load(f)
+    raw = os.path.join(workdir, "raw_crepe")
+    os.makedirs(raw)
+    for i in range(BINARIZE_CLIPS):
+        save_wav(synth.voiced_wav(2.0, 44100, 180.0 + 20 * i, seed=20 + i),
+                 os.path.join(raw, f"c{i}.wav"), 44100)
+    real, tags = features.get_pitch, {}
+    out = {}
+    for have in (True, False):
+        label = "with weights" if have else "without weights"
+        cfg = {"base_config": [os.path.join(ROOT, "configs",
+                                            "config_44k.yaml")],
+               "raw_data_dir": raw,
+               "binary_data_dir": os.path.join(workdir, f"bin_{int(have)}"),
+               "hubert_path": proj["hubert_path"],
+               "vocoder_ckpt": proj["vocoder_ckpt"],
+               "crepe_path": crepe_path if have else
+               os.path.join(workdir, "no_crepe", "full.pth")}
+        cfg_fn = os.path.join(workdir, f"crepe_{int(have)}.yaml")
+        with open(cfg_fn, "w") as f:
+            yaml.safe_dump(cfg, f)
+        hp = set_hparams(config=cfg_fn, exp_name="smoke_crepe", reset=True,
+                         print_hparams=False)
+        if not hp["use_crepe"]:
+            raise SmokeError("config_44k as shipped does not ask for CREPE")
+        got = tags.setdefault(label, [])
+
+        def spy(*args, **kw):
+            f0, coarse, tag = real(*args, **dict(kw, return_tag=True))
+            got.append(tag)
+            return f0, coarse
+
+        features.get_pitch = spy
+        try:
+            t0 = time.time()
+            binarize(hp, device=device)
+            secs = time.time() - t0
+        finally:
+            features.get_pitch = real
+        lengths = np.load(os.path.join(cfg["binary_data_dir"],
+                                       "train_lengths.npy"))
+        want = "crepe" if have else "ac"
+        out[label] = {"tags": got, "binarize_s": secs,
+                      "train_items": int(len(lengths))}
+        log(f"[rest] binarize config_44k as shipped ({BINARIZE_CLIPS} clips, "
+            f"{label}): f0 trackers {got}, {len(lengths)} train items, "
+            f"{secs:.2f}s")
+        # the valid and test splits are the same items: each is tracked
+        # once per split it is in
+        if len(got) < BINARIZE_CLIPS or set(got) != {want} or \
+                len(lengths) < 1:
+            raise SmokeError(f"binarize {label}: trackers {got} (want "
+                             f"{want} for every item)")
+    return out
+
+
+def phase_crepe(device, project, workdir):
+    """(b) CREPE on the card: the 14 s clip through get_pitch (network,
+    Viterbi), its parts timed; posteriors card vs CPU on a block of frames;
+    the binarizer on config_44k as shipped, with and without weights."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.data import features
+    from diffsvc_tpu_torch.ops import crepe
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, resample
+
+    path = os.path.join(workdir, "crepe", "full.pth")
+    synth.write_crepe(path, seed=4)
+    model = crepe.load_crepe(path, device)
+    wav, sr = load_wav(project["wavs"][-1])
+    hp = dict(project["svcs"][""].hp, crepe_path=path)
+    mel = np.zeros((1 + len(wav) // int(hp["hop_size"]), 1), np.float32)
+    # the first call of the process on 1 s: cuDNN's benchmark chooses the
+    # network's algorithms for its one chunk shape
+    torch.cuda.synchronize()
+    t0 = time.time()
+    features.get_pitch(wav[: sr], mel[: 1 + sr // int(hp["hop_size"])], hp,
+                       True, device=device)
+    torch.cuda.synchronize()
+    first_ms = (time.time() - t0) * 1e3
+    t0 = time.time()
+    f0, _, tag = features.get_pitch(wav, mel, hp, True, device=device,
+                                    return_tag=True)
+    torch.cuda.synchronize()
+    total_ms = (time.time() - t0) * 1e3
+    wav16 = torch.from_numpy(resample(wav, sr, crepe.SR)).to(device)
+    frames = crepe.frame_audio(wav16)
+    net_ms = cuda_time_ms(lambda: crepe.posteriors(model, frames), reps=3)
+    probs = crepe.posteriors(model, frames)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    crepe._viterbi(probs)
+    torch.cuda.synchronize()
+    viterbi_ms = (time.time() - t0) * 1e3
+    n = int(frames.shape[0])
+    flops = 0.0
+    t_len, c_in = crepe.WINDOW, 1
+    for f, k, st in zip(crepe.FILTERS, crepe.KERNELS, crepe.STRIDES):
+        t_len = t_len // st
+        flops += 2.0 * c_in * f * k * t_len
+        t_len, c_in = t_len // 2, f
+    flops = n * (flops + 2.0 * 2048 * crepe.N_BINS)
+    # the posteriors of a block, card against CPU, and the f0 each decodes
+    lo, hi = CREPE_BLOCK
+    cpu = crepe.load_crepe(path, "cpu")
+    ref = crepe.posteriors(cpu, frames[lo:hi].cpu())
+    got = probs[lo:hi]
+    rel = rel_l2(got.cpu(), ref)
+    f0_dev = crepe.decode(got)[0].cpu()
+    f0_cpu = crepe.decode(ref)[0]
+    agree = float(((f0_dev - f0_cpu).abs() <= 1e-4 * f0_cpu).double().mean())
+    res = {"tag": tag, "frames": n, "ms": total_ms, "first_call_1s_ms":
+           first_ms, "network_ms": net_ms,
+           "viterbi_ms": viterbi_ms, "network_flops": flops,
+           "network_bound_ms": bound(flops, nbytes(frames, probs),
+                                     "f32")["bound_ms"],
+           "voiced_share": float((f0 > 0).mean()),
+           "posteriors_rel_l2": rel, "tol_rel_l2": CREPE_TOL,
+           "f0_agree_share": agree, "block": [lo, hi]}
+    log(f"[rest] CREPE on the {len(wav) / sr:.1f}s clip ({n} frames): "
+        f"get_pitch {total_ms:.1f} ms (tracker {tag}), of which the network "
+        f"{net_ms:.1f} ms ({flops / 1e12:.2f} TFLOP; bound at the CUDA "
+        f"cores' f32 rate {res['network_bound_ms']:.1f} ms) and the Viterbi "
+        f"{viterbi_ms:.1f} ms ({n - 1} sequential steps on the card, "
+        f"traced back on the host); voiced {res['voiced_share']:.3f}; the "
+        f"process's first call, on 1 s, with cuDNN's benchmark: "
+        f"{first_ms:.1f} ms")
+    log(f"[rest] CREPE posteriors card vs CPU on frames {lo}-{hi}: rel_l2 "
+        f"{rel:.3e} (tol {CREPE_TOL:g}); f0 decoded on each side agrees to "
+        f"1e-4 on {agree:.4f} of the frames")
+    if tag != "crepe":
+        raise SmokeError(f"CREPE with weights gave the {tag} tracker")
+    if not rel <= CREPE_TOL:
+        raise SmokeError(f"CREPE's posteriors disagree card vs CPU: {rel}")
+    res["binarize"] = crepe_binarize_tags(device, project, workdir, path)
+    return res
+
+
+def phase_24k(device, workdir, launches):
+    """(c) A config_24k project at full width (DiffNet 256 x 20, 80 mel,
+    HuBERT-soft 768 x 12, pe, HiFi-GAN V1, ContentVec 768 x 12): the 14 s
+    clip through the modular (pe), batched (pe) and fused-graph routes in
+    bf16 and f32 (K2 and K3 moving on each), card vs CPU at phase 4's limits
+    with a planted fault, pe's time and card-vs-CPU agreement, ContentVec's
+    time beside HuBERT-soft's and one conversion through it."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.infer.hubert_encoder import Hubertencoder
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.models import pe as pe_model
+    from diffsvc_tpu_torch.models.hubert import HubertConfig
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    sr = 24000
+    t0 = time.time()
+    cfg_fn, ckpt = synth.write_project(
+        os.path.join(workdir, "proj24"),
+        {"base_config": [os.path.join(ROOT, "configs", "config_24k.yaml")]},
+        VOC24_H, hubert_cfg=HubertConfig(), pe=True,
+        vec_cfg=HubertConfig())
+    log(f"[rest] wrote the config_24k project in {time.time() - t0:.2f}s")
+    secs, f0, gaps = CLIPS[SERVE_CLIP]
+    wav_fn = os.path.join(workdir, "clip24.wav")
+    save_wav(synth.voiced_wav(secs, sr, f0, gaps, seed=2), wav_fn, sr)
+    short = os.path.join(workdir, "clip24_short.wav")
+    save_wav(synth.voiced_wav(2.0, sr, f0, seed=3), short, sr)
+    src_len = len(load_wav(wav_fn)[0])
+    n_chunks = len(voiced_chunks(wav_fn))
+    res = {"routes": {}}
+    svcs = {}
+    for dt in ("bfloat16", ""):
+        svcs[dt] = Svc("proj24", cfg_fn, True, ckpt, device=device)
+        svcs[dt].hp["diff_compute_dtype"] = dt
+        if svcs[dt].pe is None:
+            raise SmokeError("the config_24k project's pe did not load")
+        svcs[dt].infer(short, key=0, acc=ACC, use_pe=True, use_crepe=False)
+
+    def clip(svc, **route):
+        return infer_cli.run_clip(
+            svc, key=0, acc=ACC, use_pe=True, use_crepe=False, thre=0.05,
+            use_gt_mel=False, add_noise_step=500, file_path=wav_fn,
+            out_path=wav_fn[:-4] + "_out.wav", **route)
+
+    for dt, svc in svcs.items():
+        name = dt or "float32"
+        routes = res["routes"].setdefault(name, {})
+        for route, kw in (("modular", {}), ("batched",
+                                            {"batch_chunks": True}),
+                          ("fused graph", {"fused": True})):
+            label = f"24k {route} {name}"
+            with counted(label, launches, tag="rest"):
+                _, _, audio = clip(svc, **kw)
+            clip_checks(label, audio, src_len)
+            pools = sum(svc.fused_model(ACC).pool_bytes().values()) \
+                if "fused" in kw else 0
+            routes[route] = route_run(f"24k {route} {name}", secs, n_chunks,
+                                      lambda kw=kw: clip(svc, **kw), pools)
+        res.setdefault("cpu_agreement", {})[name] = cpu_agreement(
+            svc, cfg_fn, ckpt, wav_fn, tag="24k")
+    # pe on the clip's mel: time, and card against CPU
+    svc = svcs[""]
+    b = svc.pre(wav_fn, ACC, use_crepe=False)
+    mel = torch.from_numpy(np.asarray(b["mels"])).to(device)
+    pe_ms = cuda_time_ms(lambda: svc.pe(mel), reps=5)
+    pe_cpu = pe_model.load(svc.hp["pe_ckpt"], svc.hp, "cpu")
+    pe_rel = rel_l2(svc.pe(mel)["pitch_pred"].cpu(),
+                    pe_cpu(mel.cpu())["pitch_pred"])
+    res["pe"] = {"ms": pe_ms, "frames": int(mel.shape[1]),
+                 "rel_l2": pe_rel, "tol_rel_l2": PE_TOL}
+    log(f"[rest] pe on the {secs:.1f}s clip's mel ({mel.shape[1]} frames): "
+        f"{pe_ms:.3f} ms; card vs CPU rel_l2 {pe_rel:.3e} (tol {PE_TOL:g})")
+    if not pe_rel <= PE_TOL:
+        raise SmokeError(f"pe disagrees card vs CPU: {pe_rel}")
+    # ContentVec beside HuBERT-soft, then one conversion through it
+    vec = Hubertencoder(svc.hp["hubert_path"],
+                        hp=dict(svc.hp, use_vec=True), device=device)
+    wav16, _ = load_wav(wav_fn, sr=16000)
+    times = {}
+    for label, enc in (("hubert_soft", svc.hubert), ("contentvec", vec)):
+        enc.encode(wav16[:32000])
+        times[label] = cuda_time_ms(lambda enc=enc: enc.encode(wav16),
+                                    reps=3)
+    res["encoders_ms"] = times
+    svc.hubert = vec
+    with counted("24k modular float32 ContentVec", launches, tag="rest"):
+        _, _, audio = clip(svc)
+    res["contentvec_peak"] = clip_checks("24k ContentVec", audio, src_len)
+    log(f"[rest] content encoders on the {secs:.1f}s clip: HuBERT-soft "
+        f"{times['hubert_soft']:.2f} ms, ContentVec {times['contentvec']:.2f}"
+        " ms (layer 9 of 12); a modular conversion through ContentVec passed"
+        " its output checks")
+    return res
+
+
+def phase_rest(device, project, workdir):
+    """Phase 8 on phase 4's project, a CREPE checkpoint and a config_24k
+    project."""
+    launches = {}
+    res = {"ddpm": phase_ddpm(project, workdir, launches),
+           "crepe": phase_crepe(device, project, workdir),
+           "24k": phase_24k(device, workdir, launches)}
+    res["launches"] = launches
+    return res
+
+
 def deterministic_step(bundle_fn: str) -> int:
     """Phase 5's child: one step twice from the bundle's state, batch, t and
     noise under ``torch.use_deterministic_algorithms``; prints whether the
@@ -2318,7 +2852,7 @@ def main(argv=None) -> int:
         record["kernels"] = phase_kernels(device)
         from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
 
-        # K6 is on no path: phases 4-7 must not launch it
+        # K6 is on no path: phases 4-8 must not launch it
         k6.launches = k6.launches_tc = k6.launches_tf32x3 = 0
         with tempfile.TemporaryDirectory() as tmp:
             cwd = os.getcwd()
@@ -2330,11 +2864,12 @@ def main(argv=None) -> int:
                 record["own_batch"] = phase_train_own_batch(
                     device, tmp, cfg["hubert_path"], cfg["vocoder_ckpt"])
                 record["serve"] = phase_serve(device, project)
+                record["rest"] = phase_rest(device, project, tmp)
             finally:
                 os.chdir(cwd)
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-7: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-8: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -2346,7 +2881,8 @@ def main(argv=None) -> int:
     # each kernel's launches on the path that runs it: K1-K3 the conversions
     # (phase 4), K4 the trainer at max_sentences 24 (phase 5), K5 the trainer
     # at the config's own batch (phase 6); K6 is on no path, so its count over
-    # phases 4-6, which must be 0
+    # phases 4-8, which must be 0; launches_rest: phase 8's routes (DDPM,
+    # the 24 kHz profile)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -2374,6 +2910,9 @@ def main(argv=None) -> int:
                         "launches_serving": {
                             route: counts.get(name, 0) for route, counts in
                             record["serve"]["launches"].items()},
+                        "launches_rest": {
+                            route: counts.get(name, 0) for route, counts in
+                            record["rest"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -9,8 +9,10 @@ Counterpart of ``diffsvc_tpu/data/binarizer.py:40-214`` (reference
 - split: the last 5 items are test = valid (or ``test_prefixes`` with
   ``choose_test_manually``), the rest train;
 - per split, valid then test then train, items in reverse order through
-  ``features.process_item`` (mel on the device, AC f0 on the host, units
-  from the port's HuBERT encoder) into an ``IndexedDatasetBuilder``;
+  ``features.process_item`` (mel and f0 on the device: CREPE with
+  ``use_crepe``, falling back to the AC tracker without its weights, as
+  the JAX binarizer does; units from the port's HuBERT encoder) into an
+  ``IndexedDatasetBuilder``;
 - the train split's spec_min / spec_max written back into the YAML config
   (``write_back_spec_stats``), ``{prefix}_lengths.npy`` and ``spk_map.json``.
 

@@ -2,10 +2,10 @@
 
 Counterpart of ``diffsvc_tpu/data/features.py`` (reference
 ``preprocessing/process_pipeline.py`` / ``infer_tool.py``): wav2spec through
-the vocoder, the AC f0 tracker, the uniform ``get_align`` stretch, the
-binarizer's ``process_item``, ``getitem`` and the pad-to-longest collate.
-Host-side numpy except the mel and the AC f0 tracker, which run on the
-given device.  The JAX package's batched binarization pipeline is not
+the vocoder, CREPE or the AC f0 tracker, the uniform ``get_align`` stretch,
+the binarizer's ``process_item``, ``getitem`` and the pad-to-longest
+collate.  Host-side numpy except the mel and the f0 trackers, which run on
+the given device.  The JAX package's batched binarization pipeline is not
 ported.
 """
 
@@ -34,42 +34,59 @@ def get_align_uniform(mel_len: int, n_units: int) -> np.ndarray:
 
 
 def get_pitch(wav: np.ndarray, mel: np.ndarray, hp, use_crepe: bool = False,
-              device="cpu"):
-    """(f0 [T_mel] f32, coarse [T_mel]) from the AC tracker, run on
-    ``device`` (the caller's: the card under ``Svc``).  CREPE is not
-    ported yet, so asking for it raises: the JAX package would run CREPE
-    where its weights are installed, and a silent AC track would give other
-    audio for the same flags."""
+              threshold: float = 0.05, device="cpu",
+              return_tag: bool = False):
+    """(f0 [T_mel] f32, coarse [T_mel]), and with ``return_tag`` the
+    tracker actually used ("crepe" or "ac"), as
+    ``diffsvc_tpu/data/features.py:86-95``: CREPE when asked for, run on
+    ``device`` (the caller's: the card under ``Svc``), falling back to the
+    AC tracker only when CREPE's weights are missing (FileNotFoundError) or
+    it cannot be imported; any other error raises.  Without CREPE, the AC
+    tracker on ``device``."""
+    tag = "ac"
     if use_crepe:
-        raise NotImplementedError("CREPE is not ported to torch yet; pass "
-                                  "use_crepe=False (--no_crepe) for the AC "
-                                  "tracker")
-    return get_pitch_ac(wav, len(mel), hp, device)
+        try:
+            from ..ops.crepe import get_pitch_crepe
+
+            f0, coarse = get_pitch_crepe(wav, mel, hp, threshold,
+                                         device=device)
+            tag = "crepe"
+        except (ImportError, FileNotFoundError) as e:
+            print(f"| crepe unavailable ({e}); falling back to AC tracker")
+    if tag == "ac":
+        f0, coarse = get_pitch_ac(wav, len(mel), hp, device)
+    return (f0, coarse, tag) if return_tag else (f0, coarse)
 
 
 def wav2spec_for(hp, wav_fn, device="cpu") -> tuple:
     """(wav, mel [T, M]) through the configured vocoder's wav2spec.  With
     ``wav_bucket_frames`` (default 128) the wav is zero-padded to a bucket
-    multiple first and the mel trimmed to the true frame count, like the
-    JAX package."""
-    from ..utils.audio_io import load_wav_nsf
+    multiple first and the mel (and the pwg family's padded wav) trimmed
+    to the true frame count, like the JAX package."""
+    from ..utils.audio_io import load_wav, load_wav_nsf
     from ..vocoders.base import get_vocoder_cls
 
     cls = get_vocoder_cls(hp)
-    if "nsf" not in str(hp["vocoder"]).lower():
-        raise NotImplementedError("only the NSF-HiFiGAN front end is ported")
     bucket = int(hp.get("wav_bucket_frames", 128) or 1)
     if bucket <= 1:
         return cls.wav2spec(wav_fn, hp, device)
+    is_nsf = "nsf" in str(hp["vocoder"]).lower()
     if isinstance(wav_fn, np.ndarray):
         wav = np.asarray(wav_fn, np.float32)
-    else:
+    elif is_nsf:
         wav, _ = load_wav_nsf(wav_fn, target_sr=hp["audio_sample_rate"])
+    else:
+        wav, _ = load_wav(wav_fn, sr=hp["audio_sample_rate"])
     hop, n_fft = hp["hop_size"], hp["fft_size"]
-    true_frames = 1 + (len(wav) + 2 * ((n_fft - hop) // 2) - n_fft) // hop
+    if is_nsf:
+        true_frames = 1 + (len(wav) + 2 * ((n_fft - hop) // 2) - n_fft) // hop
+    else:
+        true_frames = 1 + len(wav) // hop
     pad_len = -(-len(wav) // (bucket * hop)) * (bucket * hop)
-    _, mel = cls.wav2spec(np.pad(wav, (0, pad_len - len(wav))), hp, device)
-    return wav, mel[:true_frames]
+    wav_out, mel = cls.wav2spec(np.pad(wav, (0, pad_len - len(wav))), hp,
+                                device)
+    return (wav if is_nsf else wav_out[: true_frames * hop]), \
+        mel[:true_frames]
 
 
 def process_item(item_name: str, wav_fn, hp, hubert_encode,
@@ -77,9 +94,10 @@ def process_item(item_name: str, wav_fn, hp, hubert_encode,
                  device="cpu") -> Optional[Dict]:
     """One utterance -> the binarizer's item (mel, f0, pitch, hubert,
     mel2ph, spec_min/max) as ``diffsvc_tpu/data/features.py:147-192`` makes
-    it: uniform mel2ph, the AC tracker, ``hubert_encode(wav_fn)`` units.
-    Returns None (and prints) when the item fails, e.g. an empty f0, as the
-    binarizer skips it.  MFA TextGrid alignment is not ported."""
+    it: uniform mel2ph, CREPE (``use_crepe``) or the AC tracker,
+    ``hubert_encode(wav_fn)`` units.  Returns None (and prints the message)
+    when the item fails for any reason, e.g. an empty f0, as the binarizer
+    skips it.  MFA TextGrid alignment is not ported."""
     ba = binarization_args or hp.get("binarization_args", {})
     try:
         wav, mel = wav2spec_for(hp, wav_fn, device)
@@ -100,7 +118,7 @@ def process_item(item_name: str, wav_fn, hp, hubert_encode,
             if ba.get("with_align", True):
                 processed["mel2ph"] = get_align_uniform(mel.shape[0],
                                                         units.shape[0])
-    except (ValueError, OSError) as e:
+    except Exception as e:
         print(f"| Skip item ({e}). item_name: {item_name}")
         return None
     return processed

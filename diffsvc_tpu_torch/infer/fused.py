@@ -5,20 +5,25 @@ as one program per length bucket,
 
     (wav_44k, key_shift, spk, noise) -> (wav_out, f0, mel)
 
-on the device: the 44.1 -> 16 kHz resample for HuBERT
-(``ops/resample.py``), the NSF mel, the AC tracker on its static Praat grid
-with the mel-grid padding, HuBERT-soft units, the uniform mel2ph alignment
+on the device: the resample to 16 kHz for HuBERT (``ops/resample.py``),
+the vocoder family's mel (NSF, or the 24 kHz profile's pwg mel), the AC
+tracker on its static Praat grid with the mel-grid padding, HuBERT-soft (or
+ContentVec) units, the uniform mel2ph alignment
 (:func:`align_uniform_device`), ``norm_interp_f0`` on the device
 (:func:`norm_interp_f0_device`), the padded condition, the key shift,
-sampling through ``GaussianDiffusion.infer`` (K2, with K1 inside) and the
-vocoder through ``generator.apply_serving`` (K3).
+sampling through ``GaussianDiffusion.infer`` (K2, with K1 inside; at
+``acc <= 1`` DDPM, one K1 call per step) and the vocoder through
+``generator.apply_serving`` (K3), fed ln-mel for NSF-HiFiGAN and the
+log10-mel as it is for HiFi-GAN (``diffsvc_tpu/infer/fused.py:146-190,
+263``).  Like the JAX program it runs no pe.
 
 On the card each (length, batch size, ``use_gt_mel``, ``add_noise_step``,
 input wire dtype) is captured once as a CUDA graph, the counterpart of
 ``jax.jit`` per bucket (:class:`CapturedProgram`); on the CPU the same body
-runs eagerly.  The random draws (the sampler's start noise, the NSF source)
-come from an explicit ``torch.Generator`` outside the program, or from the
-caller (``init_noise``, ``voc_randoms``), and enter as inputs.
+runs eagerly.  The random draws (the sampler's start noise, DDPM's
+per-step noise, the NSF source) come from an explicit ``torch.Generator``
+outside the program, or from the caller (``init_noise``, ``step_noise``,
+``voc_randoms``), and enter as inputs.
 
 ``batched_sharded`` (the JAX package's multi-chip serving) is not ported.
 """
@@ -27,6 +32,7 @@ from __future__ import annotations
 
 import copy
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -122,6 +128,7 @@ class CapturedProgram:
     """
 
     def __init__(self, program, inputs):
+        t0 = time.perf_counter()
         self.static_in = [x.clone() for x in inputs]
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -129,6 +136,8 @@ class CapturedProgram:
             program(*self.static_in)
         torch.cuda.current_stream().wait_stream(side)
         torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.warmup_s = t1 - t0       # host seconds of the warm-up call
         before = _counts()
         # the graph's private pool (the static outputs in it) is what the
         # allocator holds after the capture beyond what it held before, each
@@ -138,6 +147,7 @@ class CapturedProgram:
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.static_out = program(*self.static_in)
+        self.capture_s = time.perf_counter() - t1    # of the capture
         after = _counts()
         _add_counts([b - a for a, b in zip(after, before)])
         self.launches = [a - b for a, b in zip(after, before)]
@@ -179,8 +189,9 @@ class FusedSvc:
                  cuda_graphs: bool = True):
         """:param model: a loaded ``GaussianDiffusion``; its weights are
             shared, and the device is theirs
-        :param vocoder: the NSF-HiFiGAN wrapper (``.gen``, ``.cfg``)
-        :param hubert: the ``HubertSoft`` module
+        :param vocoder: the NSF-HiFiGAN or HiFi-GAN wrapper (``.gen``,
+            ``.cfg``)
+        :param hubert: the ``HubertSoft`` (or ``ContentVec``) module
         :param cuda_graphs: capture each bucket on the card (False runs the
             same body eagerly there: the comparison of the two)"""
         # snapshot hp: a later change of the caller's dict (another
@@ -189,9 +200,7 @@ class FusedSvc:
         self.hp = type(hp)(hp)
         if compute_dtype:
             self.hp["diff_compute_dtype"] = compute_dtype
-        if "nsf" not in str(self.hp.get("vocoder", "")).lower():
-            raise NotImplementedError("the fused program is ported for the "
-                                      "NSF-HiFiGAN vocoder only")
+        self.is_nsf = "nsf" in str(self.hp.get("vocoder", "")).lower()
         if hubert is None:
             raise FileNotFoundError("the fused program needs the HuBERT-soft "
                                     "checkpoint (hubert_path)")
@@ -215,9 +224,20 @@ class FusedSvc:
         """Static sizes of the program for ``n44`` input samples."""
         hp = self.hp
         hop, nfft = int(hp["hop_size"]), int(hp["fft_size"])
-        t_mel = 1 + (n44 + 2 * ((nfft - hop) // 2) - nfft) // hop
+        if self.is_nsf:
+            t_mel = 1 + (n44 + 2 * ((nfft - hop) // 2) - nfft) // hop
+        else:
+            t_mel = 1 + n44 // hop
         return dict(t_mel=t_mel, pad_t=-(-t_mel // 128) * 128,
                     n_voc=t_mel * int(np.prod(self.vocoder.cfg.upsample_rates)))
+
+    def ddpm_steps(self, use_gt_mel: bool = False,
+                   add_noise_step: int = 500) -> int:
+        """DDPM's steps (the per-step noise's leading size), 0 when the
+        program samples with K2's ladder."""
+        if self.speedup > 1:
+            return 0
+        return int(add_noise_step) if use_gt_mel else self.model.K_step
 
     def _build(self, n44: int, use_gt_mel: bool = False,
                add_noise_step: int = 500):
@@ -235,17 +255,24 @@ class FusedSvc:
         model, hubert, gen = self.model, self.hubert, self.vocoder.gen
         out_int16 = bool(hp.get("fused_output_int16", False))
         f0_ceiling = math.log2(f0_max)
+        geo = dict(sr=sr, n_fft=int(hp["fft_size"]), hop=hop,
+                   win_length=int(hp["win_size"]), n_mels=nmel,
+                   fmin=float(hp["fmin"]), fmax=float(hp["fmax"]))
+        voc_scale = mel_ops.LN_10 if self.is_nsf else 1.0
 
         @torch.no_grad()
-        def program(wav, key_shift, spk, noise, rand_ini, unit_noise):
+        def program(wav, key_shift, spk, noise, rand_ini, unit_noise,
+                    step_noise=None):
             if wav.dtype == torch.int16:
                 # as to_float on the host, so both wires agree bit for bit
                 wav = wav.float() / 32767.0
             wav16 = resample_poly_device(wav, sr, 16000)
-            mel = mel_ops.wav2mel_nsf(
-                wav, sr=sr, n_fft=int(hp["fft_size"]), hop=hop,
-                win_length=int(hp["win_size"]), n_mels=nmel,
-                fmin=float(hp["fmin"]), fmax=float(hp["fmax"]))[:, :t_mel]
+            if self.is_nsf:
+                mel = mel_ops.wav2mel_nsf(wav, **geo)
+            else:
+                mel = mel_ops.wav2mel_pwg(
+                    wav, eps=float(hp.get("wav2spec_eps", 1e-6)), **geo)
+            mel = mel[:, :t_mel]
             # the Praat track centred on the mel grid
             f0_track = f0_ac.track(wav, sr=sr, hop=hop, f0_min=f0_min,
                                    f0_max=f0_max)
@@ -278,14 +305,14 @@ class FusedSvc:
             out = model.infer(batch, speedup=self.speedup,
                               use_gt_mel=use_gt_mel,
                               add_noise_step=add_noise_step,
-                              init_noise=noise)
+                              init_noise=noise, step_noise=step_noise)
             mel_pred = torch.clamp(out["mel_out"][:, :t_mel],
                                    float(hp.get("mel_vmin", -6.0)),
                                    float(hp.get("mel_vmax", 1.5)))
             # the vocoder's f0 is the conditioner's (key-shifted) one, as the
             # reference's use_pe=False path
             f0_voc = out["f0_denorm"][:, :t_mel]
-            wav_out = gen_mod.apply_serving(gen, mel_pred * mel_ops.LN_10,
+            wav_out = gen_mod.apply_serving(gen, mel_pred * voc_scale,
                                             f0_voc, (rand_ini, unit_noise))
             if out_int16:
                 wav_out = torch.round(torch.clamp(wav_out, -1.0, 1.0)
@@ -319,10 +346,15 @@ class FusedSvc:
             self._fns[key] = program
         return self._fns[key]
 
-    def _draws(self, b: int, n44: int, generator, init_noise, voc_randoms):
+    def _draws(self, b: int, n44: int, generator, init_noise, voc_randoms,
+               step_noise=None, n_steps: int = 0):
+        """(start noise, the NSF source's two draws[, DDPM's per-step
+        noise when ``n_steps``]) on the device: the caller's, else drawn
+        from ``generator``, in that order."""
         g = self.geometry(n44)
         dev = self.device
-        if generator is None and (init_noise is None or voc_randoms is None):
+        if generator is None and (init_noise is None or voc_randoms is None
+                                  or (n_steps and step_noise is None)):
             generator = torch.Generator(device=dev).manual_seed(0)
         if init_noise is None:
             init_noise = torch.randn((b, g["pad_t"], self.model.mel_bins),
@@ -330,18 +362,25 @@ class FusedSvc:
         if voc_randoms is None:
             voc_randoms = gen_mod.draw_randoms(
                 b, g["n_voc"], self.vocoder.cfg.harmonic_num, generator, dev)
+        draws = [init_noise, *voc_randoms]
+        if n_steps:
+            if step_noise is None:
+                step_noise = torch.randn(
+                    (n_steps, b, g["pad_t"], self.model.mel_bins),
+                    generator=generator, device=dev)
+            draws.append(step_noise)
         return tuple((r if isinstance(r, torch.Tensor) else torch.from_numpy(
-            np.array(r, np.float32))).to(dev, torch.float32)
-            for r in (init_noise, *voc_randoms))
+            np.array(r, np.float32))).to(dev, torch.float32) for r in draws)
 
     def run(self, stacked: np.ndarray, key_shifts, spk_id: int = 0,
             generator: Optional[torch.Generator] = None,
             use_gt_mel: bool = False, add_noise_step: int = 500,
-            init_noise=None, voc_randoms=None):
+            init_noise=None, voc_randoms=None, step_noise=None):
         """The program for ``stacked`` [B, n44] (int16 or float32) as it is,
-        no padding or trimming.  ``init_noise`` [B, pad_t, M] and
+        no padding or trimming.  ``init_noise`` [B, pad_t, M],
         ``voc_randoms`` (``generator.draw_randoms`` at B and the vocoder's
-        length) replace the draws from ``generator``.  Returns the device
+        length) and, at ``acc <= 1``, ``step_noise`` [``ddpm_steps``, B,
+        pad_t, M] replace the draws from ``generator``.  Returns the device
         tensors (wav [B, n_voc], f0 [B, t_mel], mel [B, t_mel, M]); on the
         card they are the graph's static outputs, valid until its next
         replay."""
@@ -351,7 +390,9 @@ class FusedSvc:
                   torch.as_tensor(np.asarray(key_shifts, np.float32)
                                   ).reshape(b).to(dev),
                   torch.full((b,), int(spk_id), dtype=torch.long, device=dev),
-                  *self._draws(b, n44, generator, init_noise, voc_randoms))
+                  *self._draws(b, n44, generator, init_noise, voc_randoms,
+                               step_noise, self.ddpm_steps(use_gt_mel,
+                                                           add_noise_step)))
         fn = self._get_fn(n44, b, use_gt_mel, add_noise_step, inputs)
         return fn(*inputs)
 
@@ -370,7 +411,7 @@ class FusedSvc:
     def __call__(self, wav44, generator: Optional[torch.Generator] = None,
                  key_shift: float = 0, spk_id: int = 0,
                  use_gt_mel: bool = False, add_noise_step: int = 500,
-                 init_noise=None, voc_randoms=None):
+                 init_noise=None, voc_randoms=None, step_noise=None):
         """Convert one chunk: (wav, f0, mel) as host numpy, trimmed to the
         input's length (``fused_bucket_samples`` pads it up to a bucket
         multiple first).  The wav is int16 with ``fused_output_int16``
@@ -382,14 +423,14 @@ class FusedSvc:
         stacked[0, :true_n] = wav44
         wav_o, f0_o, mel_o = self.run(
             stacked, [key_shift], spk_id, generator, use_gt_mel,
-            add_noise_step, init_noise, voc_randoms)
+            add_noise_step, init_noise, voc_randoms, step_noise)
         t_true = -(-true_n // int(self.hp["hop_size"]))
         return (wav_o[0, :true_n].cpu().numpy(), f0_o[0, :t_true].cpu().numpy(),
                 mel_o[0, :t_true].cpu().numpy())
 
     def batched(self, wavs, generator: Optional[torch.Generator] = None,
                 key_shifts=None, spk_id: int = 0, init_noise=None,
-                voc_randoms=None):
+                voc_randoms=None, step_noise=None):
         """Convert N chunks in one program at B = N (K2 and K3 at B = N):
         each padded to the longest (rounded up to ``fused_bucket_samples``)
         and trimmed back.  ``key_shifts``: a scalar or one per chunk.
@@ -413,7 +454,7 @@ class FusedSvc:
             key_shifts = [key_shifts] * n
         wav_o, f0_o, mel_o = (t.cpu().numpy() for t in self.run(
             stacked, key_shifts, spk_id, generator, init_noise=init_noise,
-            voc_randoms=voc_randoms))
+            voc_randoms=voc_randoms, step_noise=step_noise))
         hop = int(self.hp["hop_size"])
         return [(wav_o[i, :ln], f0_o[i, : -(-ln // hop)],
                  mel_o[i, : -(-ln // hop)]) for i, ln in enumerate(lens)]
@@ -421,5 +462,10 @@ class FusedSvc:
     def pool_bytes(self) -> dict:
         """Graph memory per captured bucket (the private pools' reserve)."""
         return {k: fn.pool_bytes for k, fn in self._fns.items()
+                if isinstance(fn, CapturedProgram)}
+
+    def capture_seconds(self) -> dict:
+        """(warm-up, capture) host seconds per captured bucket."""
+        return {k: (fn.warmup_s, fn.capture_s) for k, fn in self._fns.items()
                 if isinstance(fn, CapturedProgram)}
 

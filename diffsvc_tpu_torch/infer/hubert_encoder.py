@@ -1,11 +1,13 @@
-"""HuBERT-soft encoder wrapper: waveform/file -> [T, 256] soft units.
+"""HuBERT-soft / ContentVec encoder wrapper: waveform/file -> [T, 256]
+units.
 
 Counterpart of ``diffsvc_tpu/infer/hubert_encoder.py`` (reference
 ``preprocessing/hubertinfer.py``): loads ``hubert_soft.pt`` (or the first
 ``*.pt`` under the configured directory), uses a sibling ``.npy`` of a wav
 path when one exists, resamples to 16 kHz.  The waveform is zero-padded to
 0.4 s multiples and the units trimmed back, exactly like the JAX package,
-so the two produce the same units.  ContentVec is not ported yet.
+so the two produce the same units.  With ``use_vec`` the encoder is
+ContentVec (``models/contentvec.py``) from ``vec_path``.
 """
 
 from __future__ import annotations
@@ -39,11 +41,19 @@ class Hubertencoder:
     def __init__(self, pt_path: str = "checkpoints/hubert/hubert_soft.pt",
                  hp=None, device="cpu"):
         self.hp = hp or {}
-        if self.hp.get("use_vec"):
-            raise NotImplementedError("ContentVec (use_vec) is not ported to "
-                                      "torch yet")
         self.device = torch.device(device)
         self.model = None
+        if self.hp.get("use_vec"):
+            from ..models import contentvec
+
+            vec_path = self.hp.get(
+                "vec_path", "checkpoints/vec/checkpoint_best_legacy_500.pt")
+            if os.path.exists(vec_path):
+                self.model = contentvec.load(vec_path, self.device)
+                print(f"| Loaded ContentVec from {vec_path}")
+            else:
+                print(f"| WARNING: no ContentVec checkpoint at {vec_path}")
+            return
         p = Path(pt_path)
         candidates = [p] if p.is_file() else (
             sorted(p.parent.rglob("*.pt")) if p.parent.exists() else [])
@@ -68,7 +78,7 @@ class Hubertencoder:
         else:
             wav16k, _ = load_wav(wav_path, sr=16000)
         if self.model is None:
-            raise FileNotFoundError("HuBERT checkpoint not loaded")
+            raise FileNotFoundError("HuBERT/ContentVec checkpoint not loaded")
         true_units = max(len(wav16k) // 320, 1)
         pad_len = -(-len(wav16k) // BUCKET) * BUCKET
         wav16k = np.pad(np.asarray(wav16k, np.float32),

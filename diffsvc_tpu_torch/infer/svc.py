@@ -12,12 +12,13 @@ length bucket, a CUDA graph on the card: ``infer/fused.py``),
 ``infer_batched`` (the modular front end per clip, then one sampling and
 one vocoder call per group of equal padded length).
 
-Not ported yet: pe and CREPE, so ``use_crepe`` defaults to False here (the
-JAX facade defaults to True).  Asking for CREPE raises NotImplementedError
-unless the md5 f0 cache holds the clip's CREPE track; asking for pe raises
-when pe weights are configured (without them the JAX package, too, keeps
-the conditioner's f0).  The fused routes run the AC tracker whatever
-``use_crepe`` says, as the JAX package's do.
+f0: CREPE by default (``use_crepe=True``, as the JAX facade), on the card,
+falling back to the AC tracker when CREPE's weights are missing; only real
+CREPE tracks go into the md5 f0 cache.  pe (``models/pe.py``) is loaded
+when ``pe_ckpt``'s directory exists and, with ``use_pe``, takes the
+vocoder's f0 from the generated mel on the modular and batched routes.
+The fused routes run the AC tracker and no pe whatever the flags say, as
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from ..config import set_hparams
 from ..data import features
+from ..models import pe as pe_model
 from ..models.diffusion import GaussianDiffusion
 from ..ops import mel as mel_ops
 from ..ops.pitch import denorm_f0
@@ -110,10 +112,17 @@ class Svc:
         self.hubert = Hubertencoder(
             self.hp["hubert_path"], hp=self.hp,
             device=self.device if hubert_gpu else "cpu")
+        # pe, as the JAX facade: loaded when its checkpoint directory
+        # exists; a load that fails leaves the conditioner's f0
+        self.pe = None
         pe_ckpt = self.hp.get("pe_ckpt", "")
-        # the JAX facade loads pe when its checkpoint directory exists
-        self.pe_configured = bool(pe_ckpt) and os.path.exists(
-            pe_ckpt.split("/model_ckpt")[0])
+        if pe_ckpt and os.path.exists(pe_ckpt.split("/model_ckpt")[0]):
+            try:
+                self.pe = pe_model.load(pe_ckpt, self.hp, self.device)
+                print(f"| Loaded pe from {pe_ckpt}")
+            except Exception as e:
+                print(f"| pe load failed ({e}); use_pe will fall back to "
+                      "fs2 f0")
         self.vocoder = get_vocoder_cls(self.hp)(self.hp, device=self.device)
         self.f0_dict = read_temp(F0_CACHE_PATH)
         self.spk_map = {}
@@ -149,17 +158,18 @@ class Svc:
     def infer_fused(self, wav, key: int = 0, acc: int = 20, seed: int = 0,
                     compute_dtype=None, use_gt_mel: bool = False,
                     add_noise_step: int = 500, init_noise=None,
-                    voc_randoms=None):
+                    voc_randoms=None, step_noise=None):
         """Serving fast path: one chunk (float32 or int16 at the model's
         rate) through the fused program; returns (wav, f0, mel) as host
         numpy.  The noise comes from ``seed`` unless ``init_noise`` /
-        ``voc_randoms`` are given."""
+        ``voc_randoms`` / ``step_noise`` (DDPM) are given."""
         fused = self.fused_model(acc, compute_dtype)
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         return fused(wav, gen, key_shift=key,
                      spk_id=self.resolve_spk_id(None), use_gt_mel=use_gt_mel,
                      add_noise_step=int(add_noise_step),
-                     init_noise=init_noise, voc_randoms=voc_randoms)
+                     init_noise=init_noise, voc_randoms=voc_randoms,
+                     step_noise=step_noise)
 
     def infer_fused_batched(self, wavs, key: int = 0, acc: int = 20,
                             seed: int = 0, compute_dtype=None,
@@ -173,14 +183,12 @@ class Svc:
                              init_noise=init_noise, voc_randoms=voc_randoms)
 
     # ------------------------------------------------------------------
-    def infer(self, in_path, key: int, acc: int, use_pe=True, use_crepe=False,
+    def infer(self, in_path, key: int, acc: int, use_pe=True, use_crepe=True,
               thre=0.05, singer=False, seed=0, **kwargs):
-        """Convert one clip.  ``init_noise`` ([1, T, M]) and ``voc_randoms``
+        """Convert one clip.  ``init_noise`` ([1, T, M]), ``step_noise``
+        (DDPM's per-step noise, [t_start, 1, T, M]) and ``voc_randoms``
         (generator.draw_randoms output) may be passed to fix the sampler's
-        and the NSF source's noise; otherwise both come from ``seed``."""
-        if use_pe and self.pe_configured:
-            raise NotImplementedError("pe is not ported to torch yet; pass "
-                                      "use_pe=False")
+        and the NSF source's noise; otherwise they come from ``seed``."""
         self.timings = {}
         batch = self.pre(in_path, acc, use_crepe, thre,
                          spk_id=kwargs.get("spk_id"))
@@ -194,15 +202,15 @@ class Svc:
         if self.hp.get("use_spk_id") and "spk_ids" in batch:
             tb["spk_embed"] = torch.from_numpy(batch["spk_ids"]).to(dev)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        init_noise = kwargs.get("init_noise")
-        if init_noise is not None:
-            init_noise = torch.as_tensor(init_noise, dtype=torch.float32)
+        noise = {k: None if kwargs.get(k) is None else torch.as_tensor(
+            kwargs[k], dtype=torch.float32)
+            for k in ("init_noise", "step_noise")}
         t0 = time.time()
         outputs = self.model.infer(
             tb, speedup=int(acc),
             use_gt_mel=bool(kwargs.get("use_gt_mel", False)),
             add_noise_step=int(kwargs.get("add_noise_step", 500)),
-            init_noise=init_noise, generator=gen)
+            generator=gen, **noise)
         mel_out = outputs["mel_out"].cpu().numpy()
         self.timings["diffusion"] = time.time() - t0
         print(f"executing 'diff_infer' costed {self.timings['diffusion']:.3f}s")
@@ -213,13 +221,18 @@ class Svc:
             use_uv=self.hp.get("use_uv", False),
             f0_mean=float(self.hp.get("f0_mean", 0.0) or 0.0),
             f0_std=float(self.hp.get("f0_std", 1.0) or 1.0))
-        batch["f0_pred"] = outputs["f0_denorm"].cpu().numpy()
+        f0_pred = outputs["f0_denorm"]
+        if use_pe and self.pe is not None:
+            t0 = time.time()
+            f0_pred = self.pe(outputs["mel_out"])["f0_denorm_pred"]
+            self.timings["pe"] = time.time() - t0
+        batch["f0_pred"] = f0_pred.cpu().numpy()
         return self.after_infer(batch, singer, in_path, seed=seed,
                                 voc_randoms=kwargs.get("voc_randoms"))
 
     @torch.no_grad()
     def infer_batched(self, inputs, key: int, acc: int, use_pe=True,
-                      use_crepe=False, thre=0.05, seed=0, init_noise=None,
+                      use_crepe=True, thre=0.05, seed=0, init_noise=None,
                       voc_randoms=None):
         """Convert many clips or chunks: the front end per clip, then per
         group of equal padded (mel, unit) length one sampling call (K2 at
@@ -228,11 +241,10 @@ class Svc:
 
         ``init_noise`` (one [T, M] array per input, T its padded mel length)
         and ``voc_randoms`` (one (rand_ini [H+1], unit_noise [H+1, T*hop])
-        pair per input) replace the draws from ``seed``."""
-        if use_pe and self.pe_configured:
-            raise NotImplementedError("pe is not ported to torch yet; pass "
-                                      "use_pe=False")
+        pair per input) replace the draws from ``seed``.  With ``use_pe``
+        and pe loaded, the vocoder's f0 is pe's on the group's mel."""
         hp, dev = self.hp, self.device
+        is_nsf = "nsf" in str(hp.get("vocoder", "")).lower()
         samples = []
         for in_path in inputs:
             b1 = self.pre(in_path, acc, use_crepe, thre)
@@ -261,6 +273,8 @@ class Svc:
                                    generator=gen)
             mel_out = out["mel_out"]
             f0_pred_all = out["f0_denorm"]
+            if use_pe and self.pe is not None:
+                f0_pred_all = self.pe(mel_out)["f0_denorm_pred"]
             # collate-padding frames are exact-0 mel: as log-mel that is
             # loud broadband energy that would bleed into the kept frames
             # through the generator's receptive field, so floor them to the
@@ -280,7 +294,7 @@ class Svc:
                     [np.asarray(voc_randoms[i][k], np.float32)
                      for i in idxs])).to(dev) for k in (0, 1))
             wavs = gen_mod.apply_serving(
-                self.vocoder.gen, mel_clip * mel_ops.LN_10,
+                self.vocoder.gen, mel_clip * (mel_ops.LN_10 if is_nsf else 1.0),
                 f0_pred_all if hp.get("use_nsf") else None, randoms)
             mel_out, wavs = mel_out.cpu().numpy(), wavs.cpu().numpy()
             f0_pred_all = f0_pred_all.cpu().numpy()
@@ -326,18 +340,31 @@ class Svc:
         return f0_gt, f0_pred, wav_pred
 
     # ------------------------------------------------------------------
-    def _cached_pitch(self, wav, mel, use_crepe: bool):
-        if use_crepe:
-            md5 = get_md5(wav)
-            if f"{md5}_gt" in self.f0_dict:
-                print("load temp crepe f0")
-                return (np.array(self.f0_dict[f"{md5}_gt"]["f0"]),
-                        np.array(self.f0_dict[f"{md5}_coarse"]["f0"]))
-        return features.get_pitch(wav, mel, self.hp, use_crepe,
-                                  device=self.device)
+    def _cached_pitch(self, wav, mel, use_crepe: bool, thre: float = 0.05):
+        """The f0 of one clip; CREPE tracks are kept in the md5 f0 cache,
+        and only real ones (``diffsvc_tpu/infer/svc.py:340-360``): an AC
+        fallback is never stored under CREPE's key."""
+        if not use_crepe:
+            return features.get_pitch(wav, mel, self.hp, False, thre,
+                                      device=self.device)
+        md5 = get_md5(wav)
+        if f"{md5}_gt" in self.f0_dict:
+            print("load temp crepe f0")
+            return (np.array(self.f0_dict[f"{md5}_gt"]["f0"]),
+                    np.array(self.f0_dict[f"{md5}_coarse"]["f0"]))
+        gt, coarse, tag = features.get_pitch(wav, mel, self.hp, True, thre,
+                                             device=self.device,
+                                             return_tag=True)
+        if tag == "crepe":
+            now = int(time.time())
+            self.f0_dict[f"{md5}_gt"] = {"f0": gt.tolist(), "time": now}
+            self.f0_dict[f"{md5}_coarse"] = {
+                "f0": np.asarray(coarse).tolist(), "time": now}
+            write_temp(F0_CACHE_PATH, self.f0_dict)
+        return gt, coarse
 
     def temporary_dict2processed_input(self, item_name, temp_dict,
-                                       use_crepe=False, thre=0.05):
+                                       use_crepe=True, thre=0.05):
         hp = self.hp
         t0 = time.time()
         wav, mel = features.wav2spec_for(hp, temp_dict["wav_fn"], self.device)
@@ -349,7 +376,7 @@ class Svc:
         if ba.get("with_f0", True):
             t0 = time.time()
             processed["f0"], processed["pitch"] = self._cached_pitch(
-                wav, mel, use_crepe)
+                wav, mel, use_crepe, thre)
             self.timings["f0"] = time.time() - t0
             print(f"executing 'get_pitch' costed {self.timings['f0']:.3f}s")
         if ba.get("with_hubert", True):
@@ -376,7 +403,7 @@ class Svc:
                 return int(name)
         return 0
 
-    def pre(self, wav_fn, accelerate, use_crepe=False, thre=0.05, spk_id=None):
+    def pre(self, wav_fn, accelerate, use_crepe=True, thre=0.05, spk_id=None):
         if isinstance(wav_fn, io.BytesIO):
             item_name = self.project_name
         else:

@@ -8,12 +8,13 @@ Usage:
         --config checkpoints/<name>/config.yaml --files song.wav --key 0
 
 The model runs on the card; ``--device cpu`` asks for the CPU (there is no
-fallback).  CREPE is not ported yet, so the AC tracker is the default here
-(infer.py defaults to CREPE): ``--no_crepe`` is accepted and changes
-nothing, and ``--crepe`` raises NotImplementedError.  ``--fused`` converts
-each chunk through the fused program (one CUDA graph per length bucket;
-in-program AC f0, no pe), ``--batch_chunks`` converts the voiced chunks
-in batched device calls, ``--crossfade_ms`` blends the chunk seams.
+fallback).  As infer.py: CREPE f0 unless ``--no_crepe`` (without CREPE's
+weights it falls back to the AC tracker; ``--crepe`` is accepted and
+changes nothing), pe on the 24 kHz profile unless ``--no_pe``, and
+``--acc 1`` samples with DDPM.  ``--fused`` converts each chunk through the
+fused program (one CUDA graph per length bucket; in-program AC f0, no pe),
+``--batch_chunks`` converts the voiced chunks in batched device calls,
+``--crossfade_ms`` blends the chunk seams.
 """
 
 from __future__ import annotations
@@ -200,14 +201,15 @@ def main(argv=None):
                     help="wav files under ./raw or absolute paths")
     ap.add_argument("--key", type=int, nargs="+", default=[0])
     ap.add_argument("--acc", type=int, default=None,
-                    help="sampler speedup (default: the config's pndm_speedup)")
+                    help="sampler speedup (default: the config's "
+                         "pndm_speedup); 1 samples with DDPM")
     ap.add_argument("--slice_db", type=float, default=-40)
     ap.add_argument("--no_pe", action="store_true")
     crepe = ap.add_mutually_exclusive_group()
     crepe.add_argument("--crepe", action="store_true",
-                       help="CREPE f0 (not ported yet: raises)")
+                       help="CREPE f0 (the default; accepted, no effect)")
     crepe.add_argument("--no_crepe", action="store_true",
-                       help="the AC f0 tracker (the default)")
+                       help="the AC f0 tracker instead of CREPE")
     ap.add_argument("--thre", type=float, default=0.05)
     ap.add_argument("--use_gt_mel", action="store_true")
     ap.add_argument("--add_noise_step", type=int, default=500)
@@ -241,7 +243,7 @@ def main(argv=None):
         file_path = f_name if os.path.isabs(f_name) or os.path.exists(f_name) \
             else None
         run_clip(model, key=key, acc=acc, use_pe=not args.no_pe,
-                 use_crepe=args.crepe, thre=args.thre,
+                 use_crepe=not args.no_crepe, thre=args.thre,
                  use_gt_mel=args.use_gt_mel,
                  add_noise_step=args.add_noise_step,
                  f_name=os.path.basename(f_name), file_path=file_path,

@@ -3,17 +3,19 @@
 Counterpart of ``diffsvc_tpu/models/diffusion.py`` (reference
 ``network/diff/diffusion.py``): the beta schedules and derived tables,
 norm/denorm, q_sample, the training loss (``p_losses``,
-``GaussianDiffusion.training_loss``, through K4), the PLMS and
-DPM-Solver++(2M) samplers, optional ``sampler_clip_x0`` and
-``GaussianDiffusion.infer``.
+``GaussianDiffusion.training_loss``, through K4), the DDPM, PLMS and
+DPM-Solver++(2M) samplers, optional ``sampler_clip_x0``,
+``GaussianDiffusion.infer`` and ``OfflineGaussianDiffusion``.
 
-Sampling runs through K2 (``ops/hopper/plms_ladder.py``): every denoiser
-evaluation and the sampler update as one table-driven program — the Hopper
-kernels for CUDA tensors, their plain version for CPU tensors.  The
-step-by-step samplers :func:`p_sample_plms_scan` and
-:func:`p_sample_dpmpp_2m_scan` are the same samplers written the way the
-reference writes them; the tests hold the ladder against them.
-DDPM (``acc <= 1``) is not ported yet.
+PLMS and DPM-Solver++ (``acc > 1``) run through K2
+(``ops/hopper/plms_ladder.py``): every denoiser evaluation and the sampler
+update as one table-driven program — the Hopper kernels for CUDA tensors,
+their plain version for CPU tensors.  The step-by-step samplers
+:func:`p_sample_plms_scan` and :func:`p_sample_dpmpp_2m_scan` are the same
+samplers written the way the reference writes them; the tests hold the
+ladder against them.  DDPM (``acc <= 1``) is :func:`p_sample_ddpm_scan`:
+one denoiser evaluation per step through :func:`diffnet.apply` (K1 on the
+card) and the posterior update in plain torch.
 """
 
 from __future__ import annotations
@@ -45,19 +47,30 @@ def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
 
 
 def make_tables(timesteps: int, schedule_type: str = "cosine",
-                max_beta: float = 0.01) -> dict:
-    """The derived schedule tables the samplers use, computed in float64
-    and stored float32 (numpy) exactly like the JAX package."""
+                 max_beta: float = 0.01) -> dict:
+    """The derived schedule tables the samplers use (reference
+    ``diffusion.py:100-123``), computed in float64 and stored float32
+    (numpy) exactly like the JAX package."""
     if schedule_type == "linear":
         betas = linear_beta_schedule(timesteps, max_beta)
     else:
         betas = cosine_beta_schedule(timesteps)
-    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas, axis=0)
+    ac_prev = np.append(1.0, alphas_cumprod[:-1])
+    post_var = betas * (1.0 - ac_prev) / (1.0 - alphas_cumprod)
     t = {
         "betas": betas,
         "alphas_cumprod": alphas_cumprod,
         "sqrt_alphas_cumprod": np.sqrt(alphas_cumprod),
         "sqrt_one_minus_alphas_cumprod": np.sqrt(1.0 - alphas_cumprod),
+        "sqrt_recip_alphas_cumprod": np.sqrt(1.0 / alphas_cumprod),
+        "sqrt_recipm1_alphas_cumprod": np.sqrt(1.0 / alphas_cumprod - 1),
+        "posterior_log_variance_clipped": np.log(np.maximum(post_var, 1e-20)),
+        "posterior_mean_coef1": betas * np.sqrt(ac_prev)
+        / (1.0 - alphas_cumprod),
+        "posterior_mean_coef2": (1.0 - ac_prev) * np.sqrt(alphas)
+        / (1.0 - alphas_cumprod),
     }
     return {k: v.astype(np.float32) for k, v in t.items()}
 
@@ -107,6 +120,56 @@ def p_losses(tables: dict, denoise_fn, x_start, t, noise,
         per_row = sq.mean(dim=(1, 2))
         return (per_row * sample_mask).sum() / sample_mask.sum().clamp(min=1.0)
     raise NotImplementedError(loss_type)
+
+
+def p_sample_ddpm_scan(tables: dict, denoise_fn, x, t_start: int, *,
+                       step_noise: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None,
+                       clip_denoised: bool = True):
+    """Ancestral DDPM sampling from t_start-1 down to 0
+    (``diffsvc_tpu/models/diffusion.py:156-179``): x0 predicted from the
+    noise, clipped to [-1, 1], the posterior mean, plus the posterior
+    deviation times fresh noise, masked at t=0.
+
+    The noise of step k (t = t_start-1-k) is ``step_noise[k]`` when the
+    caller passes ``step_noise`` [t_start, B, T, M] (a test shares JAX's
+    draws; the fused program draws them outside its graph), else a draw
+    from ``generator`` on x's device."""
+    if step_noise is not None and step_noise.shape[0] != t_start:
+        raise ValueError(f"step_noise has {step_noise.shape[0]} steps, the "
+                         f"trajectory {t_start}")
+    for k, t in enumerate(range(t_start - 1, -1, -1)):
+        tb = torch.full((x.shape[0],), t, dtype=torch.long, device=x.device)
+        noise_pred = denoise_fn(x, tb)
+        x_recon = (_extract(tables["sqrt_recip_alphas_cumprod"], tb, x.ndim)
+                   * x - _extract(tables["sqrt_recipm1_alphas_cumprod"], tb,
+                                  x.ndim) * noise_pred)
+        if clip_denoised:
+            x_recon = torch.clamp(x_recon, -1.0, 1.0)
+        mean = (_extract(tables["posterior_mean_coef1"], tb, x.ndim) * x_recon
+                + _extract(tables["posterior_mean_coef2"], tb, x.ndim) * x)
+        log_var = _extract(tables["posterior_log_variance_clipped"], tb,
+                           x.ndim)
+        noise = step_noise[k] if step_noise is not None else torch.randn(
+            x.shape, generator=generator, device=x.device)
+        nonzero = float(t > 0)
+        x = mean + nonzero * torch.exp(0.5 * log_var) * noise
+    return x
+
+
+def clip_x0_closure(tables: dict, denoise_fn, clip_v: float):
+    """``sampler_clip_x0`` around a denoiser (``diffsvc_tpu/models/
+    diffusion.py:547-562``): the data prediction clamped to +-clip_v in
+    the normalized spec domain, the noise rewritten to match."""
+    def fn(x, t):
+        eps = denoise_fn(x, t)
+        a = _extract(tables["sqrt_alphas_cumprod"], t, x.ndim)
+        s = torch.clamp(_extract(tables["sqrt_one_minus_alphas_cumprod"], t,
+                                 x.ndim), min=1e-12)
+        x0 = torch.clamp((x - s * eps) / torch.clamp(a, min=1e-12),
+                         -clip_v, clip_v)
+        return (x - a * x0) / s
+    return fn
 
 
 def _plms_x_pred(ac: torch.Tensor, x, noise_t, t: int, interval: int):
@@ -346,13 +409,16 @@ class GaussianDiffusion(nn.Module):
     def infer(self, batch: dict, *, speedup: Optional[int] = None,
               use_gt_mel: bool = False, add_noise_step: int = 500,
               init_noise: Optional[torch.Tensor] = None,
+              step_noise: Optional[torch.Tensor] = None,
               generator: Optional[torch.Generator] = None) -> dict:
         """Full sampling; returns 'mel_out' [B, T, M], 'f0_denorm', 'mel2ph'.
 
         ``init_noise`` ([B, T, M]) replaces the Gaussian draw — the start x
         in the default mode, the q_sample noise with ``use_gt_mel`` — so a
         caller can share noise with another implementation; otherwise the
-        draw comes from ``generator``."""
+        draw comes from ``generator``.  DDPM (``speedup <= 1``) also draws
+        noise at every step: ``step_noise`` ([t_start, B, T, M], see
+        :func:`p_sample_ddpm_scan`) replaces those draws."""
         ret = self.fs2(batch["hubert"], batch["mel2ph"], batch["f0"],
                        batch.get("uv"), batch.get("energy"),
                        batch.get("spk_embed"))
@@ -375,14 +441,40 @@ class GaussianDiffusion(nn.Module):
             t_start = self.K_step
             x = noise((b, t_mel, self.mel_bins))
         speedup = self.pndm_speedup if speedup is None else int(speedup)
-        if not speedup or speedup <= 1:
-            raise NotImplementedError("DDPM sampling (acc <= 1) is not "
-                                      "ported to torch yet; use acc > 1")
         sampler = str(self.hp.get("sampler", "plms")).lower()
         clip_v = float(self.hp.get("sampler_clip_x0", 0) or 0)
-        x = self._ladder(cond, x, t_start, speedup, clip_v, sampler)
+        if speedup and speedup > 1:
+            x = self._ladder(cond, x, t_start, speedup, clip_v, sampler)
+        else:
+            denoise_fn = self.denoise_closure(cond)
+            if clip_v > 0:
+                denoise_fn = clip_x0_closure(tables, denoise_fn, clip_v)
+            x = p_sample_ddpm_scan(tables, denoise_fn, x, t_start,
+                                   step_noise=None if step_noise is None
+                                   else step_noise.to(dev, torch.float32),
+                                   generator=generator)
         mel_out = denorm_spec(x, self.spec_min, self.spec_max)
         if batch.get("mel2ph") is not None:
             mel_out = mel_out * (batch["mel2ph"] > 0).to(mel_out.dtype)[:, :, None]
         ret["mel_out"] = mel_out
         return ret
+
+
+class OfflineGaussianDiffusion(GaussianDiffusion):
+    """Sampling from precomputed fs2 mels (``diffsvc_tpu/models/
+    diffusion.py:588-601``, reference ``diffusion.py:299-332``; no task of
+    the repository uses it): with ``batch['fs2_mels']`` and
+    ``gaussian_start: false`` the start is that mel q-sampled to K_step-1
+    (``use_gt_mel`` at ``add_noise_step = K_step``); otherwise the parent's
+    sampling from Gaussian noise."""
+
+    def infer(self, batch: dict, *, speedup: Optional[int] = None,
+              **kwargs) -> dict:
+        fs2_mels = batch.get("fs2_mels")
+        if fs2_mels is None or self.hp.get("gaussian_start", True):
+            return super().infer(batch, speedup=speedup, **kwargs)
+        kwargs.pop("use_gt_mel", None)
+        kwargs.pop("add_noise_step", None)
+        return super().infer(dict(batch, mels=fs2_mels), speedup=speedup,
+                             use_gt_mel=True, add_noise_step=self.K_step,
+                             **kwargs)

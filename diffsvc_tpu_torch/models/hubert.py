@@ -126,15 +126,16 @@ class HubertSoft(nn.Module):
         self.encoder = Encoder(cfg)
         self.proj = nn.Linear(cfg.dim, cfg.proj_dim)
 
-    def encode(self, wav16k: torch.Tensor) -> torch.Tensor:
-        """[B, L] 16 kHz -> [B, T, dim] encoder features (the convolutions
+    def encode(self, wav16k: torch.Tensor, output_layer=None) -> torch.Tensor:
+        """[B, L] 16 kHz -> [B, T, dim] features after the first
+        ``output_layer`` encoder layers (all by default; the convolutions
         in true f32 whatever the caller's cuDNN TF32 flag)."""
         with true_f32_convs():
             x = self.feature_extractor(wav16k).transpose(1, 2)
             x = self.feature_projection.projection(
                 self.feature_projection.norm(x))
             x = self.norm(x + self.positional_embedding(x))
-        for layer in self.encoder.layers:
+        for layer in self.encoder.layers[:output_layer]:
             x = layer(x)
         return x
 

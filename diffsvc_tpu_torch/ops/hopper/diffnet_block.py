@@ -27,7 +27,6 @@ tensors live and are not changed in place.
 from __future__ import annotations
 
 import math
-import weakref
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -73,17 +72,9 @@ def pack_weights(w_dil, w_out, cp: int):
 
 
 def packed_weights(w_dil, w_out, cp: int):
-    """``pack_weights``, kept per (w_dil, w_out) pair of tensors: packed
-    again when either is another tensor or has changed in place (its
-    ``_version``) since the last pack."""
-    state = (w_dil._version, w_out._version, w_dil.data_ptr(),
-             w_out.data_ptr(), cp)
-    hit = _packed.get(w_dil)
-    if hit is not None and hit[0]() is w_out and hit[1] == state:
-        return hit[2]
-    wd, wo = pack_weights(w_dil, w_out, cp)
-    _packed[w_dil] = (weakref.ref(w_out), state, (wd, wo))
-    return wd, wo
+    """``pack_weights``, kept per (w_dil, w_out) pair of tensors
+    (``diffnet_stack.cached_pack``)."""
+    return ds.cached_pack(_packed, w_dil, w_out, cp, pack_weights)
 
 
 def _check(x, step, cond_proj, w_dil, b_dil, w_out, b_out):

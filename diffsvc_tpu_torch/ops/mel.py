@@ -1,11 +1,19 @@
-"""wav -> log10-mel for the 44.1 kHz NSF-HiFiGAN profile.
+"""wav -> log10-mel for both vocoder families.
 
-Counterpart of ``diffsvc_tpu/ops/mel.py`` (``wav2mel_nsf``, ``stft_mag``,
-``mel_filterbank``), parity target ``nvSTFT.get_mel``: reflect pad of
-(n_fft-hop)/2, no centering, ``sqrt(re^2+im^2+1e-9)``, Slaney mel,
-``ln(clip(x, 1e-5))``, converted to log10 (``* 0.434294``).  Runs on the
-wav tensor's device (window and filterbank uploaded once per device), over
-leading batch dimensions.  The 24 kHz ``pwg`` variant is not ported yet.
+Counterpart of ``diffsvc_tpu/ops/mel.py`` (``wav2mel_nsf``,
+``wav2mel_pwg``, ``stft_mag``, ``mel_filterbank``, ``librosa_pad_lr``,
+``wav2spec``):
+
+- **nsf** (44.1 kHz NSF-HiFiGAN), parity target ``nvSTFT.get_mel``: reflect
+  pad of (n_fft-hop)/2, no centering, ``sqrt(re^2+im^2+1e-9)``, Slaney
+  mel, ``ln(clip(x, 1e-5))``, converted to log10 (``* 0.434294``);
+- **pwg** (24 kHz HiFi-GAN), parity target the reference's
+  ``process_utterance`` (``data_gen_utils.py:96-149``): centred STFT with
+  zero padding, ``|STFT|``, Slaney mel, ``log10(max(eps, mel))``.
+
+Runs on the wav tensor's device (window and filterbank uploaded once per
+device), over leading batch dimensions.  ``loud_norm`` (the reference's
+BS.1770 normalization before the pwg mel) is not ported.
 """
 
 from __future__ import annotations
@@ -142,3 +150,51 @@ def _basis_on(sr: int, n_fft: int, n_mels: int, fmin: float, fmax: float,
     b_lo, b_hi = _basis_support(basis)
     basis_t = torch.from_numpy(np.ascontiguousarray(basis[:, b_lo:b_hi].T))
     return b_lo, b_hi, basis_t.to(device)
+
+
+def wav2mel_pwg(wav: torch.Tensor, *, sr: int, n_fft: int, hop: int,
+                win_length: int, n_mels: int, fmin: float, fmax: float,
+                eps: float = 1e-6) -> torch.Tensor:
+    """24 kHz 'pwg'-style log10-mel [..., 1 + n // hop, n_mels] of wav
+    [..., n]: the STFT centred with n_fft/2 zeros on each side."""
+    y = F.pad(wav.float(), (n_fft // 2, n_fft // 2))
+    b_lo, b_hi, basis_t = _basis_on(sr, n_fft, n_mels, fmin, fmax,
+                                    wav.device)
+    spc = stft_mag(y, n_fft, hop, win_length, bin_lo=b_lo, bin_hi=b_hi)
+    return torch.log10(torch.clamp(spc @ basis_t, min=eps))
+
+
+def librosa_pad_lr(x_len: int, fsize: int, fshift: int, pad_sides: int = 1):
+    """Padding that makes the wav a hop multiple covering every mel frame
+    (reference ``utils/audio.py:38-47``)."""
+    assert pad_sides in (1, 2)
+    pad = (x_len // fshift + 1) * fshift - x_len
+    if pad_sides == 1:
+        return 0, pad
+    return pad // 2, pad // 2 + pad % 2
+
+
+def wav2spec(wav: np.ndarray, hp, device="cpu") -> tuple:
+    """(wav, mel [T, M]) as host numpy, the mel computed on ``device``,
+    dispatched on the configured vocoder family as the reference does
+    (``network/vocoders/pwg.py:105-122`` vs ``nsf_hifigan.py:75-92``): the
+    nsf mel of the wav as it is, or the pwg mel and the wav padded to a
+    hop multiple and cut to the mel's frames."""
+    wav = np.ascontiguousarray(wav, dtype=np.float32)
+    geo = dict(sr=hp["audio_sample_rate"], n_fft=hp["fft_size"],
+               hop=hp["hop_size"], win_length=hp["win_size"],
+               n_mels=hp["audio_num_mel_bins"], fmin=float(hp["fmin"]),
+               fmax=float(hp["fmax"]))
+    x = torch.from_numpy(wav).to(device)
+    if "nsf" in str(hp.get("vocoder", "")).lower():
+        return wav, wav2mel_nsf(x, **geo).cpu().numpy()
+    if hp.get("loud_norm"):
+        raise NotImplementedError(
+            "loud_norm (BS.1770 loudness normalization before the pwg mel) "
+            "is not ported; it comes with the PWG vocoder (ROADMAP Queue 1 "
+            "#7)")
+    mel = wav2mel_pwg(x, eps=float(hp.get("wav2spec_eps", 1e-6)), **geo)
+    mel = mel.cpu().numpy()
+    l_pad, r_pad = librosa_pad_lr(len(wav), hp["fft_size"], hp["hop_size"])
+    wav_out = np.pad(wav, (l_pad, r_pad))[: mel.shape[0] * hp["hop_size"]]
+    return wav_out, mel

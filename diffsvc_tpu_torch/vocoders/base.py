@@ -19,7 +19,7 @@ def register_vocoder(cls):
 
 
 def get_vocoder_cls(hp):
-    from . import nsf_hifigan  # noqa: F401  (registers NsfHifiGAN)
+    from . import hifigan, nsf_hifigan  # noqa: F401  (register the classes)
 
     name = str(hp["vocoder"])
     short = name.split(".")[-1]

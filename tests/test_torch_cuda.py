@@ -379,6 +379,13 @@ VOCODERS = {
                  resblock_kernel_sizes=(3, 5),
                  resblock_dilation_sizes=((1, 3), (1, 2)),
                  sampling_rate=8000, use_nsf=True), 1, 29),
+    # config_24k's HiFi-GAN V1: 256 / 128 / 64 channels, K3 from stage 1
+    "hifigan_v1_24k": (dict(num_mels=80, upsample_initial_channel=512,
+                            upsample_rates=(8, 8, 2),
+                            upsample_kernel_sizes=(16, 16, 4),
+                            resblock_kernel_sizes=(3, 7, 11),
+                            resblock_dilation_sizes=((1, 3, 5),) * 3,
+                            sampling_rate=24000, use_nsf=True), 2, 190),
     "openvpi": (dict(num_mels=128, upsample_initial_channel=512,
                      upsample_rates=(8, 8, 2, 2, 2),
                      upsample_kernel_sizes=(16, 16, 4, 4, 4),
@@ -404,11 +411,13 @@ def _vocoder(cuda, name, use_f0=True):
 
 
 @pytest.mark.parametrize("name,use_f0", [("ragged", True), ("ragged", False),
-                                         ("odd", True), ("openvpi", True)])
+                                         ("odd", True), ("openvpi", True),
+                                         ("hifigan_v1_24k", True)])
 def test_vocoder_tail_ragged(cuda, name, use_f0):
     """K3 (through apply_serving) against the plain generator: ragged
     channels at B=2, T=37 with and without the NSF source, channel counts
-    that are not multiples of 4, and the openvpi widths at 300 frames."""
+    that are not multiples of 4, the openvpi widths at 300 frames and
+    config_24k's HiFi-GAN V1 at B=2, 190 frames."""
     from diffsvc_tpu_torch.ops.hopper import vocoder_tail as vt
     from diffsvc_tpu_torch.vocoders import generator as gen_mod
 
@@ -557,3 +566,115 @@ def test_fused_graph_replay_equals_eager(cuda, tmp_path, monkeypatch):
                 torch.from_numpy(first[0])) <= 1e-5
     assert _rel(torch.from_numpy(outs[1][0]),
                 torch.from_numpy(alone[0][:3000])) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stack_and_ladder_at_24k_widths(cuda, dtype):
+    """config_24k's widths: K1 at C=256 (B=2, T=500, 20 layers) and K2 at
+    C=256, M=80 (11 PLMS evaluations) against their plain versions at the
+    limits of the checks above (K1 1e-5 / 1e-2, K2's eps part 1e-4 / 3e-2)."""
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import make_tables
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+    from diffsvc_tpu_torch.utils.synth import randomize, stack_inputs
+
+    f32 = dtype == torch.float32
+    a = stack_inputs(dtype, cuda, b=2, t=500, c=256, layers=20)
+    assert _rel(ds.residual_stack(**a, cycle=4),
+                ds.residual_stack_plain(**a, cycle=4)) <= (1e-5 if f32
+                                                           else 1e-2)
+    net = diffnet.DiffNet(80, 256, 20, 256, 4)
+    randomize(net, 0)
+    net = net.to(cuda)
+    p = net.stacked(dtype)
+    ac = make_tables(100, "linear", 0.02)["alphas_cumprod"]
+    t_eval, scal = pl.plms_eval_tables(ac, 100, 10)
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(cuda), 256)
+    sb = diffnet.step_bias(p, step, dtype).transpose(0, 1).contiguous()
+    cond = torch.randn(1, 500, 256, device=cuda) * 0.5
+    args = dict(x_init=torch.randn(1, 500, 80, device=cuda),
+                scal=torch.from_numpy(scal).to(cuda), sb_tab=sb,
+                cond_proj=diffnet.prepare_cond(net, cond).to(dtype)
+                .contiguous(), win=p["win"], bin_=p["bin"],
+                wskip=p["wskip"], bskip=p["bskip"], wout=p["wout"],
+                bout=p["bout"], wd=p["wd"], bd=p["bd"], wo=p["wo"],
+                bo=p["bo"])
+    got = pl.plms_ladder(**args, cycle=4)
+    ref = pl.plms_ladder_plain(**args, cycle=4)
+    base = pl.plms_ladder_plain(**dict(args, wout=torch.zeros_like(p["wout"]),
+                                       bout=torch.zeros_like(p["bout"])),
+                                cycle=4)
+    assert torch.isfinite(got).all()
+    assert _rel(got - base, ref - base) <= (1e-4 if f32 else 3e-2)
+
+
+def test_k1_packs_once_on_the_card(cuda):
+    """K1 reads the packs of its first call on a repeated call; an
+    in-place change of a weight repacks and the result follows it."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    a = stack_inputs(torch.float32, cuda, b=1, t=200, c=64, layers=4)
+    before = ds.packs
+    first = ds.residual_stack(**a, cycle=2)
+    again = ds.residual_stack(**a, cycle=2)
+    assert ds.packs == before + 1 and torch.equal(first, again)
+    with torch.no_grad():
+        a["wo"].mul_(0.5)
+    got = ds.residual_stack(**a, cycle=2)
+    assert ds.packs == before + 2
+    assert _rel(got, ds.residual_stack_plain(**a, cycle=2)) <= 1e-5
+
+
+def test_ddpm_card_matches_cpu(cuda):
+    """DDPM (acc=1, K_step 20, f32) on the card through K1 against the CPU
+    on the same start and per-step noise: rel-L2 1e-4 on the mel; K1's
+    counter moves by one per step, K2's not at all."""
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.models.diffusion import GaussianDiffusion
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as pl
+    from diffsvc_tpu_torch.utils.synth import randomize
+
+    hp = HParams(audio_num_mel_bins=32, hidden_size=64, residual_layers=8,
+                 residual_channels=128, dilation_cycle_length=4,
+                 timesteps=20, K_step=20, schedule_type="linear",
+                 max_beta=0.02, spec_min=[-6.0], spec_max=[1.5], no_fs2=True,
+                 use_pitch_embed=True, use_energy_embed=False, use_uv=False,
+                 pitch_norm="log", f0_bin=256, f0_min=50.0, f0_max=1100.0)
+    model = GaussianDiffusion(hp)
+    randomize(model, 0)
+    g = torch.Generator().manual_seed(3)
+    t = 300
+    batch = {"hubert": torch.randn(1, 150, 64, generator=g) * 0.3,
+             "mel2ph": torch.arange(t)[None] // 2 + 1,
+             "f0": torch.full((1, t), 7.8), "uv": torch.zeros(1, t),
+             "energy": torch.zeros(1, t)}
+    noise = torch.randn(1, t, 32, generator=g)
+    steps = torch.randn(20, 1, t, 32, generator=g)
+    ref = model.infer(batch, speedup=1, init_noise=noise,
+                      step_noise=steps)["mel_out"]
+    model = model.to(cuda)
+    k1, k2 = ds.launches, pl.launches
+    got = model.infer({k: v.to(cuda) for k, v in batch.items()}, speedup=1,
+                      init_noise=noise, step_noise=steps)["mel_out"]
+    assert (ds.launches - k1, pl.launches - k2) == (20, 0)
+    assert _rel(got.cpu(), ref) <= 1e-4
+
+
+def test_crepe_network_card_matches_cpu(cuda):
+    """CREPE's network on 64 frames, card against CPU, both true f32:
+    rel-L2 of the posteriors 1e-4."""
+    from diffsvc_tpu_torch.ops import crepe
+    from diffsvc_tpu_torch.utils.synth import randomize, randomize_norms
+
+    model = crepe.Crepe()
+    randomize(model, 4)
+    randomize_norms(model, 5)
+    model.eval()
+    wav = torch.randn(63 * 80, generator=torch.Generator().manual_seed(1))
+    frames = crepe.frame_audio(wav)
+    ref = crepe.posteriors(model, frames)
+    got = crepe.posteriors(model.to(cuda), frames.to(cuda))
+    assert _rel(got.cpu(), ref) <= 1e-4

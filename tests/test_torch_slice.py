@@ -142,6 +142,9 @@ import diffsvc_tpu_torch.batch, diffsvc_tpu_torch.flask_api
 from diffsvc_tpu_torch.infer import fused, streaming
 from diffsvc_tpu_torch.data import batching, binarizer, dataset, indexed_datasets
 from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train
+from diffsvc_tpu_torch.ops import crepe
+from diffsvc_tpu_torch.models import contentvec, pe
+from diffsvc_tpu_torch.vocoders import hifigan, vocoder_utils
 from diffsvc_tpu_torch.training import checkpoint, scheduler, task, trainer
 from _torch_fixtures import SR, fake_units, voiced_wav, write_project
 from diffsvc_tpu_torch.utils.audio_io import save_wav
@@ -150,7 +153,8 @@ cfg_fn, ckpt = write_project("proj")
 save_wav(voiced_wav(secs=1.0), "in.wav", SR)
 svc = Svc("proj", cfg_fn, False, ckpt, device="cpu")
 svc.hubert.encode = fake_units
-_, _, wav = svc.infer("in.wav", key=0, acc=10, use_pe=False, use_crepe=False)
+_, _, wav = svc.infer("in.wav", key=0, acc=10, use_pe=False, use_crepe=True)
+_, _, wav1 = svc.infer("in.wav", key=0, acc=1, use_pe=False, use_crepe=False)
 from diffsvc_tpu_torch.models.hubert import HubertConfig
 from diffsvc_tpu_torch.utils.synth import write_hubert
 hub = write_hubert("hub.pt", HubertConfig(dim=32, num_heads=2, num_layers=2,
@@ -160,16 +164,20 @@ fwav, _, _ = fused.FusedSvc(svc.hp, svc.model, svc.vocoder, hub.eval(),
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
 print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
                   "n": int(len(wav)), "finite": bool(np.isfinite(wav).all()
+                                                     and np.isfinite(wav1).all()
                                                      and np.isfinite(fwav).all())}}))
 """
 
 
 def test_port_never_imports_jax(tmp_path):
     """``import diffsvc_tpu_torch``, its training modules, its entry points
-    (``run``, ``binarize``, ``batch``, ``flask_api``) and the serving
-    modules (``infer.fused``, ``infer.streaming``), plus a tiny CPU
-    conversion through the port's Svc and one through the fused program,
-    in a fresh process: neither jax nor any module of the JAX package
+    (``run``, ``binarize``, ``batch``, ``flask_api``), the serving modules
+    (``infer.fused``, ``infer.streaming``) and the rest of conversion
+    (``ops.crepe``, ``models.pe``, ``models.contentvec``,
+    ``vocoders.hifigan``, ``vocoders.vocoder_utils``), plus tiny CPU
+    conversions through the port's Svc (CREPE asked for, falling back
+    without weights; DDPM at acc=1) and one through the fused program, in
+    a fresh process: neither jax nor any module of the JAX package
     ``diffsvc_tpu`` may be in sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
@@ -187,7 +195,8 @@ def test_port_never_imports_jax(tmp_path):
 def test_infer_cli_main_writes_results(in_root, monkeypatch, f0_flags):
     """``python -m diffsvc_tpu_torch.infer_cli`` end to end (in process):
     the flags of infer.py, output under ./results with the input's length.
-    The AC tracker is the default, with or without ``--no_crepe``."""
+    CREPE is the default (without its weights here, the AC tracker), the
+    AC tracker with ``--no_crepe``."""
     from diffsvc_tpu_torch.infer import hubert_encoder
 
     _, cfg_fn, ckpt, wav_fn = in_root
@@ -203,35 +212,55 @@ def test_infer_cli_main_writes_results(in_root, monkeypatch, f0_flags):
 
 
 def test_crepe_and_pe_requests_raise(in_root, tmp_path):
-    """CREPE and pe are not ported: asking for them raises instead of
-    quietly giving the AC track or the conditioner's f0 (the JAX package
-    would run them where their weights are installed)."""
+    """Asking for CREPE or pe now runs them where their weights are
+    installed.  What still raises: a CREPE checkpoint that exists but cannot
+    be read (only missing weights fall back to the AC tracker, as in the
+    JAX package; tests/test_torch_crepe.py).  A pe checkpoint that cannot be
+    read leaves the conditioner's f0, as the JAX facade does; a readable
+    one gives the vocoder pe's f0."""
     from diffsvc_tpu_torch.data import features
     from diffsvc_tpu_torch.utils import synth
 
     _, cfg_fn, ckpt, wav_fn = in_root
     wav = voiced_wav(secs=0.5)
-    with pytest.raises(NotImplementedError, match="CREPE"):
+    bad = tmp_path / "full.pth"
+    bad.write_bytes(b"not a checkpoint")
+    with pytest.raises(Exception) as err:
         features.get_pitch(wav, np.zeros((1 + len(wav) // HOP, 16)),
-                           dict(TINY_HP), use_crepe=True)
+                           dict(TINY_HP, crepe_path=str(bad)), use_crepe=True)
+    assert not isinstance(err.value, (ImportError, FileNotFoundError))
     svc = TSvc("proj", cfg_fn, False, ckpt, device="cpu")
     svc.hubert.encode = fake_units
-    with pytest.raises(NotImplementedError, match="CREPE"):
+    svc.hp["crepe_path"] = str(bad)
+    with pytest.raises(Exception) as err:
         svc.infer(wav_fn, key=0, acc=10, use_pe=False, use_crepe=True)
-    with pytest.raises(NotImplementedError, match="CREPE"):
-        infer_cli.main(["--project", "proj", "--model", ckpt, "--config",
-                        cfg_fn, "--files", wav_fn, "--acc", "10", "--crepe",
-                        "--device", "cpu"])
-    # pe weights configured: use_pe raises, use_pe=False is allowed
-    os.makedirs(tmp_path / "pe")
+    assert not isinstance(err.value, (ImportError, FileNotFoundError))
+    nsf = "diffsvc_tpu.vocoders.nsf_hifigan.NsfHifiGAN"
+    # pe weights installed: use_pe takes the vocoder's f0 from pe
     pe_cfg, pe_ckpt = synth.write_project(
-        str(tmp_path / "proj_pe"),
-        dict(TINY_HP, vocoder="diffsvc_tpu.vocoders.nsf_hifigan.NsfHifiGAN",
+        str(tmp_path / "proj_pe"), dict(TINY_HP, vocoder=nsf), TINY_VOC,
+        pe=True)
+    svc = TSvc("proj_pe", pe_cfg, False, pe_ckpt, device="cpu")
+    svc.hubert.encode = fake_units
+    assert svc.pe is not None
+    _, f0_pe, _ = svc.infer(wav_fn, key=0, acc=10, use_pe=True,
+                            use_crepe=False)
+    _, f0_fs2, _ = svc.infer(wav_fn, key=0, acc=10, use_pe=False,
+                             use_crepe=False)
+    assert f0_pe.shape == f0_fs2.shape and not np.allclose(f0_pe, f0_fs2)
+    # a pe checkpoint directory without a readable checkpoint
+    os.makedirs(tmp_path / "pe")
+    bad_cfg, bad_ckpt = synth.write_project(
+        str(tmp_path / "proj_bad"),
+        dict(TINY_HP, vocoder=nsf,
              pe_ckpt=str(tmp_path / "pe" / "model_ckpt_steps_1.ckpt")),
         TINY_VOC)
-    svc = TSvc("proj_pe", pe_cfg, False, pe_ckpt, device="cpu")
-    with pytest.raises(NotImplementedError, match="pe"):
-        svc.infer(wav_fn, key=0, acc=10, use_pe=True)
+    svc = TSvc("proj_bad", bad_cfg, False, bad_ckpt, device="cpu")
+    svc.hubert.encode = fake_units
+    assert svc.pe is None
+    _, f0_pred, _ = svc.infer(wav_fn, key=0, acc=10, use_pe=True,
+                              use_crepe=False)
+    assert np.isfinite(f0_pred).all()
 
 
 def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):

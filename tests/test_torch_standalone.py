@@ -43,6 +43,44 @@ def test_chip_smoke_imports_nothing_of_jax():
     assert bad == []
 
 
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    mods = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and not node.level:
+            mods.add(node.module)
+    return mods
+
+
+PORT_SOURCES = sorted(
+    os.path.relpath(os.path.join(d, f), REPO)
+    for d, _, files in os.walk(os.path.join(REPO, "diffsvc_tpu_torch"))
+    for f in files if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("source", PORT_SOURCES)
+def test_port_source_imports_nothing_of_jax(source):
+    """Every module of the port, the conversion modules of this slice
+    (``ops/crepe.py``, ``models/pe.py``, ``models/contentvec.py``,
+    ``vocoders/hifigan.py``, ``vocoders/vocoder_utils.py``) among them, at
+    any depth of its import statements: no jax, no module of
+    ``diffsvc_tpu`` (relative imports stay inside the port)."""
+    bad = sorted(m for m in _imports(os.path.join(REPO, source))
+                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                        "diffsvc_tpu"))
+    assert bad == []
+
+
+def test_port_sources_cover_this_slice():
+    for mod in ("ops/crepe.py", "models/pe.py", "models/contentvec.py",
+                "vocoders/hifigan.py", "vocoders/vocoder_utils.py"):
+        assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
+
+
 @pytest.mark.parametrize("where,rc", [("checkout", 3), ("alone", 2)])
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, where, rc):
     """No CUDA device: exit 3.  A directory holding chip_smoke.py and
