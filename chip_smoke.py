@@ -149,11 +149,46 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    limits with the fault; pe's time and its card-vs-CPU agreement
    (1e-4); ContentVec's encode beside HuBERT-soft's and one conversion
    through it.
+9. The rest of single-card training and the data inventory (``[train2]``
+   lines; K1-K5's counters reset before each part and read after it, K6's
+   rise read over it; each part's counts go into the kernels line), on
+   phase 5's binarized data and checkpoint:
+   (a) ``optimizer: radam`` through ``run_task`` for 7 steps at phase 5's
+   batching (K4 must move, and K1 once per validation batch, validation's
+   loss; K2, K3, K5 and K6 not; steps 6 and 7 take RAdam's rectified
+   branch): finite losses; the port's update on the card against
+   optax's update written out on the card over steps 1-7 (rel-L2 <= 1e-6;
+   the rectification dropped must read above it); a restart from step 3
+   restoring params and RAdam's state bit for bit; ms per step.
+   (b) The pe task at config_24k's pe width (hidden 256, 2 conv layers, 80
+   mel): 16 clips binarized at 24 kHz, ``run_task`` with the pe
+   ``task_cls`` (finite losses; no kernel launched), one step on the card
+   and on the CPU, each against the same step in float64 on the CPU: the
+   card's loss, and the loss and each parameter's grad of pe's smooth
+   twin (ReLU as softplus, see ``PE_STEP_TOL``), rel-L2 <= 1e-4, the
+   card's step under PyTorch's default ``cudnn.allow_tf32``; the
+   convolutions left at TF32 must read above it; the ReLU model's grads
+   printed, card and CPU; the step's time; the trained checkpoint as a
+   config_24k ``Svc``'s ``pe_ckpt`` (``svc.pe`` set, its weights equal)
+   converting the 14 s clip with ``use_pe`` (K2 and K3 moving).
+   (c) ``--infer`` on phase 5's step-6 checkpoint: a ``[P]`` wav, png (where
+   matplotlib is installed) and npy per test item, each wav finite and
+   non-silent, each mel inside
+   [mel_vmin, mel_vmax]; K2's counter equal to the test items and K3's to
+   the wavs rendered, K4, K5 and K6 not moving; seconds per item.
+   (d) The binarizer on phase 5's 32 clips (AC tracker) with
+   ``binarize_batch_size`` 8 and 1 (no kernel launched): items/s of
+   each; per item the batched
+   result against the per-item one at JAX's own test tolerances (mel
+   rtol 1e-5 / atol 1e-6, f0 rtol 1e-4 / atol 1e-3, mel2ph and len equal,
+   units of equal shape; the units' rel-L2 printed, not gated); the f0
+   cache on the per-item path: a first run with ``f0_cache_dir`` tracks
+   and writes every item, a second one tracks none.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
-the path that runs it, on each serving route and on each of phase 8's
-routes, errors, times, bound);
+the path that runs it, on each serving route, on each of phase 8's routes
+and in each of phase 9's parts, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -458,17 +493,24 @@ def kernel_breakdown(fn, reps: int) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            name = e.name.replace("(anonymous namespace)::", "")
-            tot = out.setdefault(name.split("(")[0][:60], [0.0, 0])
-            tot[0] += (e.time_range.end - e.time_range.start) / 1e3 / reps
-            tot[1] += 1
+    # a trace of a short run can come back with no device event at all
+    # (seen once on the H100 over K6's 5 calls of 0.1 ms); such a trace is
+    # taken again, up to twice, and a trace with events is read as it is
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                name = e.name.replace("(anonymous namespace)::", "")
+                tot = out.setdefault(name.split("(")[0][:60], [0.0, 0])
+                tot[0] += (e.time_range.end - e.time_range.start) / 1e3 / reps
+                tot[1] += 1
+        if out:
+            break
+        log(f"[profile] trace {attempt + 1} holds no device event")
     return {k: [ms, n / reps] for k, (ms, n) in
             sorted(out.items(), key=lambda kv: -kv[1][0])}
 
@@ -1397,30 +1439,47 @@ STREAM_SECS = 0.5        # the streamed requests' buffer
 
 
 def kernel_counts() -> dict:
-    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
-                                              vocoder_tail)
+    """K1-K5's counters (K6's is read as a difference by :func:`counted`:
+    its count over phases 4-9 must stay whole)."""
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack,
+                                              diffnet_stack_per_sample,
+                                              diffnet_stack_train,
+                                              plms_ladder, vocoder_tail)
 
     return {"residual_stack": diffnet_stack.launches,
             "plms_ladder": plms_ladder.launches,
-            "vocoder_tail": vocoder_tail.launches}
+            "vocoder_tail": vocoder_tail.launches,
+            "residual_stack_train_batched": diffnet_stack_train.launches,
+            "residual_stack_train": diffnet_stack_per_sample.launches}
+
+
+ALL_KERNELS = ("residual_stack", "plms_ladder", "vocoder_tail",
+               "residual_stack_train_batched", "residual_stack_train",
+               "fused_residual_block")
 
 
 @contextlib.contextmanager
 def counted(label: str, into: dict, moved=("plms_ladder", "vocoder_tail"),
             still=(), tag="serve"):
-    """Every kernel counter set to 0 before the block and read after it;
-    the kernels in ``moved`` (K2's and K3's) must have moved and those in
+    """K1-K5's counters set to 0 before the block and read after it, and
+    K6's launches in the block (its counter's rise): every kernel's count
+    for the block.  The kernels in ``moved`` must have moved and those in
     ``still`` must not."""
-    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack, plms_ladder,
-                                              vocoder_tail)
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_block, diffnet_stack,
+                                              diffnet_stack_per_sample,
+                                              diffnet_stack_train,
+                                              plms_ladder, vocoder_tail)
 
-    for mod in (diffnet_stack, plms_ladder, vocoder_tail):
+    for mod in (diffnet_stack, plms_ladder, vocoder_tail,
+                diffnet_stack_train, diffnet_stack_per_sample):
         mod.launches = 0
+    k6_before = diffnet_block.launches
     yield
     import torch
 
     torch.cuda.synchronize()
-    into[label] = kernel_counts()
+    into[label] = dict(kernel_counts(), fused_residual_block=(
+        diffnet_block.launches - k6_before))
     log(f"[{tag}] {label}: kernel launches {into[label]}")
     for name in moved:
         if into[label][name] <= 0:
@@ -2041,7 +2100,6 @@ def phase_train(device, workdir):
     from diffsvc_tpu_torch.models.hubert import HubertConfig
     from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
     from diffsvc_tpu_torch.run import run_task
-    from diffsvc_tpu_torch.training import checkpoint as ckpt_lib
     from diffsvc_tpu_torch.training.trainer import Trainer
     from diffsvc_tpu_torch.utils import synth
     from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
@@ -2114,14 +2172,7 @@ def phase_train(device, workdir):
     if not t2.restore() or t2.global_step != VAL_EVERY \
             or t2.task.step != VAL_EVERY:
         raise SmokeError("no resume from the step-3 checkpoint")
-    saved = torch_load(os.path.join(work2, want[0]))
-    now = t2.task.state_dict()
-    same = all(torch.equal(v, now["state_dict"][k])
-               for k, v in saved["state_dict"].items())
-    o_saved = saved["optimizer_states"][0]["state"]
-    o_now = t2.task.optimizer.state_dict()["state"]
-    same = same and all(torch.equal(v.cpu(), o_now[i][k].cpu())
-                        for i, st in o_saved.items() for k, v in st.items())
+    same = restored_bit_exact(t2.task, os.path.join(work2, want[0]))
     res["restore_bit_exact"] = bool(same)
     t2.fit()
     res["resumed_to"] = t2.global_step
@@ -2771,6 +2822,612 @@ def phase_rest(device, project, workdir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the rest of single-card training and the data inventory
+# ---------------------------------------------------------------------------
+
+RADAM_STEPS = 7          # b2 = 0.98: steps 6 and 7 take the rectified branch
+# The port's RAdam (in-place updates on the card) against optax's update
+# written out on whole tensors on the card, steps 1-7 on fixed grads:
+# rel-L2 of the parameters' total update.  The planted fault drops the
+# rectification term (r_t = 1), i.e. Adam's update from step 6.
+RADAM_TOL = 1e-6
+# One pe step against the same step in float64 on the CPU (the same init
+# and batch): the loss and each parameter's grad, rel-L2.  The grads are
+# read on pe's smooth twin (every ReLU as softplus(x, beta=50), the f64
+# step likewise): with ReLU, an input within rounding of 0 takes the other
+# branch in f32 than in f64 and passes the whole upstream grad, which
+# reads 3e-5 to 5e-4 on the card and on the CPU alike, moving with the
+# init seed; the smooth twin reads the arithmetic, 1.3e-5 on the H100
+# (1.6e-5 on the CPU; tools/pe_step_error.py).  The planted fault leaves
+# pe's convolutions at cuDNN's default TF32 (2.8e-3 to 9.0e-3).
+PE_STEP_TOL = 1e-4
+PE_CLIPS, PE_SR = 16, 24000      # synthetic clips of 3-6 s for the pe task
+
+
+def radam_plain(p0, grads, lrs, b1, b2, eps=1e-8, threshold=5.0):
+    """optax.radam's update written out on whole tensors, step by step."""
+    p, m, v = p0.clone(), 0.0 * p0, 0.0 * p0
+    rho_inf = 2.0 / (1.0 - b2) - 1.0
+    for t, (g, lr) in enumerate(zip(grads, lrs), start=1):
+        m = (1.0 - b1) * g + b1 * m
+        v = (1.0 - b2) * g * g + b2 * v
+        m_hat, v_hat = m / (1.0 - b1 ** t), v / (1.0 - b2 ** t)
+        rho = rho_inf - 2.0 * t * b2 ** t / (1.0 - b2 ** t)
+        if rho >= threshold:
+            r = ((rho - 4.0) * (rho - 2.0) * rho_inf
+                 / ((rho_inf - 4.0) * (rho_inf - 2.0) * rho)) ** 0.5
+            m_hat = r * m_hat / (v_hat.sqrt() + eps)
+        p = p - lr * m_hat
+    return p
+
+
+def radam_vs_plain(task) -> dict:
+    """The task's RAdam on the card, 7 steps on fixed random grads at the
+    task's schedule over as many values as the task has parameters, against
+    :func:`radam_plain`; and with the rectification dropped.  The values
+    start at 0 (RAdam's update does not read them), so the check reads the
+    update itself: from the trained parameters, their own rounding at each
+    step (an ulp of ~0.05 is ~1e-6 of a 7-step update) would read 1.7e-6
+    on the H100."""
+    import torch
+
+    from diffsvc_tpu_torch.training import task as task_mod
+
+    b1, b2 = task.optimizer.param_groups[0]["betas"]
+    p0 = torch.zeros(sum(p.numel() for p in task.params),
+                     device=task.params[0].device)
+    g = torch.Generator(device=p0.device).manual_seed(3)
+    grads = [torch.randn(p0.shape, generator=g, device=p0.device) * 1e-3
+             for _ in range(RADAM_STEPS)]
+    lrs = [task.lr_schedule(s) for s in range(RADAM_STEPS)]
+
+    def port():
+        p = torch.nn.Parameter(p0.clone())
+        opt = task_mod.RAdam([p], lr=lrs[0], betas=(b1, b2))
+        for grad, lr in zip(grads, lrs):
+            p.grad = grad.clone()
+            opt.param_groups[0]["lr"] = lr
+            opt.step()
+        return p.detach()
+
+    ref = radam_plain(p0, grads, lrs, b1, b2) - p0
+    rel = rel_l2(port() - p0, ref)
+    rect = task_mod.rectification
+    with swapped(task_mod, rectification=lambda t, b2, th=5.0: (
+            None if rect(t, b2, th) is None else 1.0)):
+        fault = rel_l2(port() - p0, ref)
+    res = {"rel_l2": rel, "fault_rel_l2": fault, "tol": RADAM_TOL,
+           "params": int(p0.numel()), "steps": RADAM_STEPS}
+    log(f"[train2] RAdam on the card vs optax's update written out, steps "
+        f"1-{RADAM_STEPS} on {p0.numel()} parameters: rel_l2 {rel:.3e} (tol "
+        f"{RADAM_TOL:g}); planted fault [rectification dropped: "
+        f"{fault:.3e}]")
+    if not rel <= RADAM_TOL:
+        raise SmokeError(f"RAdam disagrees with optax's formula: {res}")
+    if not fault > RADAM_TOL:
+        raise SmokeError(f"the planted RAdam fault passes: {res}")
+    return res
+
+
+def update_ms(task) -> dict:
+    """Device time of one optimizer update alone on copies of the task's
+    parameters with fixed grads: the port's RAdam beside the AdamW that
+    the task builds otherwise (PyTorch's multi-tensor path)."""
+    import torch
+
+    from diffsvc_tpu_torch.training.task import RAdam
+
+    g = torch.Generator(device=task.params[0].device).manual_seed(4)
+    params = [torch.nn.Parameter(p.detach().clone()) for p in task.params]
+    for p in params:
+        p.grad = torch.randn(p.shape, generator=g, device=p.device) * 1e-3
+    lr, betas = task.lr_schedule(0), task.optimizer.param_groups[0]["betas"]
+    opts = {"radam": RAdam(params, lr=lr, betas=betas, eps=1e-8),
+            "adamw": torch.optim.AdamW(params, lr=lr, betas=betas, eps=1e-8,
+                                       weight_decay=0.0)}
+    res = {name: cuda_time_ms(opt.step, reps=10) for name, opt in
+           opts.items()}
+    log(f"[train2] one optimizer update alone on {len(params)} tensors "
+        f"({sum(p.numel() for p in params)} values): RAdam "
+        f"{res['radam']:.3f} ms, AdamW {res['adamw']:.3f} ms")
+    return res
+
+
+def restored_bit_exact(task, ckpt_fn) -> bool:
+    """Params and every optimizer state tensor of ``task`` equal the
+    checkpoint's, bit for bit."""
+    import torch
+
+    from diffsvc_tpu_torch.utils.convert import torch_load
+
+    saved = torch_load(ckpt_fn)
+    now = task.state_dict()
+    same = all(torch.equal(v, now["state_dict"][k])
+               for k, v in saved["state_dict"].items())
+    o_saved = saved["optimizer_states"][0]["state"]
+    o_now = task.optimizer.state_dict()["state"]
+    return same and len(o_saved) == len(o_now) > 0 and all(
+        torch.equal(v.cpu(), o_now[i][k].cpu())
+        for i, st in o_saved.items() for k, v in st.items())
+
+
+def step_batch(hp):
+    """The largest training batch of the config's batching, as the trainer
+    feeds it (with its ``sample_mask``)."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.data.dataset import (BatchIterator,
+                                                FastSpeechDataset,
+                                                _pad_batch_dim, build_batches)
+
+    ds = FastSpeechDataset("train", hp, shuffle=False)
+    full = max(build_batches(ds, hp, rng=np.random.RandomState(0)), key=len)
+    batch = next(iter(BatchIterator(ds, [full], pad_multiple=int(
+        hp["frames_multiple"]))))
+    return _pad_batch_dim(batch, batch["nsamples"])
+
+
+def phase_radam(device, workdir, cfg_fn, launches):
+    """(a) ``optimizer: radam`` through run_task for 7 steps at phase 5's
+    batching (bf16 stream, K4; validation's loss on K1, once per
+    validation batch), the update against optax's formula on the card with
+    its fault, a restart from step 3, ms per step."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+    from diffsvc_tpu_torch.run import run_task
+    from diffsvc_tpu_torch.training.task import RAdam, SVCTask
+    from diffsvc_tpu_torch.training.trainer import Trainer
+
+    hp = HParams(dict(set_hparams(config=cfg_fn, exp_name="smoke_radam",
+                                  reset=True, print_hparams=False),
+                      optimizer="radam", max_updates=RADAM_STEPS,
+                      work_dir=os.path.join(workdir, "work_radam")))
+    res = {}
+    val_calls = {"n": 0}
+    val_step = SVCTask.val_step
+
+    def counting_val_step(self, batch):
+        val_calls["n"] += 1
+        return val_step(self, batch)
+
+    label = "radam run_task"
+    t0 = time.time()
+    with swapped(SVCTask, val_step=counting_val_step), \
+            counted(label, launches, tag="train2",
+                    moved=("residual_stack_train_batched", "residual_stack"),
+                    still=("plms_ladder", "vocoder_tail",
+                           "residual_stack_train", "fused_residual_block")):
+        trainer = run_task(hp)
+    res["fit_s"] = time.time() - t0
+    counts = launches[label]
+    res["launches"] = counts
+    res["val_steps"] = val_calls["n"]
+    losses = [h["loss"] for h in trainer.history]
+    res["losses"] = losses
+    log(f"[train2] radam run_task: {trainer.global_step} steps in "
+        f"{res['fit_s']:.2f}s, losses {[round(x, 5) for x in losses]}, K4 "
+        f"launches {counts['residual_stack_train_batched']}, K1 "
+        f"{counts['residual_stack']} for {val_calls['n']} validation "
+        f"batches; optimizer {type(trainer.task.optimizer).__name__}")
+    if not isinstance(trainer.task.optimizer, RAdam) \
+            or len(losses) != RADAM_STEPS or not np.isfinite(losses).all() \
+            or counts["residual_stack"] != val_calls["n"]:
+        raise SmokeError(f"radam training: {res}")
+    res["vs_plain"] = radam_vs_plain(trainer.task)
+    # a restart from the step-3 checkpoint, then on to the last step
+    ckpt3 = os.path.join(hp["work_dir"], f"model_ckpt_steps_{VAL_EVERY}.ckpt")
+    work2 = os.path.join(workdir, "work_radam_resume")
+    os.makedirs(work2)
+    shutil.copy(ckpt3, work2)
+    t2 = Trainer(HParams(dict(hp, work_dir=work2)), device=device)
+    same = t2.restore() and t2.task.step == VAL_EVERY \
+        and restored_bit_exact(t2.task, ckpt3)
+    t2.fit()
+    res["restore_bit_exact"] = bool(same)
+    log(f"[train2] radam resume from step {VAL_EVERY}: params + optimizer "
+        f"state bit-exact {same}; trained on to step {t2.global_step}")
+    if not same or t2.global_step != RADAM_STEPS:
+        raise SmokeError("radam resume: state not restored bit for bit")
+    batch = step_batch(hp)
+    res["timing"] = time_steps(t2.task, batch, reps=3)
+    log_steps("train2", "radam, bf16 streams", batch, res["timing"])
+    res["update_ms"] = update_ms(t2.task)
+    del trainer, t2
+    torch.cuda.empty_cache()
+    return res
+
+
+def pe_config(workdir: str) -> dict:
+    """config_24k (pe at its width: hidden 256, 2 conv layers, 80 mel) on
+    16 synthetic clips, the AC tracker, the pe task."""
+    return {"base_config": [os.path.join(ROOT, "configs", "config_24k.yaml")],
+            "raw_data_dir": os.path.join(workdir, "raw24"),
+            "binary_data_dir": os.path.join(workdir, "bin24"),
+            "work_dir": os.path.join(workdir, "work_pe"),
+            "hubert_path": os.path.join(workdir, "hubert", "hubert_soft.pt"),
+            "task_cls": "training.pe.PitchExtractionTask",
+            "max_sentences": 8, "max_updates": 4, "val_check_interval": 4,
+            "log_interval": 1, "num_valid_plots": 0, "use_crepe": False}
+
+
+@contextlib.contextmanager
+def smooth_relus():
+    """Every ReLU of pe (``torch.relu`` and ``nn.ReLU``'s ``F.relu``) as
+    ``softplus(x, beta=50)`` inside the block."""
+    import torch
+    import torch.nn.functional as F
+
+    def soft(x, inplace=False):
+        return F.softplus(x, beta=50.0)
+
+    with swapped(torch, relu=soft), swapped(F, relu=soft):
+        yield
+
+
+def pe_step(hp, batch, device, f64=False, seed=None):
+    """(loss, grads) of one pe step from the task's init (or the init of
+    ``seed``), on the CPU as float64 tensors; with ``f64`` the step itself
+    runs in float64."""
+    from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
+
+    task = PitchExtractionTask(hp, device=device)
+    if seed is not None:
+        task.init_state(seed)
+    if f64:
+        task.model.double()
+    loss, _, grads = task.loss_and_grads(batch)
+    return loss.cpu().double().reshape(1), [g.cpu().double() for g in grads]
+
+
+def write_pe_data(workdir: str) -> str:
+    """:func:`pe_config`'s yaml and its 16 clips of 3-6 s at 24 kHz; the
+    config's path."""
+    import numpy as np
+    import yaml
+
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import save_wav
+
+    cfg = pe_config(workdir)
+    cfg_fn = os.path.join(workdir, "pe.yaml")
+    with open(cfg_fn, "w") as f:
+        yaml.safe_dump(cfg, f)
+    os.makedirs(cfg["raw_data_dir"])
+    for i, s in enumerate(np.linspace(3.0, 6.0, PE_CLIPS)):
+        save_wav(synth.voiced_wav(float(s), PE_SR, 140.0 + 15.0 * i,
+                                  [(1.0, 1.3)], seed=50 + i),
+                 os.path.join(cfg["raw_data_dir"], f"pe{i:02d}.wav"), PE_SR)
+    return cfg_fn
+
+
+def pe_step_vs_f64(hp, device, batch) -> dict:
+    """One pe step's loss and every parameter's grad, the card's and the
+    CPU's, each against the same step in float64 on the CPU; the gate on
+    the card's loss and on its smooth twin's loss and grads (see
+    PE_STEP_TOL), and the card's step time.  The card's steps run under
+    PyTorch's default ``cudnn.allow_tf32`` (True), as a user's training
+    does: the task itself must keep its forward and backward convolutions
+    true f32."""
+    import torch
+
+    from diffsvc_tpu_torch.models import nn as fnn
+    from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
+
+    names = PitchExtractionTask(hp, device="cpu").names
+
+    def read(run, ref):
+        rels = sorted(((rel_l2(a, b), n) for n, a, b in
+                       zip(names, run[1], ref[1])), reverse=True)
+        return {"loss": rel_l2(run[0], ref[0]), "grad": rels[0][0],
+                "worst": [(n, r) for r, n in rels[:3]]}
+
+    res = {}
+    for smooth in (False, True):
+        tag = "smooth" if smooth else "relu"
+        with smooth_relus() if smooth else contextlib.nullcontext():
+            ref = pe_step(hp, batch, "cpu", f64=True)
+            with swapped(torch.backends.cudnn, allow_tf32=True):
+                res[f"card_{tag}"] = read(pe_step(hp, batch, device), ref)
+            res[f"cpu_{tag}"] = read(pe_step(hp, batch, "cpu"), ref)
+            if smooth:
+                # the planted fault: pe's convolutions at the default TF32
+                with swapped(fnn, true_f32_convs=contextlib.nullcontext), \
+                        swapped(torch.backends.cudnn, allow_tf32=True):
+                    res["fault_smooth"] = read(pe_step(hp, batch, device),
+                                               ref)
+    rel = max(res["card_relu"]["loss"], res["card_smooth"]["loss"],
+              res["card_smooth"]["grad"])
+    fault = res["fault_smooth"]["grad"]
+    timing = time_steps(PitchExtractionTask(hp, device=device), batch,
+                        reps=5)
+    res.update(rel_l2=rel, tol=PE_STEP_TOL, fault_rel_l2=fault,
+               timing=timing)
+
+    def show(r):
+        return (f"loss {r['loss']:.3e}, largest grad {r['grad']:.3e} "
+                f"{[(n, f'{e:.2e}') for n, e in r['worst']]}")
+
+    for key in ("card_relu", "cpu_relu", "card_smooth", "cpu_smooth"):
+        log(f"[train2] pe step vs f64 on the CPU, {key}: {show(res[key])}")
+    log(f"[train2] pe step gate: the card's loss and its smooth twin's loss "
+        f"and grads {rel:.3e} (tol {PE_STEP_TOL:g}); the ReLU model's grads"
+        f" not gated (branch flips, the CPU's alike); planted fault "
+        f"[convolutions at cuDNN's default TF32: {fault:.3e}]")
+    log_steps("train2", "pe task step", batch, timing)
+    if not rel <= PE_STEP_TOL:
+        raise SmokeError(f"the pe step disagrees with f64: {res}")
+    if not fault > PE_STEP_TOL:
+        raise SmokeError(f"the planted pe fault passes: {res}")
+    return res
+
+
+def phase_pe(device, workdir, launches):
+    """(b) The pe task at config_24k's pe width: 16 clips binarized at 24
+    kHz, run_task with the pe task_cls, one step against f64 on the CPU,
+    and the step's checkpoint as a config_24k Svc's pe_ckpt converting
+    the 14 s clip with use_pe (K2 and K3 moving)."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.config import set_hparams
+    from diffsvc_tpu_torch.data.binarizer import binarize
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.models.hubert import HubertConfig
+    from diffsvc_tpu_torch.run import run_task
+    from diffsvc_tpu_torch.training import checkpoint as ckpt_lib
+    from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
+
+    cfg_fn = write_pe_data(workdir)
+    hp = set_hparams(config=cfg_fn, exp_name="smoke_pe", reset=True,
+                     print_hparams=False)
+    t0 = time.time()
+    binarize(hp, device=device)
+    res = {"binarize_s": time.time() - t0}
+    hp = set_hparams(config=cfg_fn, exp_name="smoke_pe", reset=True,
+                     print_hparams=False)
+    t0 = time.time()
+    # pe has no kernel of its own: its training launches none of K1-K6
+    with counted("pe run_task", launches, moved=(), still=ALL_KERNELS,
+                 tag="train2"):
+        trainer = run_task(hp)
+    res["fit_s"] = time.time() - t0
+    losses = [h["loss"] for h in trainer.history]
+    res["losses"] = losses
+    log(f"[train2] pe task (config_24k, hidden {hp['hidden_size']}, "
+        f"{trainer.task.conv_layers} conv layers, {hp['audio_num_mel_bins']} "
+        f"mel): binarized {PE_CLIPS} clips in {res['binarize_s']:.2f}s; "
+        f"{trainer.global_step} steps in {res['fit_s']:.2f}s, losses "
+        f"{[round(x, 5) for x in losses]}")
+    if not isinstance(trainer.task, PitchExtractionTask) \
+            or len(losses) != hp["max_updates"] \
+            or not np.isfinite(losses).all():
+        raise SmokeError(f"pe training: {res}")
+    res["vs_f64"] = pe_step_vs_f64(hp, device, step_batch(hp))
+    ckpt = ckpt_lib.latest_checkpoint(hp["work_dir"])
+    trained = {k: v.detach().cpu()
+               for k, v in trainer.task.model.state_dict().items()}
+    del trainer
+    torch.cuda.empty_cache()
+    # the trained pe as a config_24k Svc's pe_ckpt
+    t0 = time.time()
+    proj_cfg, proj_ckpt = synth.write_project(
+        os.path.join(workdir, "proj24pe"),
+        {"base_config": [os.path.join(ROOT, "configs", "config_24k.yaml")],
+         "pe_ckpt": ckpt}, VOC24_H, hubert_cfg=HubertConfig())
+    svc = Svc("proj24pe", proj_cfg, True, proj_ckpt, device=device)
+    if svc.pe is None or not all(torch.equal(v.cpu(), trained[k]) for k, v
+                                 in svc.pe.state_dict().items()):
+        raise SmokeError("Svc did not load the trained pe as pe_ckpt")
+    secs, f0, gaps = CLIPS[SERVE_CLIP]
+    wav_fn = os.path.join(workdir, "clip24pe.wav")
+    save_wav(synth.voiced_wav(secs, PE_SR, f0, gaps, seed=2), wav_fn, PE_SR)
+    with counted("24k modular float32, the trained pe", launches,
+                 tag="train2"):
+        _, _, audio = infer_cli.run_clip(
+            svc, key=0, acc=ACC, use_pe=True, use_crepe=False, thre=0.05,
+            use_gt_mel=False, add_noise_step=500, file_path=wav_fn,
+            out_path=wav_fn[:-4] + "_out.wav")
+    res["svc_peak"] = clip_checks("24k with the trained pe", audio,
+                                  len(load_wav(wav_fn)[0]))
+    res["svc_s"] = time.time() - t0
+    log(f"[train2] the trained pe loaded as pe_ckpt (svc.pe set, weights "
+        f"equal) and converted the {secs:.0f}s clip with use_pe")
+    return res
+
+
+def phase_infer(device, workdir, cfg_fn, launches):
+    """(c) ``--infer`` on phase 5's step-6 checkpoint: a [P] wav, png
+    (where matplotlib is installed) and npy per test item, each wav finite
+    and non-silent, each mel inside [mel_vmin, mel_vmax]; K2 once per item,
+    K3 once per wav."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+    from diffsvc_tpu_torch.run import run_task
+    from diffsvc_tpu_torch.utils.audio_io import load_wav
+
+    hp = HParams(dict(set_hparams(config=cfg_fn, exp_name="smoke_train",
+                                  reset=True, print_hparams=False),
+                      infer=True, gen_dir_name="smoke"))
+    n_items = len(np.load(os.path.join(hp["binary_data_dir"],
+                                       "test_lengths.npy")))
+    label = "--infer, phase 5's step-6 checkpoint"
+    t0 = time.time()
+    with counted(label, launches, tag="train2", still=(
+            "residual_stack_train_batched", "residual_stack_train",
+            "fused_residual_block")):
+        run_task(hp)
+    wall = time.time() - t0
+    counts = launches[label]
+    gen = os.path.join(hp["work_dir"], f"generated_{TRAIN_STEPS}_smoke")
+    wavs = sorted(glob.glob(os.path.join(gen, "wavs", "[[]P[]]*.wav")))
+    pngs = glob.glob(os.path.join(gen, "plot", "[[]P[]]*.png"))
+    mels = glob.glob(os.path.join(hp["work_dir"], "P_mels_npy", "*.npy"))
+    res = {"items": n_items, "wavs": len(wavs), "pngs": len(pngs),
+           "npys": len(mels), "s": wall, "s_per_item": wall / max(n_items, 1),
+           "launches": counts}
+    for fn in mels:
+        mel = np.load(fn)
+        if mel.min() < hp["mel_vmin"] or mel.max() > hp["mel_vmax"]:
+            raise SmokeError(f"--infer mel {fn} outside [mel_vmin, mel_vmax]")
+    for fn in wavs:
+        wav, _ = load_wav(fn)
+        if not np.isfinite(wav).all() or np.abs(wav).max() < 1e-3:
+            raise SmokeError(f"--infer wav {fn} not finite or silent")
+    # the plots need matplotlib; without it the runner prints "plot failed"
+    # per item and writes the rest, as JAX's does
+    try:
+        import matplotlib  # noqa: F401
+
+        want_pngs = n_items
+    except ImportError:
+        want_pngs = 0
+    res["matplotlib"] = bool(want_pngs)
+    log(f"[train2] --infer: {n_items} test items, {len(wavs)} [P] wavs, "
+        f"{len(pngs)} pngs (matplotlib {'present' if want_pngs else 'absent'}"
+        f" here), {len(mels)} npys in {wall:.2f}s "
+        f"({res['s_per_item']:.3f} s/item); K2 launches "
+        f"{counts['plms_ladder']}, K3 {counts['vocoder_tail']}")
+    if not (n_items == len(wavs) == len(mels) > 0) \
+            or len(pngs) != want_pngs \
+            or counts["plms_ladder"] != n_items \
+            or counts["vocoder_tail"] != len(wavs):
+        raise SmokeError(f"--infer: {res}")
+    torch.cuda.empty_cache()
+    return res
+
+
+def binarized_items(hp, prefix="train"):
+    from diffsvc_tpu_torch.data.indexed_datasets import IndexedDataset
+
+    ds = IndexedDataset(os.path.join(hp["binary_data_dir"], prefix))
+    return [ds[i] for i in range(len(ds))]
+
+
+def timed_binarize(hp, device, label: str) -> float:
+    import torch
+
+    from diffsvc_tpu_torch.data.binarizer import binarize
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    binarize(hp, device=device)
+    torch.cuda.synchronize()
+    s = time.time() - t0
+    log(f"[train2] binarize {label}: {s:.2f}s, "
+        f"{TRAIN_CLIPS / s:.2f} items/s")
+    return s
+
+
+def phase_binarize(device, workdir, cfg_fn, launches):
+    """(d) The batched binarizer on phase 5's 32 clips (AC tracker):
+    batch 8 against batch 1, item by item at JAX's own test tolerances; the
+    units' rel-L2 printed; the f0 cache on the per-item path, written by
+    one run and hit on every item by the next."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+    from diffsvc_tpu_torch.data import features
+
+    base = set_hparams(config=cfg_fn, exp_name="smoke_bin", reset=True,
+                       print_hparams=False)
+
+    def hp_for(tag, **kw):
+        return HParams(dict(base, binary_data_dir=os.path.join(
+            workdir, f"bin_{tag}"), config_path=os.path.join(
+                workdir, f"bin_{tag}.yaml"), **kw))
+
+    hps = {"batched": hp_for("b8", binarize_batch_size=8),
+           "per_item": hp_for("b1", binarize_batch_size=1)}
+    res = {}
+    for k, hp in hps.items():
+        # HuBERT-soft and the AC tracker on the card; none of K1-K6
+        label = f"binarize_batch_size {hp['binarize_batch_size']}"
+        with counted(label, launches, moved=(), still=ALL_KERNELS,
+                     tag="train2"):
+            res[k] = {"s": timed_binarize(hp, device, label)}
+    for r in res.values():
+        r["items_per_s"] = TRAIN_CLIPS / r["s"]
+    got = binarized_items(hps["batched"])
+    want = binarized_items(hps["per_item"])
+    units_rel, f0_max = [], 0.0
+    if [x["item_name"] for x in got] != [x["item_name"] for x in want]:
+        raise SmokeError("batched and per-item binarize hold other items")
+    for a, b in zip(got, want):
+        try:
+            np.testing.assert_allclose(a["mel"], b["mel"], rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(a["f0"], b["f0"], rtol=1e-4,
+                                       atol=1e-3)
+            np.testing.assert_array_equal(a["mel2ph"], b["mel2ph"])
+        except AssertionError as e:
+            raise SmokeError(f"batched vs per-item, {a['item_name']}: {e}")
+        if a["len"] != b["len"] or a["hubert"].shape != b["hubert"].shape:
+            raise SmokeError(f"{a['item_name']}: len or units shape differ")
+        units_rel.append(rel_l2(torch.from_numpy(a["hubert"]),
+                                torch.from_numpy(b["hubert"])))
+        f0_max = max(f0_max, float(np.abs(a["f0"] - b["f0"]).max()))
+    res["compare"] = {"items": len(got), "f0_max_abs_hz": f0_max,
+                      "units_rel_l2_mean": float(np.mean(units_rel)),
+                      "units_rel_l2_max": float(np.max(units_rel))}
+    log(f"[train2] batched vs per-item, {len(got)} train items: mel, f0 "
+        f"(max |diff| {f0_max:.3e} Hz), mel2ph and len within JAX's test "
+        f"tolerances; units rel_l2 mean {np.mean(units_rel):.3e} max "
+        f"{np.max(units_rel):.3e} (not gated: other padding, as in JAX)")
+    # the f0 cache on the per-item path: one run writes, the next hits
+    cache = os.path.join(workdir, "f0cache")
+    calls = {"n": 0}
+    track = features.get_pitch_ac
+
+    def counting(*a, **k):
+        calls["n"] += 1
+        return track(*a, **k)
+
+    runs = []
+    with swapped(features, get_pitch_ac=counting):
+        for tag in ("cache1", "cache2"):
+            calls["n"] = 0
+            hp = hp_for(tag, binarize_batch_size=1, f0_cache_dir=cache)
+            runs.append({"s": timed_binarize(hp, device, f"per item with "
+                                             f"f0_cache_dir ({tag})"),
+                         "tracked": calls["n"]})
+    files = len(os.listdir(cache))
+    res["cache"] = {"runs": runs, "files": files}
+    log(f"[train2] f0 cache: the first run tracked {runs[0]['tracked']} "
+        f"items and left {files} files; the second tracked "
+        f"{runs[1]['tracked']} (hits on every item); "
+        f"{runs[0]['s']:.2f}s then {runs[1]['s']:.2f}s")
+    if files != TRAIN_CLIPS or runs[0]["tracked"] != TRAIN_CLIPS \
+            or runs[1]["tracked"] != 0:
+        raise SmokeError(f"the f0 cache: {res['cache']}")
+    return res
+
+
+def phase_train2(device, workdir):
+    """Phase 9 on phase 5's data and checkpoint: RAdam, the pe task,
+    --infer and the batched binarizer with the f0 cache."""
+    cfg_fn = os.path.join(workdir, "train.yaml")
+    launches = {}
+    res = {"radam": phase_radam(device, workdir, cfg_fn, launches),
+           "pe": phase_pe(device, workdir, launches),
+           "infer": phase_infer(device, workdir, cfg_fn, launches),
+           "binarize": phase_binarize(device, workdir, cfg_fn, launches)}
+    res["launches"] = launches
+    return res
+
+
 def deterministic_step(bundle_fn: str) -> int:
     """Phase 5's child: one step twice from the bundle's state, batch, t and
     noise under ``torch.use_deterministic_algorithms``; prints whether the
@@ -2852,7 +3509,7 @@ def main(argv=None) -> int:
         record["kernels"] = phase_kernels(device)
         from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
 
-        # K6 is on no path: phases 4-8 must not launch it
+        # K6 is on no path: phases 4-9 must not launch it
         k6.launches = k6.launches_tc = k6.launches_tf32x3 = 0
         with tempfile.TemporaryDirectory() as tmp:
             cwd = os.getcwd()
@@ -2865,11 +3522,12 @@ def main(argv=None) -> int:
                     device, tmp, cfg["hubert_path"], cfg["vocoder_ckpt"])
                 record["serve"] = phase_serve(device, project)
                 record["rest"] = phase_rest(device, project, tmp)
+                record["train2"] = phase_train2(device, tmp)
             finally:
                 os.chdir(cwd)
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-8: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-9: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -2881,8 +3539,9 @@ def main(argv=None) -> int:
     # each kernel's launches on the path that runs it: K1-K3 the conversions
     # (phase 4), K4 the trainer at max_sentences 24 (phase 5), K5 the trainer
     # at the config's own batch (phase 6); K6 is on no path, so its count over
-    # phases 4-8, which must be 0; launches_rest: phase 8's routes (DDPM,
-    # the 24 kHz profile)
+    # phases 4-9, which must be 0; launches_rest: phase 8's routes (DDPM,
+    # the 24 kHz profile); launches_train2: phase 9's parts (RAdam's
+    # run_task, the trained pe's conversion, --infer)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -2908,11 +3567,14 @@ def main(argv=None) -> int:
                             "launches_tf32x3"].get(name),
                         "main_path": name != "fused_residual_block",
                         "launches_serving": {
-                            route: counts.get(name, 0) for route, counts in
+                            route: counts[name] for route, counts in
                             record["serve"]["launches"].items()},
                         "launches_rest": {
-                            route: counts.get(name, 0) for route, counts in
+                            route: counts[name] for route, counts in
                             record["rest"]["launches"].items()},
+                        "launches_train2": {
+                            part: counts[name] for part, counts in
+                            record["train2"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -11,13 +11,14 @@ Counterpart of ``diffsvc_tpu/data/binarizer.py:40-214`` (reference
 - per split, valid then test then train, items in reverse order through
   ``features.process_item`` (mel and f0 on the device: CREPE with
   ``use_crepe``, falling back to the AC tracker without its weights, as
-  the JAX binarizer does; units from the port's HuBERT encoder) into an
-  ``IndexedDatasetBuilder``;
+  the JAX binarizer does; units from the port's HuBERT encoder; the f0
+  track cache with ``f0_cache_dir``) into an ``IndexedDatasetBuilder``, or,
+  with ``binarize_batch_size`` > 1, no ``use_crepe`` and an encoder with
+  weights, through ``features.process_items_batched`` in groups of that
+  size (one AC track and one encoder call per group; JAX's gate,
+  ``diffsvc_tpu/data/binarizer.py:114-133``);
 - the train split's spec_min / spec_max written back into the YAML config
   (``write_back_spec_stats``), ``{prefix}_lengths.npy`` and ``spk_map.json``.
-
-The batched device pipeline of the JAX binarizer (``binarize_batch_size``)
-is not ported: items go one by one.
 """
 
 from __future__ import annotations
@@ -110,12 +111,7 @@ class SVCBinarizer:
         builder = IndexedDatasetBuilder(f"{data_dir}/{prefix}")
         lengths, spec_min, spec_max = [], [], []
         total_sec = 0.0
-        for name in reversed(names):
-            item = features.process_item(
-                name, self.items[name]["wav_fn"], hp,
-                self.phone_encoder.encode, self.binarization_args,
-                spk_id=self.spk_map[self.items[name]["spk_id"]],
-                device=self.device)
+        for item in self.processed_items(names):
             if item is None:
                 continue
             spec_min.append(item["spec_min"])
@@ -132,6 +128,35 @@ class SVCBinarizer:
         np.save(f"{data_dir}/{prefix}_lengths.npy", lengths)
         print(f"| {prefix} total duration: {total_sec:.3f}s "
               f"({len(lengths)} items)")
+
+    def processed_items(self, names: List[str]):
+        """The split's items in reverse order (None for a skipped one):
+        batched when ``binarize_batch_size`` > 1, the tracker is the AC one
+        and the encoder has weights for ``encode_batch``, else one by one
+        (and said so when a batch size was asked for)."""
+        hp, enc = self.hp, self.phone_encoder
+        metas = [(name, self.items[name]["wav_fn"]) for name in
+                 reversed(names)]
+        spk_ids = [self.spk_map[self.items[name]["spk_id"]]
+                   for name, _ in metas]
+        batch_size = int(hp.get("binarize_batch_size", 8) or 0)
+        if batch_size > 1 and not hp.get("use_crepe", False):
+            if hasattr(enc, "encode_batch") \
+                    and getattr(enc, "model", None) is not None:
+                for _, item in features.process_items_batched(
+                        metas, hp, enc.encode_batch, self.binarization_args,
+                        spk_ids=spk_ids, group_size=batch_size,
+                        device=self.device):
+                    yield item
+                return
+            print(f"| binarize_batch_size {batch_size}: the content encoder "
+                  "has no weights for encode_batch; items go one by one")
+        for (name, wav_fn), spk_id in zip(metas, spk_ids):
+            yield features.process_item(
+                name, wav_fn, hp, enc.encode, self.binarization_args,
+                spk_id=spk_id, device=self.device,
+                tg_fn=self.items[name].get("tg_fn"),
+                ph=self.items[name].get("ph"))
 
 
 def binarize(hp, device=None) -> None:

@@ -85,3 +85,14 @@ class Hubertencoder:
                         (0, pad_len - len(wav16k)))
         units = self.model.units(torch.from_numpy(wav16k)[None].to(self.device))
         return units[0, :true_units].float().cpu().numpy()
+
+    @torch.no_grad()
+    def encode_batch(self, wav16k_batch) -> np.ndarray:
+        """[B, L] 16 kHz waveforms, already padded to one length -> [B, T,
+        256] units, one encoder call (the batched binarizer's; JAX's
+        ``encode_batch``).  No 0.4 s padding and no trimming: the caller
+        trims each row."""
+        if self.model is None:
+            raise FileNotFoundError("HuBERT/ContentVec checkpoint not loaded")
+        wavs = torch.from_numpy(np.asarray(wav16k_batch, np.float32))
+        return self.model.units(wavs.to(self.device)).float().cpu().numpy()

@@ -80,13 +80,26 @@ class PitchExtractor(nn.Module):
     def forward(self, mel: torch.Tensor) -> dict:
         """mel [B, T, M] log10 -> {'pitch_pred' [B, T, 2],
         'f0_denorm_pred' [B, T]}; all-zero (padding) frames give f0 0."""
+        return self.compute(mel)
+
+    def compute(self, mel: torch.Tensor) -> dict:
+        """:meth:`forward` with autograd (the pe task's loss).  The prenet's
+        BatchNorm is its eval form written out, ``(x - mean) / sqrt(var +
+        eps) * w + b``, as JAX's ``batch_norm_eval``: the pe task trains the
+        running statistics as parameters, as the JAX task does."""
         hp = self.hp
         padding = mel.abs().sum(-1) == 0
         keep = 1.0 - padding.float()[:, :, None]            # [B, T, 1]
         with fnn.true_f32_convs():
-            x = mel.float().transpose(1, 2)
-            for layer in self.mel_prenet.layers:
-                x = layer(x) * keep.transpose(1, 2)
+            # f32 mels in pe's own dtype (f64 for a reference)
+            x = mel.float().to(self.mel_prenet.out_proj.weight.dtype
+                               ).transpose(1, 2)
+            for conv, _, bn in self.mel_prenet.layers:
+                x = torch.relu(conv(x))
+                x = ((x - bn.running_mean[:, None])
+                     * torch.rsqrt(bn.running_var[:, None] + bn.eps)
+                     * bn.weight[:, None] + bn.bias[:, None])
+                x = x * keep.transpose(1, 2)
             x = self.mel_prenet.out_proj(x.transpose(1, 2)) * keep
             x = self.mel_encoder.in_proj(x)
             for blk in self.mel_encoder.conv:

@@ -2,10 +2,11 @@
 
 Counterpart of ``diffsvc_tpu/training/task.py`` (reference
 ``training/task/SVC_task.py``): GaussianDiffusion with the wavenet decoder,
-AdamW (betas ``optimizer_adam_beta1/2``, ``weight_decay``, eps 1e-8) behind
-clip-by-global-norm, StepLR or RSQRT by optimizer step, gradient
-accumulation with ``optax.MultiSteps`` semantics, an optional EMA of the
-weights, and the diffusion loss as the 'mel' loss.
+AdamW (betas ``optimizer_adam_beta1/2``, ``weight_decay``, eps 1e-8) or,
+with ``optimizer: radam``, ``optax.radam``'s update (:class:`RAdam`, no
+weight decay) behind clip-by-global-norm, StepLR or RSQRT by optimizer
+step, gradient accumulation with ``optax.MultiSteps`` semantics, an
+optional EMA of the weights, and the diffusion loss as the 'mel' loss.
 
 One step runs eagerly: the loss through K4 or K5 (``diffnet.apply``'s
 training route, picked by the batch's shape), ``torch.autograd.grad``, then
@@ -19,6 +20,7 @@ work.
 from __future__ import annotations
 
 import copy
+import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -55,21 +57,162 @@ def clip_by_global_norm(grads, max_norm: float):
     return [torch.where(keep, g, (g / norm) * max_norm) for g in grads]
 
 
-class SVCTask:
-    def __init__(self, hp, device=None):
-        self.hp = hp
-        self.device = default_device(device)
+class RAdam(torch.optim.Optimizer):
+    """``optax.radam(lr, b1, b2, eps=1e-8)``'s update (the JAX task's
+    ``optimizer: radam``), which ``torch.optim.RAdam`` is not: torch adds
+    eps to sqrt(v) before the bias correction and rectifies only when
+    rho_t > 5.  Here, per step t (from 1):
+
+        m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2
+        m_hat = m / (1 - b1^t);  v_hat = v / (1 - b2^t)
+        rho_t = rho_inf - 2 t b2^t / (1 - b2^t),  rho_inf = 2 / (1 - b2) - 1
+        u = r_t m_hat / (sqrt(v_hat) + eps)   if rho_t >= 5 (optax's >=)
+        u = m_hat                             otherwise
+        p -= lr u
+
+    with r_t from :func:`rectification`.  No weight decay."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999),
+                 eps: float = 1e-8, threshold: float = 5.0):
+        super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps,
+                                      threshold=threshold))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        """One update of every parameter with a grad, each group's tensors
+        at once (``torch._foreach_*``: a handful of launches per group, not
+        per tensor); r_t and the bias corrections are per-step scalars."""
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["step"] = torch.zeros((), dtype=torch.float32)
+                    st["exp_avg"] = torch.zeros_like(p)
+                    st["exp_avg_sq"] = torch.zeros_like(p)
+                st["step"] += 1
+            t = int(states[0]["step"])
+            grads = [p.grad for p in params]
+            m = [st["exp_avg"] for st in states]
+            v = [st["exp_avg_sq"] for st in states]
+            torch._foreach_mul_(m, b1)
+            torch._foreach_add_(m, grads, alpha=1.0 - b1)
+            torch._foreach_mul_(v, b2)
+            torch._foreach_addcmul_(v, grads, grads, value=1.0 - b2)
+            lr_t = group["lr"] / (1.0 - b1 ** t)
+            r = rectification(t, b2, group["threshold"])
+            if r is None:
+                torch._foreach_add_(params, m, alpha=-lr_t)
+                continue
+            den = torch._foreach_div(v, 1.0 - b2 ** t)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            torch._foreach_addcdiv_(params, m, den, value=-lr_t * r)
+
+
+def rectification(t: int, b2: float, threshold: float = 5.0):
+    """RAdam's variance rectification r_t at step ``t`` (from 1), or None
+    where rho_t < ``threshold`` (the update is then the bias-corrected
+    momentum alone).  With b2 = 0.98, rho_t first reaches 5 at step 6."""
+    rho_inf = 2.0 / (1.0 - b2) - 1.0
+    b2t = b2 ** t
+    rho = rho_inf - 2.0 * t * b2t / (1.0 - b2t)
+    if rho < threshold:
+        return None
+    return math.sqrt((rho - 4.0) * (rho - 2.0) * rho_inf
+                     / ((rho_inf - 4.0) * (rho_inf - 2.0) * rho))
+
+
+class Optimized:
+    """The optimization shared by the tasks, as the JAX tasks' optax chain:
+    ``clip_by_global_norm`` then AdamW (``weight_decay``) or RAdam (none),
+    behind ``optax.MultiSteps`` accumulation of
+    ``accumulate_grad_batches`` micro-steps, the lr taken at the optimizer
+    step.  A task sets ``hp``, ``params`` and ``optimizer_name`` and calls
+    :meth:`init_optimizer`."""
+
+    def init_optimizer(self) -> None:
+        hp = self.hp
         self.lr_schedule = build_lr_schedule(hp)
         self.accumulate = int(hp.get("accumulate_grad_batches", 1) or 1)
         self.max_norm = float(hp.get("clip_grad_norm", 1) or 1e9)
+        betas = (float(hp.get("optimizer_adam_beta1", 0.9)),
+                 float(hp.get("optimizer_adam_beta2", 0.98)))
+        if self.optimizer_name == "radam":
+            self.optimizer = RAdam(self.params, lr=self.lr_schedule(0),
+                                   betas=betas, eps=1e-8)
+        else:
+            self.optimizer = torch.optim.AdamW(
+                self.params, lr=self.lr_schedule(0), betas=betas, eps=1e-8,
+                weight_decay=float(hp.get("weight_decay", 0) or 0.0))
+        self.step = 0          # micro-steps (the trainer's global_step)
+        self.opt_steps = 0     # optimizer updates made
+        self.mini_step = 0     # position inside an accumulation window
+        self.acc = None        # running mean of the window's grads
+
+    def apply_grads(self, grads) -> float:
+        """One micro-step's grads (one per parameter): accumulated, and at
+        the end of each window clipped and applied.  Returns the lr metric
+        (the schedule at ``step // accumulate``)."""
+        lr = self.lr_schedule(self.step // self.accumulate)
+        if self.acc is None:
+            self.acc = grads
+        else:   # optax.MultiSteps' running mean
+            self.acc = [a + (g - a) / (self.mini_step + 1)
+                        for a, g in zip(self.acc, grads)]
+        if self.mini_step == self.accumulate - 1:
+            for p, g in zip(self.params,
+                            clip_by_global_norm(self.acc, self.max_norm)):
+                p.grad = g
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_schedule(self.opt_steps)
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
+            self.opt_steps += 1
+            self.acc = None
+        self.mini_step = (self.mini_step + 1) % self.accumulate
+        self.step += 1
+        return lr
+
+    def optimizer_state(self) -> Dict:
+        """The checkpoint's ``optimizer_states`` and ``accumulation``."""
+        return {"optimizer_states": [self.optimizer.state_dict()],
+                "accumulation": {
+                    "opt_steps": self.opt_steps, "mini_step": self.mini_step,
+                    "acc_grads": None if self.acc is None else
+                    [g.detach().cpu().clone() for g in self.acc]}}
+
+    def load_optimizer_state(self, ckpt: Dict) -> None:
+        # a copy: load_state_dict keeps the given state tensors where their
+        # device and dtype already fit, and the steps update them in place
+        self.optimizer.load_state_dict(
+            copy.deepcopy(ckpt["optimizer_states"][0]))
+        acc = ckpt.get("accumulation") or {}
+        self.opt_steps = int(acc.get("opt_steps", 0))
+        self.mini_step = int(acc.get("mini_step", 0))
+        grads = acc.get("acc_grads")
+        self.acc = None if grads is None else [g.to(self.device)
+                                               for g in grads]
+        self.step = int(ckpt["global_step"])
+
+
+def optimizer_name(hp) -> str:
+    name = str(hp.get("optimizer", "adamw")).lower()
+    if name not in ("adamw", "adam", "radam"):
+        raise ValueError(f"unknown optimizer: {name!r}")
+    return name
+
+
+class SVCTask(Optimized):
+    def __init__(self, hp, device=None):
+        self.hp = hp
+        self.device = default_device(device)
         self.ema_decay = float(hp.get("ema_decay", 0) or 0)
         self.seed = int(hp.get("seed", 1234))
-        name = str(hp.get("optimizer", "adamw")).lower()
-        if name == "radam":
-            raise NotImplementedError("optimizer: radam is not ported to "
-                                      "torch yet (AdamW is)")
-        if name not in ("adamw", "adam"):
-            raise ValueError(f"unknown optimizer: {name!r}")
+        self.optimizer_name = optimizer_name(hp)
         self.model = GaussianDiffusion(hp).to(self.device)
         self.init_state()
 
@@ -84,16 +227,7 @@ class SVCTask:
         self.model.load_state_dict(fresh.state_dict())
         self.names = [n for n, _ in self.model.named_parameters()]
         self.params = [p for _, p in self.model.named_parameters()]
-        hp = self.hp
-        self.optimizer = torch.optim.AdamW(
-            self.params, lr=self.lr_schedule(0),
-            betas=(float(hp.get("optimizer_adam_beta1", 0.9)),
-                   float(hp.get("optimizer_adam_beta2", 0.98))),
-            eps=1e-8, weight_decay=float(hp.get("weight_decay", 0) or 0.0))
-        self.step = 0          # micro-steps (the trainer's global_step)
-        self.opt_steps = 0     # optimizer updates made
-        self.mini_step = 0     # position inside an accumulation window
-        self.acc = None        # running mean of the window's grads
+        self.init_optimizer()
         self.ema = None
         if self.ema_decay > 0:
             self.ema = copy.deepcopy(self.model).requires_grad_(False)
@@ -135,24 +269,7 @@ class SVCTask:
                 if not bool(torch.isfinite(g).all()):
                     print(f"| WARNING: non-finite grad in {name} at step "
                           f"{self.step} (loss={float(loss)})")
-        lr = self.lr_schedule(self.step // self.accumulate)
-        if self.acc is None:
-            self.acc = grads
-        else:   # optax.MultiSteps' running mean
-            self.acc = [a + (g - a) / (self.mini_step + 1)
-                        for a, g in zip(self.acc, grads)]
-        if self.mini_step == self.accumulate - 1:
-            for p, g in zip(self.params,
-                            clip_by_global_norm(self.acc, self.max_norm)):
-                p.grad = g
-            for group in self.optimizer.param_groups:
-                group["lr"] = self.lr_schedule(self.opt_steps)
-            self.optimizer.step()
-            self.optimizer.zero_grad(set_to_none=True)
-            self.opt_steps += 1
-            self.acc = None
-        self.mini_step = (self.mini_step + 1) % self.accumulate
-        self.step += 1
+        lr = self.apply_grads(grads)
         if self.ema is not None:
             d = self.ema_decay
             with torch.no_grad():
@@ -170,14 +287,18 @@ class SVCTask:
         return float(loss)
 
     @torch.no_grad()
-    def sample(self, batch: Dict, speedup: Optional[int] = None) -> Dict:
-        """Full sampling through K2 with the EMA weights when kept."""
+    def sample(self, batch: Dict, speedup: Optional[int] = None,
+               init_noise=None, key=()) -> Dict:
+        """Full sampling through K2 with the EMA weights when kept.  The
+        draws come from the (SAMPLE, *key) stream (the test runner passes
+        the item's index, as JAX folds it into its key); ``init_noise``
+        ([B, T, M]) replaces the start draw."""
         model = self.ema if self.ema is not None else self.model
         return model.infer(self.prepare_batch(batch),
                            speedup=speedup or self.hp.get("pndm_speedup", 10)
-                           or 10,
+                           or 10, init_noise=init_noise,
                            generator=draw_generator(self.device, self.seed,
-                                                    SAMPLE))
+                                                    SAMPLE, *key))
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict:
@@ -187,11 +308,7 @@ class SVCTask:
 
         out = {"state_dict": {f"model.{k}": v for k, v in
                               cpu(self.model.state_dict()).items()},
-               "optimizer_states": [self.optimizer.state_dict()],
-               "accumulation": {
-                   "opt_steps": self.opt_steps, "mini_step": self.mini_step,
-                   "acc_grads": None if self.acc is None else
-                   [g.detach().cpu().clone() for g in self.acc]}}
+               **self.optimizer_state()}
         if self.ema is not None:
             out["ema_state_dict"] = cpu(self.ema.state_dict())
         return out
@@ -199,17 +316,7 @@ class SVCTask:
     def load_state_dict(self, ckpt: Dict) -> None:
         """Resume from a checkpoint written from :meth:`state_dict`."""
         self.model.load_state_dict(strip_prefix(ckpt["state_dict"], "model."))
-        # a copy: load_state_dict keeps the given state tensors where their
-        # device and dtype already fit, and the steps update them in place
-        self.optimizer.load_state_dict(
-            copy.deepcopy(ckpt["optimizer_states"][0]))
-        acc = ckpt.get("accumulation") or {}
-        self.opt_steps = int(acc.get("opt_steps", 0))
-        self.mini_step = int(acc.get("mini_step", 0))
-        grads = acc.get("acc_grads")
-        self.acc = None if grads is None else [g.to(self.device)
-                                               for g in grads]
-        self.step = int(ckpt["global_step"])
+        self.load_optimizer_state(ckpt)
         if self.ema is not None:
             self.ema.load_state_dict(ckpt.get("ema_state_dict")
                                      or self.model.state_dict())

@@ -48,17 +48,29 @@ def vocoder_weights_available(hp) -> bool:
     return any(glob.glob(os.path.join(search_dir, p)) for p in pats)
 
 
+def resolve_task_cls(name: str):
+    """The task of a reference ``task_cls`` string, as
+    ``diffsvc_tpu/training/trainer.py:58-63``: the pe task for a
+    ``...PitchExtractionTask``, SVCTask otherwise.  Vocoder training is not
+    ported."""
+    if "vocoder" in name.lower():
+        raise NotImplementedError(f"task_cls {name} is not ported to torch "
+                                  "(SVCTask and PitchExtractionTask are)")
+    if "pe" in name.lower() and "PitchExtraction" in name:
+        from .pe_task import PitchExtractionTask
+
+        return PitchExtractionTask
+    return SVCTask
+
+
 class Trainer:
     def __init__(self, hp: HParams, log_writer=None, device=None):
         self.hp = hp
         self.work_dir = hp["work_dir"]
         os.makedirs(self.work_dir, exist_ok=True)
         save_hparams(hp, self.work_dir)
-        task_cls = str(hp.get("task_cls", ""))
-        if "PitchExtraction" in task_cls or "vocoder" in task_cls.lower():
-            raise NotImplementedError(f"task_cls {task_cls} is not ported to "
-                                      "torch yet (SVCTask is)")
-        self.task = SVCTask(hp, device=device)
+        self.task = resolve_task_cls(str(hp.get("task_cls", "")))(
+            hp, device=device)
         self.global_step = 0
         self.epoch = 0
         self.best = None

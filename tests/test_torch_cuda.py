@@ -678,3 +678,71 @@ def test_crepe_network_card_matches_cpu(cuda):
     ref = crepe.posteriors(model, frames)
     got = crepe.posteriors(model.to(cuda), frames.to(cuda))
     assert _rel(got.cpu(), ref) <= 1e-4
+
+
+def _radam_plain(p, grads, lrs, b1=0.9, b2=0.98, eps=1e-8):
+    """optax.radam's update written out on whole tensors, step by step."""
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    rho_inf = 2.0 / (1.0 - b2) - 1.0
+    for t, (g, lr) in enumerate(zip(grads, lrs), start=1):
+        m = (1.0 - b1) * g + b1 * m
+        v = (1.0 - b2) * g * g + b2 * v
+        m_hat, v_hat = m / (1.0 - b1 ** t), v / (1.0 - b2 ** t)
+        rho = rho_inf - 2.0 * t * b2 ** t / (1.0 - b2 ** t)
+        if rho >= 5.0:
+            r = ((rho - 4.0) * (rho - 2.0) * rho_inf
+                 / ((rho_inf - 4.0) * (rho_inf - 2.0) * rho)) ** 0.5
+            m_hat = r * m_hat / (v_hat.sqrt() + eps)
+        p = p - lr * m_hat
+    return p
+
+
+def test_radam_on_the_card_matches_plain(cuda):
+    """The port's RAdam on the card, 7 steps (6 and 7 rectified) on fixed
+    grads, against optax's update written out on the card: the total update
+    within rel-L2 1e-6 (from zero values, so the values' own rounding does
+    not enter)."""
+    from diffsvc_tpu_torch.training.task import RAdam
+
+    g = torch.Generator().manual_seed(0)
+    p0 = torch.zeros(4096, device=cuda)
+    grads = [torch.randn(4096, generator=g).to(cuda) * 1e-3 for _ in range(7)]
+    lrs = [2e-3, 2e-3, 2e-3, 1e-3, 1e-3, 1e-3, 5e-4]
+    p = torch.nn.Parameter(p0.clone())
+    opt = RAdam([p], lr=lrs[0], betas=(0.9, 0.98))
+    for grad, lr in zip(grads, lrs):
+        p.grad = grad.clone()
+        opt.param_groups[0]["lr"] = lr
+        opt.step()
+    ref = _radam_plain(p0, grads, lrs)
+    assert _rel(p.detach() - p0, ref - p0) <= 1e-6
+
+
+def test_pe_step_card_matches_cpu(cuda):
+    """One pe task step on the card against the same step on the CPU (same
+    init, batch): loss and every grad within 1e-4 rel-L2, pe being true f32
+    in its forward and backward (``true_f32_convs``) under PyTorch's
+    default ``cudnn.allow_tf32`` (True), as a user's training runs."""
+    import numpy as np
+
+    from _torch_fixtures import TINY_HP
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
+
+    hp = HParams(dict(TINY_HP, lr=1e-3, scheduler="step_lr",
+                      decay_steps=100, pitch_type="frame"))
+    rng = np.random.RandomState(0)
+    batch = {"mels": (rng.randn(3, 64, 16) * 0.5 - 2.5).astype(np.float32),
+             "f0": (7.6 + 0.2 * rng.randn(3, 64)).astype(np.float32),
+             "uv": (rng.rand(3, 64) < 0.25).astype(np.float32),
+             "sample_mask": np.array([1, 1, 0], np.float32)}
+    out = []
+    torch.backends.cudnn.allow_tf32 = True      # the fixture restores it
+    for dev in (cuda, "cpu"):
+        task = PitchExtractionTask(hp, device=dev)
+        loss, _, grads = task.loss_and_grads(batch)
+        out.append((loss.cpu(), [gr.cpu() for gr in grads]))
+    (lc, gc), (lp, gp) = out
+    assert _rel(lc, lp) <= 1e-4
+    for a, b in zip(gc, gp):
+        assert _rel(a, b) <= 1e-4 or float(b.norm()) == 0.0

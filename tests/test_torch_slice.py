@@ -161,11 +161,41 @@ hub = write_hubert("hub.pt", HubertConfig(dim=32, num_heads=2, num_layers=2,
                                           ffn_dim=64, proj_dim=32))
 fwav, _, _ = fused.FusedSvc(svc.hp, svc.model, svc.vocoder, hub.eval(),
                             speedup=10)(np.zeros(4000, np.float32))
+# the rest of training and the data inventory: a batched binarize (the
+# tiny HuBERT's encode_batch) and --infer on a task checkpoint
+from diffsvc_tpu_torch.data import textgrid
+from diffsvc_tpu_torch.ops import cwt, ssim
+from diffsvc_tpu_torch.training import losses, pe_task, test_runner
+from diffsvc_tpu_torch.utils import misc, multiprocess, text_encoder, text_norm
+from diffsvc_tpu_torch.config import HParams
+from diffsvc_tpu_torch.run import run_task
+os.makedirs("raw")
+for i in range(7):
+    save_wav(voiced_wav(secs=0.5 + 0.1 * i, seed=i), f"raw/c{{i}}.wav", SR)
+hp = HParams(dict(svc.hp, raw_data_dir="raw", binary_data_dir="bin",
+                  config_path="bin_cfg.yaml", work_dir="work", num_spk=1,
+                  use_spk_id=False, choose_test_manually=False,
+                  binarize_batch_size=4, max_tokens=4000, max_sentences=4,
+                  max_eval_tokens=4000, frames_multiple=32, task_cls="SVCTask",
+                  lr=1e-3, scheduler="step_lr", decay_steps=100))
+enc = svc.hubert
+enc.model = hub.eval()
+n_batches = []
+enc.encode_batch = (lambda f: lambda w: n_batches.append(1) or f(w))(
+    enc.encode_batch)
+b = binarizer.SVCBinarizer(hp, device="cpu")
+b._phone_encoder = lambda: enc
+b.process()
+t = task.SVCTask(hp, device="cpu")
+checkpoint.save_checkpoint("work", t.state_dict(), 0, 0)
+run_task(HParams(dict(hp, infer=True)), device="cpu")
+n_mels = len(os.listdir("work/P_mels_npy"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
 print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
                   "n": int(len(wav)), "finite": bool(np.isfinite(wav).all()
                                                      and np.isfinite(wav1).all()
-                                                     and np.isfinite(fwav).all())}}))
+                                                     and np.isfinite(fwav).all()),
+                  "batches": len(n_batches), "mels": n_mels}}))
 """
 
 
@@ -174,11 +204,14 @@ def test_port_never_imports_jax(tmp_path):
     (``run``, ``binarize``, ``batch``, ``flask_api``), the serving modules
     (``infer.fused``, ``infer.streaming``) and the rest of conversion
     (``ops.crepe``, ``models.pe``, ``models.contentvec``,
-    ``vocoders.hifigan``, ``vocoders.vocoder_utils``), plus tiny CPU
-    conversions through the port's Svc (CREPE asked for, falling back
-    without weights; DDPM at acc=1) and one through the fused program, in
-    a fresh process: neither jax nor any module of the JAX package
-    ``diffsvc_tpu`` may be in sys.modules."""
+    ``vocoders.hifigan``, ``vocoders.vocoder_utils``) and of training and
+    data (``training.pe_task``, ``losses``, ``test_runner``, ``ops.ssim``,
+    ``ops.cwt``, ``data.textgrid``, ``utils.misc`` and the other copies),
+    plus tiny CPU conversions through the port's Svc (CREPE asked for,
+    falling back without weights; DDPM at acc=1), one through the fused
+    program, a batched binarize (the tiny HuBERT's ``encode_batch``) and
+    ``--infer`` on its test split, in a fresh process: neither jax nor any
+    module of the JAX package ``diffsvc_tpu`` may be in sys.modules."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -186,8 +219,9 @@ def test_port_never_imports_jax(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"jax": False, "ref_pkg": [], "n": res["n"], "finite": True}
-    assert res["n"] > 0
+    assert res == {"jax": False, "ref_pkg": [], "n": res["n"], "finite": True,
+                   "batches": res["batches"], "mels": 5}
+    assert res["n"] > 0 and res["batches"] > 0
 
 
 @pytest.mark.parametrize("f0_flags", [["--no_crepe"], []],
@@ -266,7 +300,8 @@ def test_crepe_and_pe_requests_raise(in_root, tmp_path):
 def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     """Without a card, ``default_device`` and every entry point that runs
     on it by default raise (among them the server's and the folder
-    batch's ``main``); ``device="cpu"`` (``--device cpu``) runs."""
+    batch's ``main``, the pe task and ``--infer``); ``device="cpu"``
+    (``--device cpu``) runs."""
     from _torch_fixtures import TINY_HP
     from diffsvc_tpu_torch import batch as tbatch
     from diffsvc_tpu_torch import flask_api
@@ -274,6 +309,7 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     from diffsvc_tpu_torch.data.binarizer import binarize
     from diffsvc_tpu_torch.infer.svc import default_device
     from diffsvc_tpu_torch.run import device_arg, run_task
+    from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
     from diffsvc_tpu_torch.training.task import SVCTask
 
     _, cfg_fn, ckpt, wav_fn = in_root
@@ -283,7 +319,10 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     for call in (default_device, lambda: default_device("cuda"),
                  lambda: TSvc("proj", cfg_fn, False, ckpt),
                  lambda: SVCTask(hp),
+                 lambda: PitchExtractionTask(hp),
                  lambda: run_task(HParams(dict(hp, work_dir="w"))),
+                 lambda: run_task(HParams(dict(hp, work_dir="w",
+                                               infer=True))),
                  lambda: binarize(hp),
                  lambda: infer_cli.main(["--project", "proj", "--model", ckpt,
                                          "--config", cfg_fn, "--files",

@@ -77,7 +77,11 @@ def test_port_source_imports_nothing_of_jax(source):
 
 def test_port_sources_cover_this_slice():
     for mod in ("ops/crepe.py", "models/pe.py", "models/contentvec.py",
-                "vocoders/hifigan.py", "vocoders/vocoder_utils.py"):
+                "vocoders/hifigan.py", "vocoders/vocoder_utils.py",
+                "training/pe_task.py", "training/losses.py",
+                "training/test_runner.py", "ops/ssim.py", "ops/cwt.py",
+                "data/textgrid.py", "utils/misc.py", "utils/multiprocess.py",
+                "utils/text_encoder.py", "utils/text_norm.py"):
         assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
 
 
@@ -183,3 +187,128 @@ def test_streaming_copy_matches_reference(block):
     assert ja == jb and len(a) == len(b)
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u, v)
+
+
+def _textgrid_text(intervals):
+    xmax = intervals[-1][1]
+    lines = ['File type = "ooTextFile"', 'Object class = "TextGrid"', "",
+             "xmin = 0.0", f"xmax = {xmax}", "tiers? <exists>", "size = 1",
+             "item []:", "    item [1]:", '        class = "IntervalTier"',
+             '        name = "phones"', "        xmin = 0.0",
+             f"        xmax = {xmax}",
+             f"        intervals: size = {len(intervals)}"]
+    for i, (a, b, t) in enumerate(intervals):
+        lines += [f"        intervals [{i + 1}]", f"            xmin = {a}",
+                  f"            xmax = {b}", f'            text = "{t}"']
+    return "\n".join(lines)
+
+
+def _run_textgrid(mod, tmp):
+    """tests/test_textgrid.py's alignments (and its two failures)."""
+    hp = {"audio_sample_rate": 1000, "hop_size": 100}
+    out = [mod.parse_textgrid(_textgrid_text(
+        [(0.0, 0.2, "sil"), (0.2, 0.5, "AA"), (0.5, 0.8, "B"),
+         (0.8, 1.0, "")]))[0].intervals,
+        mod._merge_silences([mod.Interval(0.0, 0.1, "sp"),
+                             mod.Interval(0.1, 0.2, "SIL"),
+                             mod.Interval(0.2, 0.5, "AA")])]
+    for k, (ivs, ph) in enumerate([
+            ([(0.0, 0.2, "sil"), (0.2, 0.5, "AA"), (0.5, 0.8, "B"),
+              (0.8, 1.0, "sp")], "<sil> AA B <sil>"),
+            ([(0.0, 0.5, "AA"), (0.5, 1.0, "B")], "AA <sp> B"),
+            ([(0.0, 0.6, "AA"), (0.6, 1.0, "")], "AA <sil> <sil>"),
+            ([(0.0, 0.5, "AA"), (0.5, 1.0, "B")], "AA B C"),
+            ([(0.0, 0.5, "AA"), (0.5, 1.0, "B")], "AA C")]):
+        fn = tmp / f"{mod.__name__}_{k}.TextGrid"
+        fn.write_text(_textgrid_text(ivs))
+        try:
+            out.append([a.tolist() for a in mod.get_mel2ph(str(fn), ph, 10,
+                                                           hp)])
+        except ValueError as e:
+            out.append(str(e))
+    return [[tuple(iv) for iv in x] if isinstance(x, list) and x
+            and hasattr(x[0], "text") else x for x in out]
+
+
+def _run_cwt(mod, tmp):
+    """tests/test_tools.py's round trip: decompose and reconstruct."""
+    t = np.arange(400) * 0.005
+    f0 = 220.0 * 2 ** (0.3 * np.sin(2 * np.pi * 5.0 * t))
+    f0[50:60] = 0.0
+    uv, lf0 = mod.get_cont_lf0(f0)
+    w, scales = mod.get_lf0_cwt((lf0 - lf0.mean()) / lf0.std())
+    wn, mean, std = mod.norm_scale(w)
+    return [uv, lf0, w, scales, wn, mean, std,
+            mod.cwt2f0(wn, lf0.mean(), lf0.std(), scales)]
+
+
+def _square(x):
+    return x * x
+
+
+def _run_multiprocess(mod, tmp):
+    """tests/test_tools.py's ordered map, and the unordered one's set."""
+    args = [(i,) for i in range(10)]
+    return [list(mod.chunked_multiprocess_run(_square, args, num_workers=3)),
+            sorted(mod.chunked_multiprocess_run(_square, args, num_workers=2,
+                                                ordered=False))]
+
+
+def _run_text_encoder(mod, tmp):
+    """tests/test_legacy_modules.py's round trips."""
+    enc = mod.TokenTextEncoder(["a", "b", "c"], replace_oov="|")
+    enc2 = mod.TokenTextEncoder(["a", "|"], replace_oov="|")
+    return [enc.vocab_size, enc.encode("a c b"), enc.decode(enc.encode("a c b")),
+            enc.pad(), enc.eos(), enc2.decode(enc2.encode("a zz")),
+            enc.decode([mod.PAD_ID] + enc.encode("a"), strip_padding=True),
+            mod.TextEncoder().encode("1 2 3")]
+
+
+def _run_text_norm(mod, tmp):
+    """tests/test_text_norm.py's readings and round trips."""
+    nums = [0, 5, 10, 15, 105, 1234, 10005, 1000500, 100050000, 123456789,
+            1_0000_0000_0000, "3.14", -42, "0.50"]
+    texts = ["共有1234人，平均3.5分", "涨了95%", "完成了2/3", "百分之15",
+             "电话13812345678", "固话0595-23861234", "2019年5月29日发布",
+             "30号见", "卖13.5元", "￥200", "编号1000000000000001",
+             "编号12345678901234567.5元", "-99999999999999999"]
+    return ([mod.num2chn(n) for n in nums]
+            + [mod.num2chn(123, big=True), mod.num2chn(200, alt_two=True),
+               mod.num2chn(20000, traditional=True)]
+            + [mod.chn2num(s) for s in ("十五", "两百", "三万五千", "负四十二",
+                                        "壹佰贰拾叁")]
+            + [mod.NSWNormalizer(s).normalize() for s in texts])
+
+
+def _same(a, b):
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+@pytest.mark.parametrize("name,original,copy,run", [
+    ("textgrid", "diffsvc_tpu.data.textgrid",
+     "diffsvc_tpu_torch.data.textgrid", _run_textgrid),
+    ("cwt", "diffsvc_tpu.ops.cwt", "diffsvc_tpu_torch.ops.cwt", _run_cwt),
+    ("multiprocess", "diffsvc_tpu.utils.multiprocess",
+     "diffsvc_tpu_torch.utils.multiprocess", _run_multiprocess),
+    ("text_encoder", "diffsvc_tpu.utils.text_encoder",
+     "diffsvc_tpu_torch.utils.text_encoder", _run_text_encoder),
+    ("text_norm", "diffsvc_tpu.utils.text_norm",
+     "diffsvc_tpu_torch.utils.text_norm", _run_text_norm),
+], ids=["textgrid", "cwt", "multiprocess", "text_encoder", "text_norm"])
+def test_numpy_copies_match_originals(tmp_path, name, original, copy, run):
+    """The port's copies of the JAX package's numpy-only modules give the
+    original's results, bit for bit, on the inputs of the JAX package's own
+    tests of them (tests/test_textgrid.py, test_tools.py, test_legacy_
+    modules.py, test_text_norm.py); each copy imports only the standard
+    library and numpy."""
+    want = run(importlib.import_module(original), tmp_path)
+    got = run(importlib.import_module(copy), tmp_path)
+    assert _same(got, want)
+    mods = _imports(os.path.join(REPO, *copy.split(".")) + ".py")
+    assert {m.split(".")[0] for m in mods} <= {
+        "__future__", "re", "typing", "numpy", "multiprocessing",
+        "traceback", "json"}, mods
