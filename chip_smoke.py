@@ -4,7 +4,8 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
-(``--deterministic-step BUNDLE`` is phase 5's child process, below.)
+(``--deterministic-step BUNDLE`` is phase 5's child process and
+``--dist-job JOB BUNDLE`` a rank of phase 10, below.)
 
 Phases, in order; any failure exits non-zero and no result line is printed:
 
@@ -185,10 +186,43 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    cache on the per-item path: a first run with ``f0_cache_dir`` tracks
    and writes every item, a second one tracks none.
 
+10. Several ranks, sharded serving, FS2-full and the FFT denoiser
+   (``[multi]`` and ``[fs2]`` lines; each rank is a process of its own,
+   ``chip_smoke.py --dist-job JOB BUNDLE`` with torchrun's environment, and
+   reports its own K1-K6 counts), on phase 6's data and phase 4's project:
+   (a) nccl at world 1: three steps at B=24 (K4) under a process group
+   against the same steps with none, params and optimizer state bit for
+   bit; (b) two gloo ranks sharing this card (nccl takes one card per
+   rank): three steps at 24 per rank (K4; the third on a ragged batch of
+   47 padded to 48) and two at config_44k's 88 per rank (K5), each step's
+   all-reduced grads against the sum of the two blocks' grads computed in
+   rank 0 alone with the same draws and the global count (``DIST_TOL``;
+   the loss against that sum, ``DIST_LOSS_TOL``), the planted fault (each
+   block normalized by its own count) above it, the two ranks' params bit
+   for bit, each rank's K4 / K5 counter moving; ms per step, samples/s
+   and each rank's peak memory; (c) rank 0 alone writes a checkpoint
+   before the third K4 step, both ranks restore through a ``Trainer`` (rank
+   1's work_dir empty: ``broadcast_state``), and the third step again
+   equals the uninterrupted one bit for bit; (d)
+   ``FusedSvc.batched_sharded`` on phase 7's 17 s clip (three chunks) over
+   two replicas on this card: padded to 4, three results, each within
+   ``BATCHED_TOL`` of ``batched``'s on the same draws, K2 and K3 moving on
+   both replicas, its wall beside ``batched``'s; (e) FS2-full
+   (``no_fs2: false``) and (f) the FFT denoiser (``diff_decoder_type:
+   fft``) at config_44k: the 14 s clip through the modular route and the
+   fused graph in bf16 and f32 (the FFT denoiser in f32; RTF, busy share;
+   K2 and K3 moving; the FFT denoiser's K1, K2, K4 and K5 at 0 and K3
+   moving; the encoder, or the
+   denoiser, run inside the captured graph), a 0.5 s conversion card vs
+   CPU at phase 4's limits with the encoder's (the denoiser's) last layer
+   dropped as the planted fault, and one train step at B=24 with dropout
+   0.1 (FS2-full on K4; the FFT denoiser on no kernel) whose encoder
+   (denoiser) grads are finite and not zero.
+
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
-the path that runs it, on each serving route, on each of phase 8's routes
-and in each of phase 9's parts, errors, times, bound);
+the path that runs it, on each serving route, on each of phase 8's routes,
+in each of phase 9's parts and phase 10's, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1319,8 +1353,22 @@ def zeroed(*params):
                 p.copy_(v)
 
 
+def skip_bias_dropped(svc):
+    """The planted fault of the card-vs-CPU checks: the denoiser's
+    skip-projection bias dropped."""
+    return zeroed(svc.model.denoise_fn.skip_projection.bias)
+
+
+def denoiser_head(svc):
+    """The parameters that zeroed give eps = 0: DiffNet's output
+    projection."""
+    head = svc.model.denoise_fn.output_projection
+    return head.weight, head.bias
+
+
 def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
-                  same_f0=False, **infer_kw):
+                  same_f0=False, head=denoiser_head, fault=skip_bias_dropped,
+                  fault_name="bskip dropped", **infer_kw):
     """The same short conversion on the card and on the CPU (plain
     versions), at ``svc_dev``'s diff_compute_dtype and ``acc`` (at acc=1
     DDPM, its per-step noise shared too; ``infer_kw``: e.g. use_gt_mel),
@@ -1333,7 +1381,9 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
     conversion with eps = 0 (output projection zeroed).  They must agree to
     SLICE_TOL in f32 (f32 sums in other orders through ~1000 denoiser layers
     and the vocoder) or SLICE_TOL_BF16 in bf16, and the card's conversion
-    with the denoiser's skip-projection bias dropped must not."""
+    with the planted ``fault`` (a context manager on the card's Svc; by
+    default the denoiser's skip-projection bias dropped) must not.
+    ``head(svc)``: the parameters zeroed for eps = 0."""
     import numpy as np
     import torch
 
@@ -1370,8 +1420,7 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
         return torch.from_numpy(np.asarray(out, np.float32))
 
     ref = convert(svc_cpu)
-    out_proj = svc_cpu.model.denoise_fn.output_projection
-    with zeroed(out_proj.weight, out_proj.bias):
+    with zeroed(*head(svc_cpu)):
         base = convert(svc_cpu)
     from diffsvc_tpu_torch.data import features
 
@@ -1392,8 +1441,8 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
 
     with cpu_track(same_f0):
         got = convert(svc_dev)
-        with zeroed(svc_dev.model.denoise_fn.skip_projection.bias):
-            fault = convert(svc_dev)
+        with fault(svc_dev):
+            fault_out = convert(svc_dev)
     # the diagnostic: the other track on the card
     with cpu_track(not same_f0):
         other_f0 = convert(svc_dev)
@@ -1402,7 +1451,8 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
            "rel_l2_other_f0": rel_l2(other_f0 - base, ref - base),
            "wav_rel_l2": rel_l2(got, ref), "eps_share": rel_l2(ref, base),
            "max_abs_err": float((got - ref).abs().max()),
-           "fault_rel_l2": rel_l2(fault - base, ref - base),
+           "fault_rel_l2": rel_l2(fault_out - base, ref - base),
+           "fault": fault_name,
            "tol_rel_l2": tol, "secs": secs}
     res["mode"] = f"acc={acc}" + (
         f", use_gt_mel at {infer_kw['add_noise_step']} steps"
@@ -1411,7 +1461,7 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
         f"rel_l2={res['rel_l2']:.3e} "
         f"(tol {tol:g}; waveform itself {res['wav_rel_l2']:.3e}, eps "
         f"part of it {res['eps_share']:.3e}) max_abs={res['max_abs_err']:.3e}"
-        f"; planted fault [bskip dropped: {res['fault_rel_l2']:.3e}]; the "
+        f"; planted fault [{fault_name}: {res['fault_rel_l2']:.3e}]; the "
         f"card's conversions on the {res['f0_track_of_card']}'s f0 track; "
         f"on the other one: {res['rel_l2_other_f0']:.3e}")
     if not res["rel_l2"] <= tol:
@@ -3455,6 +3505,631 @@ def deterministic_step(bundle_fn: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Phase 10: several ranks (data-parallel training), data-sharded serving,
+# FS2-full and the FFT denoiser
+# ---------------------------------------------------------------------------
+
+# Two ranks' all-reduced grads against the sum of the same two blocks'
+# grads computed in one process (same draws, the global count): the
+# largest rel-L2 over the parameters.  The ranks run the same kernels on
+# the same rows; the sum of two f32 tensors is the same whichever process
+# adds them, so only the kernels' run-to-run order can move it.  The
+# planted fault normalizes each block by its own count of real rows.
+DIST_TOL = 1e-5
+DIST_LOSS_TOL = 1e-6     # the loss against the world-1 formula (relative)
+DIST_B = TRAIN_B         # samples per rank on K4's route
+DIST_K4_STEPS = 3        # the third on a ragged batch of an odd count
+DIST_K5_STEPS = 2        # at config_44k's own 88 per rank (K5)
+DIST_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(job: str, world: int, bundle: str) -> list:
+    """``chip_smoke.py --dist-job JOB BUNDLE`` as ``world`` processes on
+    this card (RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set as torchrun
+    sets them; cuBLAS's workspace fixed so a step repeats bit for bit);
+    every process is waited for or killed.  Returns each rank's record."""
+    port = str(free_port())
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+            # files, not pipes: a rank blocked on a full pipe would stall
+            # the other in a collective
+            logs.append((open(f"{bundle}.rank{r}.out", "w+"),
+                         open(f"{bundle}.rank{r}.err", "w+")))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--dist-job", job, bundle], env=env, stdout=logs[-1][0],
+                stderr=logs[-1][1], text=True))
+        deadline = time.time() + DIST_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs, failed = [], []
+    for r, (p, (out_f, err_f)) in enumerate(zip(procs, logs)):
+        out_f.seek(0)
+        err_f.seek(0)
+        outs.append(out_f.read())
+        if p.returncode != 0:
+            failed.append(f"rank {r}: exit {p.returncode}\n"
+                          f"{err_f.read()[-3000:]}")
+        out_f.close()
+        err_f.close()
+    for out in outs:
+        for line in out.splitlines()[:-1]:
+            log(line)
+    if failed:
+        raise SmokeError(f"{job}: " + "\n".join(failed))
+    return [json.loads(out.strip().splitlines()[-1]) for out in outs]
+
+
+def dist_batches(hp, groups, world: int) -> list:
+    """Collated global batches of phase 6's train items, each padded to a
+    multiple of the world size with ``sample_mask`` (as the trainer pads)."""
+    from diffsvc_tpu_torch.data.dataset import (BatchIterator,
+                                                FastSpeechDataset,
+                                                _pad_batch_dim)
+
+    ds = FastSpeechDataset("train", hp, shuffle=False)
+    out = []
+    for idx in groups:
+        b = next(iter(BatchIterator(ds, [list(idx)], pad_multiple=int(
+            hp["frames_multiple"]))))
+        out.append(_pad_batch_dim(b, -(-b["nsamples"] // world) * world))
+    return out
+
+
+def timed_step(task, batch) -> tuple:
+    """One train step, its ms (host clock ending in a sync) and the grads
+    the optimizer received (after the all-reduce)."""
+    import torch
+
+    seen = []
+    real = type(task).apply_grads
+    task.apply_grads = lambda grads: seen.append(grads) or real(task, grads)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        m = task.train_step(batch)
+        torch.cuda.synchronize()
+    finally:
+        del task.apply_grads
+    return (time.time() - t0) * 1e3, float(m["loss"]), seen[0]
+
+
+def block_sums(task, batch, world: int) -> dict:
+    """The one-process reference of a data-parallel step: every rank's
+    block's loss and grads (the same draws, the global count), summed; and
+    the planted fault, each block normalized by its own count of real rows
+    (its grads scaled by global / local count, what that normalization
+    gives)."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.parallel import dist
+    from diffsvc_tpu_torch.training.task import local_rows, real_rows
+
+    n = int(batch["mels"].shape[0])
+    total = real_rows(batch)
+    loss, grads, fault = 0.0, None, None
+    for r in range(world):
+        rows = dist.block(n, r, world)
+        lo, g = task.loss_and_grads(batch, rows=rows)
+        scale = total / max(float(np.sum(local_rows(batch, rows)[
+            "sample_mask"])), 1.0)
+        loss += float(lo)
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        fg = [x * scale for x in g]
+        fault = fg if fault is None else [a + b for a, b in zip(fault, fg)]
+    return {"loss": loss, "grads": grads, "fault": fault}
+
+
+def kernel_counts_all() -> dict:
+    from diffsvc_tpu_torch.ops.hopper import diffnet_block
+
+    return dict(kernel_counts(), fused_residual_block=diffnet_block.launches)
+
+
+def reset_counts() -> None:
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_block, diffnet_stack,
+                                              diffnet_stack_per_sample,
+                                              diffnet_stack_train,
+                                              plms_ladder, vocoder_tail)
+
+    for mod in (diffnet_stack, plms_ladder, vocoder_tail, diffnet_stack_train,
+                diffnet_stack_per_sample, diffnet_block):
+        mod.launches = 0
+
+
+def optimizer_tensors(task) -> list:
+    st = task.optimizer.state_dict()["state"]
+    return [v for i in sorted(st) for k, v in sorted(st[i].items())
+            if hasattr(v, "dtype")]
+
+
+def dist_job(job: str, bundle_fn: str) -> int:
+    """A rank of phase 10 (its parent runs it through :func:`run_ranks`);
+    prints its record as its last line."""
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.parallel import dist
+    from diffsvc_tpu_torch.training.task import SVCTask
+    from diffsvc_tpu_torch.utils.convert import torch_load
+
+    b = torch_load(bundle_fn)
+    device = torch.device(b["device"])
+    rank = int(os.environ["RANK"])
+    world = int(os.environ["WORLD_SIZE"])
+    hp = HParams(b["hp"])
+    out = {"rank": rank, "world": world}
+    torch.use_deterministic_algorithms(True)
+
+    if job == "world1":
+        # (a): the same three steps without a process group, then under
+        # nccl at world 1, from the same fresh state
+        batches = dist_batches(hp, b["k4_groups"], 1)
+        runs = {}
+        for mode in ("single", "nccl"):
+            if mode == "nccl":
+                dist.maybe_initialize_distributed(
+                    HParams(hp, distributed=True), device=device)
+                out["backend"] = torch.distributed.get_backend()
+            task = SVCTask(hp, device=device)
+            reset_counts()
+            ms = [timed_step(task, batch)[0] for batch in batches]
+            runs[mode] = ([p.detach().clone() for p in task.params]
+                          + optimizer_tensors(task))
+            out[mode] = {"ms_per_step": ms, "launches": kernel_counts_all()}
+            del task
+        out["bit_equal"] = all(torch.equal(x, y) for x, y in
+                               zip(runs["single"], runs["nccl"])) \
+            and len(runs["single"]) == len(runs["nccl"])
+        dist.destroy()
+        print(json.dumps(out))
+        return 0
+
+    # job "world2": (b) and (c) over gloo, two ranks on this card
+    dist.maybe_initialize_distributed(
+        HParams(hp, distributed=True, dist_backend="gloo"), device=device)
+    out["backend"] = torch.distributed.get_backend()
+    task = SVCTask(hp, device=device)
+    parts = (("k4", b["k4_groups"], True), ("k5", b["k5_groups"], False))
+    for name, groups, resume in parts:
+        torch.use_deterministic_algorithms(name == "k4")
+        batches = dist_batches(hp, groups, world)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        steps = []
+        path = dict.fromkeys(kernel_counts_all(), 0)
+        for i, batch in enumerate(batches):
+            ref = block_sums(task, batch, world) if rank == 0 else None
+            if resume and i == len(batches) - 1 and rank == 0:
+                # (c): rank 0 alone writes the state before the last step
+                from diffsvc_tpu_torch.training import checkpoint
+
+                os.makedirs(b["ckpt_dirs"][0], exist_ok=True)
+                checkpoint.save_checkpoint(b["ckpt_dirs"][0],
+                                           task.state_dict(), 0, task.step)
+            # the ranks meet here (an all-reduce of nothing), so a step's
+            # time on rank 1 does not hold rank 0's reference and checkpoint
+            dist.all_reduce_sum([torch.zeros(1, device=device)])
+            before = kernel_counts_all()
+            ms, loss, grads = timed_step(task, batch)
+            for k, v in kernel_counts_all().items():
+                path[k] += v - before[k]
+            rec = {"ms": ms, "loss": loss, "B": int(batch["mels"].shape[0]),
+                   "real": int(batch["sample_mask"].sum()),
+                   "T": int(batch["mels"].shape[1])}
+            if ref is not None:
+                rec["rel"] = max(rel_l2(a, r) for a, r in
+                                 zip(grads, ref["grads"]))
+                rec["fault_rel"] = max(rel_l2(a, r) for a, r in
+                                       zip(grads, ref["fault"]))
+                rec["loss_rel"] = abs(loss - ref["loss"]) / abs(ref["loss"])
+            steps.append(rec)
+        torch.cuda.synchronize()
+        # launches of the data-parallel steps alone, and with rank 0's
+        # reference sums
+        out[name] = {"steps": steps, "launches": path,
+                     "launches_with_reference": kernel_counts_all(),
+                     "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+        params = [p.detach().clone() for p in task.params]
+        torch.save(params, f"{bundle_fn}.{name}.rank{rank}.pt")
+        if resume:
+            # (c): a trainer on this rank's own work_dir (rank 1's is empty)
+            # restores, rank 0's state is broadcast, the last step again
+            from diffsvc_tpu_torch.training.trainer import Trainer
+
+            trainer = Trainer(HParams(hp, work_dir=b["ckpt_dirs"][rank]),
+                              device=device, log_writer=False)
+            restored = trainer.restore()
+            trainer.task.train_step(batches[-1])
+            out[name]["resume"] = {
+                "restored_here": restored,
+                "global_step": trainer.global_step,
+                "bit_equal": all(torch.equal(p, q) for p, q in
+                                 zip(trainer.task.params, params))}
+            del trainer
+    dist.destroy()
+    print(json.dumps(out))
+    return 0
+
+
+def check_ranks(tag: str, ranks: list, part: str, kernel: str) -> dict:
+    """Phase 10 (b)'s gates on one part's rank records; returns the part's
+    summary."""
+    r0 = ranks[0][part]
+    for i, st in enumerate(r0["steps"]):
+        log(f"[multi] {tag} step {i + 1}: B={st['B']} ({st['real']} real, "
+            f"{st['B'] // len(ranks)} per rank) T={st['T']} loss "
+            f"{st['loss']:.6f}; all-reduced grads vs the one-process block "
+            f"sum rel_l2 {st['rel']:.3e} (tol {DIST_TOL:g}), loss vs the "
+            f"world-1 formula {st['loss_rel']:.3e} (tol {DIST_LOSS_TOL:g}); "
+            f"planted fault [local count: {st['fault_rel']:.3e}]; ms per step "
+            + " / ".join(f"{r[part]['steps'][i]['ms']:.1f}" for r in ranks)
+            + " (ranks 0 / 1)")
+        if not (st["rel"] <= DIST_TOL and st["loss_rel"] <= DIST_LOSS_TOL):
+            raise SmokeError(f"{tag} step {i + 1}: the ranks' sum disagrees "
+                             f"with the one-process sum: {st}")
+        if not st["fault_rel"] > DIST_TOL:
+            raise SmokeError(f"{tag} step {i + 1}: the local-count fault "
+                             f"passes the gate: {st}")
+    for r in ranks:
+        log(f"[multi] {tag} rank {r['rank']}: kernel launches "
+            f"{r[part]['launches']}, peak memory {r[part]['peak_mem_gb']:.2f}"
+            " GB")
+        if r[part]["launches"][kernel] <= 0:
+            raise SmokeError(f"{tag}: rank {r['rank']} did not launch "
+                             f"{kernel}")
+        if r[part]["launches"]["fused_residual_block"]:
+            raise SmokeError(f"{tag}: rank {r['rank']} launched K6")
+    # the first step of a process builds plans and packs: steps 2 on
+    ms = [max(r[part]["steps"][i]["ms"] for r in ranks)
+          for i in range(1, len(r0["steps"]))]
+    real = sum(st["real"] for st in r0["steps"][1:])
+    res = {"steps": r0["steps"], "ms_per_step": sum(ms) / len(ms),
+           "samples_per_s": real / (sum(ms) / 1e3),
+           "launches": {r["rank"]: r[part]["launches"] for r in ranks},
+           "peak_mem_gb": {r["rank"]: r[part]["peak_mem_gb"] for r in ranks}}
+    log(f"[multi] {tag}: {res['ms_per_step']:.1f} ms per step after the "
+        f"first (the slower rank's), {res['samples_per_s']:.1f} samples/s "
+        f"over both ranks")
+    return res
+
+
+def phase_multi_train(device, workdir):
+    """(a) NCCL at world 1 against no process group, bit for bit; (b) two
+    gloo ranks on this card at 24 per rank (K4) and at 88 per rank (K5),
+    each step's all-reduced grads against the one-process block sum, the
+    ranks' params equal bit for bit; (c) a resume at world 2 from rank 0's
+    checkpoint through ``broadcast_state``, the next step bit for bit."""
+    import torch
+
+    from diffsvc_tpu_torch.config import set_hparams
+
+    hp = set_hparams(config=os.path.join(workdir, "own.yaml"),
+                     exp_name="smoke_own", reset=True, print_hparams=False)
+    res = {}
+    bundle = os.path.join(workdir, "multi.pt")
+    items = list(range(88))
+    k4 = [items[0:2 * DIST_B], items[40:40 + 2 * DIST_B],
+          items[1:2 * DIST_B]]          # 48, 48, 47 real rows
+    torch.save({"hp": dict(hp, max_sentences=DIST_B), "device": str(device),
+                "k4_groups": [items[0:DIST_B], items[24:48], items[48:71]],
+                }, bundle + ".w1")
+    w1 = run_ranks("world1", 1, bundle + ".w1")[0]
+    res["world1"] = w1
+    for mode in ("single", "nccl"):
+        ms = w1[mode]["ms_per_step"]
+        w1[mode]["ms_after_first"] = sum(ms[1:]) / len(ms[1:])
+        log(f"[multi] (a) {mode}: ms per step {[round(x, 1) for x in ms]} "
+            f"({w1[mode]['ms_after_first']:.1f} after the first), launches "
+            f"{w1[mode]['launches']}")
+    log(f"[multi] (a) nccl at world 1 vs no process group, 3 steps at "
+        f"B={DIST_B}: params and optimizer state bit-equal {w1['bit_equal']}"
+        f" (backend {w1['backend']})")
+    if not w1["bit_equal"] or w1["backend"] != "nccl" \
+            or w1["nccl"]["launches"]["residual_stack_train_batched"] <= 0:
+        raise SmokeError(f"world 1 under nccl: {w1}")
+
+    dirs = [os.path.join(workdir, f"multi_ckpt{r}") for r in range(2)]
+    torch.save({"hp": dict(hp), "device": str(device), "k4_groups": k4,
+                "k5_groups": [items + items] * DIST_K5_STEPS,
+                "ckpt_dirs": dirs}, bundle)
+    ranks = run_ranks("world2", 2, bundle)
+    res["k4"] = check_ranks("(b) K4, gloo, 2 ranks", ranks, "k4",
+                            "residual_stack_train_batched")
+    res["k5"] = check_ranks("(b) K5, gloo, 2 ranks", ranks, "k5",
+                            "residual_stack_train")
+    for part in ("k4", "k5"):
+        p0, p1 = (torch.load(f"{bundle}.{part}.rank{r}.pt") for r in (0, 1))
+        same = all(torch.equal(a, b) for a, b in zip(p0, p1))
+        res[part]["ranks_bit_equal"] = same
+        log(f"[multi] (b) {part}: the two ranks' params bit-equal {same}")
+        if not same:
+            raise SmokeError(f"{part}: the ranks' params differ")
+    res["resume"] = [r["k4"]["resume"] for r in ranks]
+    log(f"[multi] (c) resume at world 2 from rank 0's checkpoint: "
+        f"{res['resume']}")
+    if not (res["resume"][0]["restored_here"]
+            and not res["resume"][1]["restored_here"]
+            and all(r["bit_equal"] and r["global_step"] == DIST_K4_STEPS - 1
+                    for r in res["resume"])):
+        raise SmokeError(f"resume at world 2: {res['resume']}")
+    res["launches"] = {f"{part} rank {r['rank']}": r[part]["launches"]
+                       for part in ("k4", "k5") for r in ranks}
+    res["launches"]["world1 nccl"] = w1["nccl"]["launches"]
+    return res
+
+
+def phase_sharded(project, launches):
+    """(d) ``FusedSvc.batched_sharded`` on phase 7's 17 s clip (three
+    voiced chunks) with two replicas on this card: N padded to 4, three
+    results, each within BATCHED_TOL of ``batched``'s on the same draws,
+    K2 and K3 moving on both replicas; the wall beside ``batched``'s."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    svc = project["svcs"][""]
+    device = svc.device
+    batch_fn = os.path.join(os.path.dirname(project["wavs"][-1]),
+                            "batch_clip.wav")
+    chunks = voiced_chunks(batch_fn)
+    fused = svc.fused_model(ACC)
+    n44 = fused._padded_length(max(len(c) for c in chunks))
+    geo = fused.geometry(n44)
+    g = torch.Generator(device=device).manual_seed(6)
+    n = len(chunks)
+    noise = torch.randn(n, geo["pad_t"], svc.mel_bins, generator=g,
+                        device=device)
+    randoms = draw_randoms(n, geo["n_voc"], svc.vocoder.cfg.harmonic_num, g,
+                           device)
+    devices = [device, device]
+    per_replica = []
+    for i, d in enumerate(devices):
+        rep = fused.replica(i, d)
+
+        def run(stacked, *a, rep=rep, i=i, **k):
+            before = kernel_counts()
+            out = type(rep).run(rep, stacked, *a, **k)
+            after = kernel_counts()
+            per_replica.append({"replica": i, "rows": int(stacked.shape[0]),
+                                **{name: after[name] - before[name]
+                                   for name in after}})
+            return out
+        rep.run = run
+    kw = dict(init_noise=noise, voc_randoms=randoms)
+    walls = {}
+    try:
+        for route, fn in (("batched", lambda: fused.batched(chunks, **kw)),
+                          ("batched_sharded", lambda: fused.batched_sharded(
+                              chunks, devices, **kw))):
+            fn()                       # captures its buckets
+            per_replica.clear()
+            with counted(f"{route} float32", launches, tag="multi"):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                outs = fn()
+                torch.cuda.synchronize()
+                walls[route] = time.time() - t0
+            if route == "batched":
+                ref = outs
+            else:
+                got = outs
+    finally:
+        for i, d in enumerate(devices):
+            rep = fused.replica(i, d)
+            if "run" in vars(rep):
+                del rep.run
+    rels = [rel_l2(torch.from_numpy(np.asarray(a[0], np.float32)),
+                   torch.from_numpy(np.asarray(b[0], np.float32)))
+            for a, b in zip(got, ref)]
+    res = {"chunks": n, "results": len(got), "replicas": per_replica,
+           "rel_l2": rels, "wall_s": walls}
+    log(f"[multi] (d) batched_sharded over {len(devices)} replicas on this "
+        f"card, {n} chunks: replicas ran {per_replica}; {len(got)} results; "
+        f"per chunk vs batched rel_l2 {[f'{r:.2e}' for r in rels]} (tol "
+        f"{BATCHED_TOL:g}); wall {walls['batched_sharded']:.4f}s vs batched "
+        f"{walls['batched']:.4f}s")
+    if len(got) != n or [r["rows"] for r in per_replica] != [2, 2]:
+        raise SmokeError(f"batched_sharded: {len(got)} results, replicas "
+                         f"{per_replica}")
+    if any(r["plms_ladder"] < 1 or r["vocoder_tail"] < 1
+           for r in per_replica):
+        raise SmokeError(f"a replica did not run K2 and K3: {per_replica}")
+    if not max(rels) <= BATCHED_TOL:
+        raise SmokeError(f"batched_sharded disagrees with batched: {rels}")
+    return res
+
+
+@contextlib.contextmanager
+def last_layer_dropped(blocks):
+    """An FFT-block stack with its last layer left out."""
+    layers = blocks.layers
+    blocks.layers = layers[:-1]
+    try:
+        yield
+    finally:
+        blocks.layers = layers
+
+
+def variant_project(workdir, name, overrides, hubert_path):
+    """A config_44k project with ``overrides``, random weights from the
+    synth seeds, and phase 4's HuBERT file."""
+    from diffsvc_tpu_torch.utils import synth
+
+    root = os.path.join(workdir, name)
+    cfg_fn, ckpt = synth.write_project(
+        root, {"base_config": [os.path.join(ROOT, "configs",
+                                            "config_44k.yaml")],
+               **overrides}, VOC_H)
+    os.makedirs(os.path.join(root, "hubert"), exist_ok=True)
+    os.symlink(hubert_path, os.path.join(root, "hubert", "hubert_soft.pt"))
+    return cfg_fn, ckpt
+
+
+def variant_train_step(hp, device, part: str, launches, label, still=()):
+    """One train step's grads at B=24 from phase 6's items (the output head
+    drawn at random, so the loss reaches the model): those of the parameters
+    named ``part...`` must be finite and not all zero."""
+    import torch
+
+    from diffsvc_tpu_torch.training.task import SVCTask, global_norm
+
+    batch = dist_batches(hp, [list(range(DIST_B))], 1)[0]
+    task = SVCTask(hp, device=device)
+    head = (task.model.denoise_fn.get_mel_out
+            if task.model.decoder_type == "fft"
+            else task.model.denoise_fn.output_projection)
+    with torch.no_grad():
+        head.weight.copy_(torch.randn(head.weight.shape, generator=torch.
+                                      Generator().manual_seed(11)) * 0.05)
+    with counted(label, launches, moved=(), still=still, tag="fs2"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        loss, grads = task.loss_and_grads(batch)
+        torch.cuda.synchronize()
+        ms = (time.time() - t0) * 1e3
+    sub = [g for n, g in zip(task.names, grads) if n.startswith(part)]
+    norm = float(global_norm(sub))
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    res = {"loss": float(loss), "ms": ms, "grad_norm": norm,
+           "finite": finite, "tensors": len(sub)}
+    log(f"[fs2] {label}: B={DIST_B} loss {res['loss']:.5f}, {part}* grad "
+        f"norm {norm:.3e} over {len(sub)} tensors, finite {finite}, "
+        f"{ms:.1f} ms (forward + backward)")
+    if not finite or not norm > 0 or not sub:
+        raise SmokeError(f"{label}: {res}")
+    del task
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_variants(device, workdir, project, launches):
+    """(e) FS2-full (``no_fs2: false``: base.yaml's encoder, 4 layers, 2
+    heads, FFN kernel 9 at hidden 256) and (f) the FFT denoiser
+    (``diff_decoder_type: fft``) on config_44k: the 14 s clip through the
+    modular route and the fused graph in bf16 and f32 (the FFT denoiser in
+    f32, config_44k's own dtype; RTF, busy share; K2 and K3 moving, and for
+    the FFT denoiser K1, K2, K4 and K5 at 0), a
+    0.5 s conversion card vs CPU at phase 4's limits with a planted fault
+    (the encoder's, or the denoiser's, last layer dropped), and one train
+    step at B=24 (dropout 0.1 for FS2-full, on K4)."""
+    import torch
+
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+    from diffsvc_tpu_torch.infer.svc import Svc
+
+    wav_fn = project["wavs"][SERVE_CLIP]
+    secs = CLIPS[SERVE_CLIP][0]
+    hub = os.path.join(os.path.dirname(project["cfg_fn"]), "hubert",
+                       "hubert_soft.pt")
+    own = set_hparams(config=os.path.join(workdir, "own.yaml"),
+                      exp_name="smoke_own", reset=True, print_hparams=False)
+    res = {}
+    # (name, overrides, the module whose forward must run, the fault, the
+    # kernels that must move and those that must not, eps = 0's
+    # parameters, dtypes): the FFT denoiser at config_44k's f32 alone
+    variants = (
+        ("fs2", {"no_fs2": False}, lambda s: s.model.fs2.encoder,
+         "encoder's last layer dropped", ("plms_ladder", "vocoder_tail"), (),
+         denoiser_head, ("bfloat16", "")),
+        ("fft", {"diff_decoder_type": "fft"}, lambda s: s.model.denoise_fn,
+         "denoiser's last layer dropped", ("vocoder_tail",),
+         ("residual_stack", "plms_ladder", "residual_stack_train_batched",
+          "residual_stack_train"),
+         lambda s: (s.model.denoise_fn.get_mel_out.weight,
+                    s.model.denoise_fn.get_mel_out.bias), ("",)))
+    for name, over, blocks, fault_name, moved, still, head, dts in variants:
+        t_var = time.time()
+        cfg_fn, ckpt = variant_project(workdir, f"{name}_proj", over, hub)
+        out = res[name] = {"routes": {}, "cpu_agreement": {}}
+        for dt in dts:
+            dname = dt or "float32"
+            svc = Svc(f"{name}_proj", cfg_fn, True, ckpt, device=device)
+            svc.hp["diff_compute_dtype"] = dt
+            calls = []
+            hook = blocks(svc).register_forward_hook(
+                lambda *a: calls.append(1))
+
+            def clip(**route):
+                return infer_cli.run_clip(
+                    svc, key=0, acc=ACC, use_pe=False, use_crepe=False,
+                    thre=0.05, use_gt_mel=False, add_noise_step=500,
+                    file_path=wav_fn, out_path=wav_fn[:-4] + f"_{name}.wav",
+                    **route)
+
+            routes = out["routes"].setdefault(dname, {})
+            for route, kw in (("modular", {}), ("fused graph",
+                                                {"fused": True})):
+                calls.clear()
+                with counted(f"{name} {route} {dname}", launches, moved=moved,
+                             still=still, tag="fs2"):
+                    _, _, audio = clip(**kw)
+                if not calls or len(audio) == 0:
+                    raise SmokeError(f"{name} {route} {dname}: the "
+                                     f"{'encoder' if name == 'fs2' else 'denoiser'}"
+                                     f" ran {len(calls)} times")
+                routes[route] = dict(route_run(
+                    f"{name} {route} {dname}", secs, 3, lambda kw=kw: clip(
+                        **kw)), module_calls_first_run=len(calls))
+            hook.remove()
+            t_cpu = time.time()
+            out["cpu_agreement"][dname] = cpu_agreement(
+                svc, cfg_fn, ckpt, project["wavs"][0], tag=name, head=head,
+                fault=lambda s: last_layer_dropped(blocks(s)),
+                fault_name=fault_name)
+            log(f"[fs2] {name} {dname}: card vs CPU took "
+                f"{time.time() - t_cpu:.1f}s")
+            del svc
+            torch.cuda.empty_cache()
+        out["seconds"] = time.time() - t_var
+        hp = HParams(dict(own, **over, dropout=0.1))
+        out["train_step"] = variant_train_step(
+            hp, device, "fs2.encoder." if name == "fs2" else "denoise_fn.",
+            launches, f"{name} train step",
+            still=("residual_stack_train", "residual_stack_train_batched")
+            if name == "fft" else ())
+        if name == "fs2" and launches[f"{name} train step"][
+                "residual_stack_train_batched"] <= 0:
+            raise SmokeError("the FS2-full train step did not run K4")
+    return res
+
+
+def phase_multi(device, workdir, project):
+    """Phase 10: several ranks, sharded serving, FS2-full and the FFT
+    denoiser (``[multi]`` and ``[fs2]`` lines)."""
+    t0 = time.time()
+    res = {"launches": {}, "seconds": {}}
+    res["train"] = phase_multi_train(device, workdir)
+    res["launches"].update(res["train"]["launches"])
+    res["seconds"]["ranks"] = time.time() - t0
+    res["sharded"] = phase_sharded(project, res["launches"])
+    res["seconds"]["sharded"] = time.time() - t0 - res["seconds"]["ranks"]
+    res["variants"] = phase_variants(device, workdir, project,
+                                     res["launches"])
+    res["seconds"]["total"] = time.time() - t0
+    log(f"[multi] phase 10 took {res['seconds']}s")
+    return res
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3471,6 +4146,10 @@ def main(argv=None) -> int:
     ap.add_argument("--deterministic-step", default="", metavar="BUNDLE",
                     help="phase 5's child process: run one step twice from "
                     "BUNDLE under deterministic algorithms")
+    ap.add_argument("--dist-job", nargs=2, default=None,
+                    metavar=("JOB", "BUNDLE"),
+                    help="a rank of phase 10 (world1 or world2), started by "
+                    "the phase itself")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "diffsvc_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -3487,6 +4166,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.deterministic_step:
         return deterministic_step(args.deterministic_step)
+    if args.dist_job:
+        return dist_job(*args.dist_job)
     record = {}
     try:
         card = card_line()
@@ -3506,7 +4187,10 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "(C75" in line:
                 log(f"[ptxas] {line.strip()}")
 
+        seconds = record["phase_seconds"] = {}
+        t0 = time.time()
         record["kernels"] = phase_kernels(device)
+        seconds["3 kernels"] = time.time() - t0
         from diffsvc_tpu_torch.ops.hopper import diffnet_block as k6
 
         # K6 is on no path: phases 4-9 must not launch it
@@ -3514,20 +4198,33 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             cwd = os.getcwd()
             os.chdir(tmp)     # Svc keeps its ./infer_tools caches here
+            def timed(name, fn, *a):
+                t = time.time()
+                out = fn(*a)
+                seconds[name] = time.time() - t
+                return out
+
             try:
-                record["slice"], project = phase_slice(device, tmp)
-                record["train"] = phase_train(device, tmp)
+                record["slice"], project = timed("4 slice", phase_slice,
+                                                 device, tmp)
+                record["train"] = timed("5 train", phase_train, device, tmp)
                 cfg = train_config(tmp)
-                record["own_batch"] = phase_train_own_batch(
-                    device, tmp, cfg["hubert_path"], cfg["vocoder_ckpt"])
-                record["serve"] = phase_serve(device, project)
-                record["rest"] = phase_rest(device, project, tmp)
-                record["train2"] = phase_train2(device, tmp)
+                record["own_batch"] = timed(
+                    "6 own batch", phase_train_own_batch, device, tmp,
+                    cfg["hubert_path"], cfg["vocoder_ckpt"])
+                record["serve"] = timed("7 serve", phase_serve, device,
+                                        project)
+                record["rest"] = timed("8 rest", phase_rest, device, project,
+                                       tmp)
+                record["train2"] = timed("9 train2", phase_train2, device, tmp)
+                record["multi"] = timed("10 multi", phase_multi, device, tmp,
+                                        project)
             finally:
                 os.chdir(cwd)
+        log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-9: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-10: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -3541,7 +4238,9 @@ def main(argv=None) -> int:
     # at the config's own batch (phase 6); K6 is on no path, so its count over
     # phases 4-9, which must be 0; launches_rest: phase 8's routes (DDPM,
     # the 24 kHz profile); launches_train2: phase 9's parts (RAdam's
-    # run_task, the trained pe's conversion, --infer)
+    # run_task, the trained pe's conversion, --infer); launches_multi:
+    # phase 10's parts (each rank of the training runs in its own process
+    # and counts its own launches)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -3575,6 +4274,9 @@ def main(argv=None) -> int:
                         "launches_train2": {
                             part: counts[name] for part, counts in
                             record["train2"]["launches"].items()},
+                        "launches_multi": {
+                            part: counts[name] for part, counts in
+                            record["multi"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

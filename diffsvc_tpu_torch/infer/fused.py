@@ -25,11 +25,14 @@ per-step noise, the NSF source) come from an explicit ``torch.Generator``
 outside the program, or from the caller (``init_noise``, ``step_noise``,
 ``voc_randoms``), and enter as inputs.
 
-``batched_sharded`` (the JAX package's multi-chip serving) is not ported.
+``batched_sharded`` splits one batch of chunks across several cards: one
+replica of the program per device (its weights copied there once), each
+running ``batched`` on its contiguous block of chunks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import math
 import time
@@ -218,6 +221,7 @@ class FusedSvc:
         self._fns = {}
         self.captures = {}   # bucket key -> number of captures
         self._version = None
+        self._replicas = {}  # (index, device) -> (weights version, FusedSvc)
 
     # ------------------------------------------------------------------
     def geometry(self, n44: int) -> dict:
@@ -428,6 +432,31 @@ class FusedSvc:
         return (wav_o[0, :true_n].cpu().numpy(), f0_o[0, :t_true].cpu().numpy(),
                 mel_o[0, :t_true].cpu().numpy())
 
+    def _stack(self, wavs, rows: int, key_shifts):
+        """N chunks as ``rows`` >= N rows of one bucket, silent rows after
+        the chunks (the wire int16 through the hp flag or when every input
+        is int16: float members of a mixed batch are never quantized), and
+        the key shifts as one float per row (a scalar or one per chunk;
+        the silent rows 0)."""
+        n44 = self._padded_length(max(len(w) for w in wavs))
+        int16_wire = (bool(self.hp.get("fused_input_int16", False))
+                      or all(np.asarray(w).dtype == np.int16 for w in wavs))
+        stacked = np.zeros((rows, n44), np.int16 if int16_wire
+                           else np.float32)
+        for i, w in enumerate(wavs):
+            stacked[i, : len(w)] = self.to_int16(w) if int16_wire \
+                else self.to_float(w)
+        ks = np.zeros((rows,), np.float32)
+        ks[:len(wavs)] = 0 if key_shifts is None else key_shifts
+        return stacked, ks
+
+    def _trim(self, outs, wavs) -> list:
+        """(wav, f0, mel) per chunk from the host outputs [rows, ...]."""
+        hop = int(self.hp["hop_size"])
+        wav_o, f0_o, mel_o = outs
+        return [(wav_o[i, :len(w)], f0_o[i, : -(-len(w) // hop)],
+                 mel_o[i, : -(-len(w) // hop)]) for i, w in enumerate(wavs)]
+
     def batched(self, wavs, generator: Optional[torch.Generator] = None,
                 key_shifts=None, spk_id: int = 0, init_noise=None,
                 voc_randoms=None, step_noise=None):
@@ -435,29 +464,72 @@ class FusedSvc:
         each padded to the longest (rounded up to ``fused_bucket_samples``)
         and trimmed back.  ``key_shifts``: a scalar or one per chunk.
         Returns a list of (wav, f0, mel) per chunk."""
-        n = len(wavs)
-        if n < 1:
+        if len(wavs) < 1:
             raise ValueError("batched: no chunks")
-        lens = [len(w) for w in wavs]
-        n44 = self._padded_length(max(lens))
-        # the int16 wire engages through the hp flag or when every input is
-        # int16: float members of a mixed batch are never quantized
-        int16_wire = (bool(self.hp.get("fused_input_int16", False))
-                      or all(np.asarray(w).dtype == np.int16 for w in wavs))
-        stacked = np.zeros((n, n44), np.int16 if int16_wire else np.float32)
-        for i, w in enumerate(wavs):
-            stacked[i, : len(w)] = self.to_int16(w) if int16_wire \
-                else self.to_float(w)
-        if key_shifts is None:
-            key_shifts = 0
-        if np.ndim(key_shifts) == 0:
-            key_shifts = [key_shifts] * n
-        wav_o, f0_o, mel_o = (t.cpu().numpy() for t in self.run(
-            stacked, key_shifts, spk_id, generator, init_noise=init_noise,
-            voc_randoms=voc_randoms, step_noise=step_noise))
-        hop = int(self.hp["hop_size"])
-        return [(wav_o[i, :ln], f0_o[i, : -(-ln // hop)],
-                 mel_o[i, : -(-ln // hop)]) for i, ln in enumerate(lens)]
+        stacked, ks = self._stack(wavs, len(wavs), key_shifts)
+        return self._trim([t.cpu().numpy() for t in self.run(
+            stacked, ks, spk_id, generator, init_noise=init_noise,
+            voc_randoms=voc_randoms, step_noise=step_noise)], wavs)
+
+    def replica(self, i: int, device) -> "FusedSvc":
+        """The program's replica for entry ``i`` of a device list: this
+        instance for entry 0 on its own device, otherwise a copy of the
+        weights on ``device`` made once (again after a weight of this
+        instance changes in place), with its own buckets."""
+        device = torch.device(device)
+        if i == 0 and device == self.device:
+            return self
+        version = self._weights_version()
+        hit = self._replicas.get((i, device))
+        if hit is None or hit[0] != version:
+            voc = copy.copy(self.vocoder)
+            voc.gen = copy.deepcopy(self.vocoder.gen).to(device)
+            rep = FusedSvc(self.hp, copy.deepcopy(self.model).to(device), voc,
+                           copy.deepcopy(self.hubert).to(device),
+                           speedup=self.speedup,
+                           cuda_graphs=self.cuda_graphs)
+            hit = self._replicas[(i, device)] = (version, rep)
+        return hit[1]
+
+    def batched_sharded(self, wavs, devices, generator=None, key_shifts=None,
+                        spk_id: int = 0, init_noise=None, voc_randoms=None):
+        """Data-sharded batched serving, the single-controller counterpart
+        of ``diffsvc_tpu/infer/fused.py:452-502``: N chunks padded to a
+        multiple of ``len(devices)`` with silent dummy chunks (their results
+        dropped), the contiguous block ``[r N'/D, (r+1) N'/D)`` of chunks
+        through :meth:`batched`'s program on the replica of ``devices[r]``
+        (:meth:`replica`), all at the bucket of the longest chunk.  Every
+        replica is issued before any result is read back, so replicas on
+        different cards overlap.
+
+        The draws are :meth:`batched`'s for the N real chunks (``init_noise``
+        [N, pad_t, M] and ``voc_randoms`` at N, else drawn from
+        ``generator`` in its order), so a chunk's result is ``batched``'s
+        whatever the number of devices; the dummies get zeros.  Returns a
+        list of (wav, f0, mel) per real chunk."""
+        n, d = len(wavs), len(devices)
+        if n < 1 or d < 1:
+            raise ValueError("batched_sharded: no chunks or no devices")
+        n_pad = -(-n // d) * d
+        stacked, ks = self._stack(wavs, n_pad, key_shifts)
+        draws = [F.pad(r, (0, 0) * (r.dim() - 1) + (0, n_pad - n))
+                 for r in self._draws(n, stacked.shape[1], generator,
+                                      init_noise, voc_randoms)]
+        k = n_pad // d
+        outs = []
+        for r, dev in enumerate(devices):
+            rep = self.replica(r, dev)
+            rows = slice(r * k, (r + 1) * k)
+            with torch.cuda.device(rep.device) if rep.device.type == "cuda" \
+                    else contextlib.nullcontext():
+                # each replica replays its own graph, so these outputs are
+                # not overwritten before they are read back below
+                outs.append(rep.run(stacked[rows], ks[rows], spk_id,
+                                    init_noise=draws[0][rows].to(rep.device),
+                                    voc_randoms=tuple(x[rows].to(rep.device)
+                                                      for x in draws[1:])))
+        return self._trim([torch.cat([o[j].cpu() for o in outs]).numpy()
+                           for j in range(3)], wavs)
 
     def pool_bytes(self) -> dict:
         """Graph memory per captured bucket (the private pools' reserve)."""

@@ -39,6 +39,7 @@ from ..models import pe as pe_model
 from ..models.diffusion import GaussianDiffusion
 from ..ops import mel as mel_ops
 from ..ops.pitch import denorm_f0
+from ..parallel import dist
 from ..utils import convert
 from ..vocoders import generator as gen_mod
 from ..vocoders.base import get_vocoder_cls
@@ -83,14 +84,18 @@ def default_device(asked=None) -> torch.device:
     """The device an entry point runs on: the one the caller ``asked`` for
     (``device="cpu"``, ``--device cpu``), else the card.  Asking for the
     card, by name or by default, raises when there is none: the port never
-    falls back to the CPU."""
+    falls back to the CPU.  A bare ``cuda`` (or nothing) is the card of this
+    rank, ``cuda:LOCAL_RANK``, once a process group is up."""
     if asked is not None and torch.device(asked).type != "cuda":
         return torch.device(asked)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on an NVIDIA GPU; "
                            "ask for the CPU with device='cpu' (--device cpu "
                            "on the command line)")
-    return torch.device(asked if asked is not None else "cuda")
+    dev = torch.device(asked if asked is not None else "cuda")
+    if dev.index is None and dist.is_initialized():
+        dev = torch.device("cuda", dist.local_rank())
+    return dev
 
 
 class Svc:

@@ -10,7 +10,10 @@ DPM-Solver++(2M) samplers, optional ``sampler_clip_x0``,
 PLMS and DPM-Solver++ (``acc > 1``) run through K2
 (``ops/hopper/plms_ladder.py``): every denoiser evaluation and the sampler
 update as one table-driven program — the Hopper kernels for CUDA tensors,
-their plain version for CPU tensors.  The step-by-step samplers
+their plain version for CPU tensors.  The FFT denoiser
+(``diff_decoder_type: fft``, ``models/candidate_decoder.py``) is never
+routed through the ladder, as in the JAX package: it samples with the
+step-by-step samplers, in plain PyTorch on the card too.  The step-by-step samplers
 :func:`p_sample_plms_scan` and :func:`p_sample_dpmpp_2m_scan` are the same
 samplers written the way the reference writes them; the tests hold the
 ladder against them.  DDPM (``acc <= 1``) is :func:`p_sample_ddpm_scan`:
@@ -28,6 +31,7 @@ from torch import nn
 
 from ..ops.hopper import plms_ladder as _pl
 from . import diffnet
+from .candidate_decoder import FFTDecoder
 from .fs2 import FastSpeech2
 
 DPMPP_NAMES = ("dpmpp", "dpm++", "dpm_solver")
@@ -96,13 +100,17 @@ def q_sample(tables: dict, x_start, t, noise):
 
 
 def p_losses(tables: dict, denoise_fn, x_start, t, noise,
-             loss_type: str = "l2", nonpadding=None, sample_mask=None):
+             loss_type: str = "l2", nonpadding=None, sample_mask=None,
+             count=None):
     """Diffusion training loss (``diffsvc_tpu/models/diffusion.py:116-149``,
     reference ``diffusion.py:205-225``) with the noise drawn by the caller.
 
     l1 is time-masked by ``nonpadding`` but not renormalized over it (the
     reference's semantics); ``sample_mask`` [B] marks real rows of a
-    batch padded on its batch axis and renormalizes over them."""
+    batch padded on its batch axis and renormalizes over them.  ``count``
+    replaces the number of real rows, ``max(sum(sample_mask), 1)``: a
+    data-parallel rank passes the global batch's, so that the ranks'
+    losses sum to the global loss."""
     x_recon = denoise_fn(q_sample(tables, x_start, t, noise), t)
     if loss_type == "l1":
         err = (noise - x_recon).abs()
@@ -111,14 +119,17 @@ def p_losses(tables: dict, denoise_fn, x_start, t, noise,
         if sample_mask is None:
             return err.mean()
         err = err * sample_mask[:, None, None]
-        denom = sample_mask.sum().clamp(min=1.0) * err.shape[1] * err.shape[2]
-        return err.sum() / denom
+        if count is None:
+            count = sample_mask.sum().clamp(min=1.0)
+        return err.sum() / (count * err.shape[1] * err.shape[2])
     if loss_type == "l2":
         sq = (noise - x_recon) ** 2
         if sample_mask is None:
             return sq.mean()
         per_row = sq.mean(dim=(1, 2))
-        return (per_row * sample_mask).sum() / sample_mask.sum().clamp(min=1.0)
+        if count is None:
+            count = sample_mask.sum().clamp(min=1.0)
+        return (per_row * sample_mask).sum() / count
     raise NotImplementedError(loss_type)
 
 
@@ -233,11 +244,14 @@ def dpmpp_timesteps(ac_np: np.ndarray, t_start: int, interval: int,
 
 
 def p_sample_dpmpp_2m_scan(tables: dict, denoise_fn, x, t_start: int,
-                           interval: int, grid: str = "lambda"):
+                           interval: int, grid: str = "lambda", ac_np=None):
     """DPM-Solver++(2M), data-prediction form over log-SNR lambda; the first
-    step is first order and the last evaluation returns x0 at t=0."""
+    step is first order and the last evaluation returns x0 at t=0.
+    ``ac_np``: the host copy of ``alphas_cumprod`` for the visiting ladder
+    (a CUDA graph cannot capture the copy back from the device)."""
     ac = tables["alphas_cumprod"]
-    ts = dpmpp_timesteps(ac.cpu().numpy(), t_start, interval, grid)
+    ts = dpmpp_timesteps(ac.cpu().numpy() if ac_np is None else ac_np,
+                         t_start, interval, grid)
     alpha = torch.sqrt(ac)
     sigma = torch.sqrt(1.0 - ac)
     lam = torch.log(alpha) - torch.log(torch.clamp(sigma, min=1e-12))
@@ -275,8 +289,10 @@ class GaussianDiffusion(nn.Module):
 
     def __init__(self, hp):
         super().__init__()
-        if hp.get("diff_decoder_type", "wavenet") != "wavenet":
-            raise NotImplementedError("only the wavenet decoder is ported")
+        self.decoder_type = str(hp.get("diff_decoder_type", "wavenet"))
+        if self.decoder_type not in ("wavenet", "fft"):
+            raise ValueError(f"unknown diff_decoder_type "
+                             f"{self.decoder_type!r} (wavenet or fft)")
         self.hp = hp
         self.timesteps = int(hp.get("timesteps", 1000))
         self.K_step = int(hp.get("K_step", 1000))
@@ -285,7 +301,8 @@ class GaussianDiffusion(nn.Module):
                                      hp.get("schedule_type", "cosine"),
                                      float(hp.get("max_beta", 0.01)))
         self.fs2 = FastSpeech2(hp)
-        self.denoise_fn = diffnet.DiffNet.from_hparams(hp)
+        self.denoise_fn = (FFTDecoder if self.decoder_type == "fft"
+                           else diffnet.DiffNet).from_hparams(hp)
         m = int(hp["audio_num_mel_bins"])
         keep = int(hp.get("keep_bins", m))
         spec_min = np.asarray(hp.get("spec_min", [-6.0]), np.float32)
@@ -338,8 +355,13 @@ class GaussianDiffusion(nn.Module):
 
     def denoise_closure(self, cond: torch.Tensor):
         """denoise_fn(x f32, t) for the step-by-step samplers: the compute
-        dtype denoiser over the once-projected conditioner, f32 out."""
+        dtype denoiser over the once-projected conditioner (the FFT
+        denoiser: over the conditioner), f32 out."""
         dt = compute_dtype(self.hp)
+        if self.decoder_type == "fft":
+            cond_c = cond.to(dt)
+            return lambda x, t: self.denoise_fn(x.to(dt), t, cond_c,
+                                                wdt=dt).float()
         cond_proj = diffnet.prepare_cond(self.denoise_fn, cond).to(dt)
 
         def fn(x, t):
@@ -349,34 +371,43 @@ class GaussianDiffusion(nn.Module):
 
     def training_loss(self, batch: dict, *, t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      train: bool = True, count=None):
         """Diffusion loss of one batch (``diffsvc_tpu/models/diffusion.py:
         489-513``): returns (loss, conditioner outputs).
 
         ``t`` [B] and ``noise`` [B, T, M] may be passed (a test feeds the
-        JAX step's draws); otherwise both are drawn on the batch's device
-        from ``generator`` (which lives there), t first.  The denoiser takes
-        the training route of :func:`diffnet.apply` with
-        ``diffnet_train_stream_dtype``; with grad enabled that is K4 or K5
-        and its backward (``diffnet.train_route``).  The JAX version also takes ``train`` for the
-        conditioner's dropout; the ported no_fs2 conditioner has none."""
-        ret = self.fs2(batch["hubert"], batch["mel2ph"], batch["f0"],
-                       batch.get("uv"), batch.get("energy"),
-                       batch.get("spk_embed"))
-        cond = ret["decoder_inp"]
-        dev = cond.device
+        JAX step's draws; a data-parallel rank its rows of the global
+        draws); otherwise both are drawn on the batch's device from
+        ``generator`` (which lives there), t first.  With ``train`` the
+        FS2-full conditioner (``no_fs2: false``) runs its dropout, drawn from
+        ``generator`` after t and the noise (JAX: ``train_fs2``, only when
+        ``dropout > 0``); ``train=False`` is validation's deterministic
+        conditioner.  The wavenet denoiser takes the training route of
+        :func:`diffnet.apply` with ``diffnet_train_stream_dtype``; with grad
+        enabled that is K4 or K5 and its backward (``diffnet.train_route``).
+        ``count``: see :func:`p_losses`."""
+        dev = batch["mels"].device
         if t is None:
-            t = torch.randint(0, self.K_step, (cond.shape[0],),
+            t = torch.randint(0, self.K_step, (batch["mels"].shape[0],),
                               generator=generator, device=dev)
         x_start = norm_spec(batch["mels"], self.spec_min, self.spec_max)
         if noise is None:
             noise = torch.randn(x_start.shape, generator=generator,
                                 device=dev)
+        dropout = train and not self.fs2.no_fs2 and self.fs2.dropout > 0
+        ret = self.fs2(batch["hubert"], batch["mel2ph"], batch["f0"],
+                       batch.get("uv"), batch.get("energy"),
+                       batch.get("spk_embed"),
+                       generator=generator if dropout else None)
+        cond = ret["decoder_inp"]
         dt = compute_dtype(self.hp)
         stream = str(self.hp.get("diffnet_train_stream_dtype", "bf16"))
         cond_c = cond.to(dt)
 
         def denoise_fn(x, tt):
+            if self.decoder_type == "fft":
+                return self.denoise_fn(x.to(dt), tt, cond_c, wdt=dt).float()
             return diffnet.apply(self.denoise_fn, x.to(dt), tt, cond_c,
                                  train_stream=stream).float()
 
@@ -384,7 +415,7 @@ class GaussianDiffusion(nn.Module):
         loss = p_losses(self.tables(dev), denoise_fn, x_start, t.to(dev),
                         noise.to(dev, torch.float32),
                         str(self.hp.get("diff_loss_type", "l1")), nonpadding,
-                        batch.get("sample_mask"))
+                        batch.get("sample_mask"), count)
         return loss, ret
 
     def _ladder(self, cond, x, t_start: int, interval: int, clip_v: float,
@@ -443,8 +474,21 @@ class GaussianDiffusion(nn.Module):
         speedup = self.pndm_speedup if speedup is None else int(speedup)
         sampler = str(self.hp.get("sampler", "plms")).lower()
         clip_v = float(self.hp.get("sampler_clip_x0", 0) or 0)
-        if speedup and speedup > 1:
+        if speedup and speedup > 1 and self.decoder_type == "wavenet":
             x = self._ladder(cond, x, t_start, speedup, clip_v, sampler)
+        elif speedup and speedup > 1:
+            # the FFT denoiser: JAX's scans, step by step
+            denoise_fn = self.denoise_closure(cond)
+            if clip_v > 0:
+                denoise_fn = clip_x0_closure(tables, denoise_fn, clip_v)
+            if sampler in DPMPP_NAMES:
+                x = p_sample_dpmpp_2m_scan(
+                    tables, denoise_fn, x, t_start, speedup,
+                    grid=str(self.hp.get("dpmpp_grid", "lambda")),
+                    ac_np=self.tables_np["alphas_cumprod"])
+            else:
+                x = p_sample_plms_scan(tables, denoise_fn, x, t_start,
+                                       speedup)
         else:
             denoise_fn = self.denoise_closure(cond)
             if clip_v > 0:

@@ -1,7 +1,7 @@
-"""FastSpeech2-style condition encoder, ``no_fs2`` path.
+"""FastSpeech2-style condition encoder.
 
 Counterpart of ``diffsvc_tpu/models/fs2.py`` (reference
-``modules/fastspeech/fs2.py:21-255``) with ``no_fs2: true``::
+``modules/fastspeech/fs2.py:21-255``).  With the default ``no_fs2: true``::
 
     cond = gather(pad(hubert, 1), mel2ph)            # frame-aligned units
          + pitch_embed[f0_to_coarse(denorm_f0(f0, uv))]
@@ -9,25 +9,32 @@ Counterpart of ``diffsvc_tpu/models/fs2.py`` (reference
          (+ spk_embed)                               # if use_spk_*
     cond *= (mel2ph > 0)
 
-The fs2-full transformer (``no_fs2: false``) is not ported yet.  Parameter
-names follow the reference (``pitch_embed.weight``, ``mel_out.*`` ...).
+With ``no_fs2: false`` the units first run through an FFT-block
+``encoder`` (``tts_modules.FFTBlocks``) as ``hubert * sqrt(hidden) +
+positions`` with the all-zero unit rows as padding, and ``skip_decoder=False``
+adds the ``decoder`` stack's auxiliary ``mel_out``.  Parameter names follow
+the reference (``pitch_embed.weight``, ``mel_out.*``,
+``encoder.layers.{i}.op.*`` ...).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from ..ops.pitch import denorm_f0, energy_to_coarse, f0_to_coarse
+from . import tts_modules
 
 
 class FastSpeech2(nn.Module):
     def __init__(self, hp):
         super().__init__()
-        if not bool(hp.get("no_fs2", True)):
-            raise NotImplementedError("no_fs2: false (the FFT-block encoder) "
-                                      "is not ported to torch yet")
         h = int(hp["hidden_size"])
+        self.hidden_size = h
+        self.no_fs2 = bool(hp.get("no_fs2", True))
+        self.dropout = float(hp.get("dropout", 0.1))
         self.use_pitch_embed = bool(hp.get("use_pitch_embed", True))
         self.use_energy_embed = bool(hp.get("use_energy_embed", False))
         self.use_spk_id = bool(hp.get("use_spk_id", False))
@@ -48,6 +55,14 @@ class FastSpeech2(nn.Module):
             self.spk_embed_proj = nn.Embedding(int(hp.get("num_spk", 1)) + 1, h)
         elif self.use_spk_embed:
             self.spk_embed_proj = nn.Linear(256, h)
+        if not self.no_fs2:
+            heads = int(hp.get("num_heads", 2))
+            self.encoder = tts_modules.FFTBlocks(
+                h, int(hp.get("enc_layers", 4)),
+                int(hp.get("enc_ffn_kernel_size", 9)), heads)
+            self.decoder = tts_modules.FFTBlocks(
+                h, int(hp.get("dec_layers", 4)),
+                int(hp.get("dec_ffn_kernel_size", 9)), heads)
         self.init_weights()
 
     @torch.no_grad()
@@ -62,11 +77,20 @@ class FastSpeech2(nn.Module):
                     m.weight[m.padding_idx].zero_()
 
     def forward(self, hubert, mel2ph, f0, uv=None, energy=None,
-                spk_embed=None) -> dict:
+                spk_embed=None, skip_decoder: bool = True,
+                generator=None) -> dict:
         """:param hubert: [B, T_ph, H]; mel2ph: [B, T_mel] int (0 = pad);
         f0: [B, T_mel] log2-normalized; returns 'decoder_inp' [B, T_mel, H],
-        'f0_denorm', 'mel2ph'."""
+        'f0_denorm', 'mel2ph' (and 'mel_out' from the FS2-full decoder when
+        not ``skip_decoder``).  ``generator``: the FS2-full stacks' dropout
+        draws (training); None runs them deterministic."""
         ret = {"mel2ph": mel2ph}
+        rate = self.dropout if generator is not None else 0.0
+        if not self.no_fs2:
+            x = hubert * math.sqrt(self.hidden_size)
+            x = x + tts_modules.positional_encoding_for(x)
+            hubert = self.encoder(x, (hubert == 0).all(dim=-1), rate,
+                                  generator)
         padded = nn.functional.pad(hubert, (0, 0, 1, 0))
         idx = mel2ph.long()[:, :, None].expand(-1, -1, hubert.shape[-1])
         decoder_inp = torch.gather(padded, 1, idx)
@@ -88,5 +112,9 @@ class FastSpeech2(nn.Module):
             decoder_inp = decoder_inp + self.spk_embed_proj(spk_embed)[:, None, :]
         elif self.use_spk_embed and spk_embed is not None:
             decoder_inp = decoder_inp + self.spk_embed_proj(spk_embed)[:, None, :]
-        ret["decoder_inp"] = decoder_inp * tgt_nonpadding
+        ret["decoder_inp"] = decoder_inp = decoder_inp * tgt_nonpadding
+        if not self.no_fs2 and not skip_decoder:
+            x = decoder_inp + tts_modules.positional_encoding_for(decoder_inp)
+            x = self.decoder(x, mel2ph == 0, rate, generator)
+            ret["mel_out"] = self.mel_out(x) * tgt_nonpadding
         return ret

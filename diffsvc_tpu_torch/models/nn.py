@@ -82,9 +82,17 @@ def _positions(length: int, dim: int, offset: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=32)
+def _positions_on(length: int, dim: int, offset: int, device) -> torch.Tensor:
+    return torch.from_numpy(_positions(length, dim, offset)).to(device)
+
+
 def sinusoidal_positional_embedding(length: int, dim: int, offset: int = 1,
                                     device=None) -> torch.Tensor:
     """fairseq's sinusoidal table [length, dim] (``common_layers.py:
     88-147``): [sin | cos] halves, not interleaved, positions from
-    ``offset`` (1: the padding index shift), computed in float64."""
-    return torch.from_numpy(_positions(length, dim, offset)).to(device)
+    ``offset`` (1: the padding index shift), computed in float64.  The
+    table is uploaded to ``device`` once and kept (read-only): a CUDA graph
+    cannot capture an upload from pageable host memory."""
+    return _positions_on(length, dim, offset,
+                         None if device is None else torch.device(device))

@@ -7,15 +7,22 @@
     python -m diffsvc_tpu_torch.run --config ... --exp_name myexp --infer
 
 Trains the config's ``task_cls`` (``SVCTask``, or the pe task for a
-``...PitchExtractionTask``) on one card (``--device cpu`` asks for the CPU;
-there is no fallback).  ``--validate`` runs one validation pass on the
-latest checkpoint; ``--infer`` renders the test split from it
-(``training/test_runner.py``).  Vocoder training is not ported.
+``...PitchExtractionTask``) on the card (``--device cpu`` asks for the CPU;
+there is no fallback).  On N cards, one process per card:
+
+    torchrun --nproc_per_node N -m diffsvc_tpu_torch.run --config ...
+
+or ``distributed: true`` with ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
+``WORLD_SIZE`` set (``parallel/dist.py``: nccl, or ``dist_backend: gloo``).
+``--validate`` runs one validation pass on the latest checkpoint;
+``--infer`` renders the test split from it (``training/test_runner.py``);
+both on rank 0 alone.  Vocoder training is not ported.
 """
 
 import argparse
 
 from .config import hparams, set_hparams
+from .parallel import dist
 from .training.trainer import Trainer, vocoder_weights_available
 
 
@@ -58,12 +65,16 @@ def run_infer(trainer: Trainer) -> str:
 
 def run_task(hp, device=None) -> Trainer:
     """Train (or ``validate``, or ``infer``) on ``device``, by default the
-    card."""
+    card; under torchrun (or ``distributed: true``) one rank of
+    data-parallel training."""
     if not hp.get("task_cls", ""):
         raise ValueError("config must define task_cls")
+    dist.maybe_initialize_distributed(hp, device=device)
     # --infer logs nothing: no TensorBoard writer (nor its vocoder)
     trainer = Trainer(hp, device=device,
                       log_writer=False if hp.get("infer") else None)
+    if (hp.get("infer") or hp.get("validate")) and not trainer.is_rank0:
+        return trainer
     if hp.get("infer"):
         run_infer(trainer)
     elif hp.get("validate"):
@@ -80,3 +91,4 @@ def run_task(hp, device=None) -> Trainer:
 if __name__ == "__main__":
     set_hparams(print_hparams=False)
     run_task(hparams, device=device_arg())
+    dist.destroy()

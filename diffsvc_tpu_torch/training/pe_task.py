@@ -13,12 +13,19 @@ params tree).  The interface is ``SVCTask``'s (``train_step``,
 ``pe_ckpt``.  It runs on the card unless ``device="cpu"`` is asked for;
 pe's convolutions, forward and backward, are true f32
 (``models.nn.true_f32_convs``).
+
+Data parallel as ``SVCTask``: each rank takes its contiguous rows of the
+global batch and divides by the global batch's frame counts, and the
+gradients and losses are summed over ranks.  pe's BatchNorm runs on its
+running statistics in training too (``diffsvc_tpu/models/pe.py:51-52,
+104``), so no statistic crosses samples and no synced BatchNorm is needed.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -26,29 +33,51 @@ from torch import nn
 from ..infer.svc import default_device
 from ..models import nn as fnn
 from ..models.pe import PitchExtractor
+from ..parallel import dist
 from ..utils.convert import strip_prefix
-from .task import Optimized, global_norm
+from .task import Optimized, global_norm, local_rows
 
 PE_KEYS = ("mels", "f0", "uv", "pitch", "sample_mask")
 
 
 def f0_uv_losses(pitch_pred, f0, uv, nonpadding, *, lambda_f0=1.0,
-                 lambda_uv=1.0, use_uv=True, pitch_loss="l2"):
+                 lambda_uv=1.0, use_uv=True, pitch_loss="l2", counts=None):
     """f0 regression + uv classification losses (reference fs2 add_f0_loss
     semantics: uv BCE with logits over nonpadding; the f0 loss over voiced
-    nonpadding; denominators clamped to >= 1)."""
+    nonpadding; denominators clamped to >= 1).  ``counts`` (the uv and the
+    f0 denominators) replaces the two frame counts: a data-parallel rank
+    passes the global batch's (:func:`frame_counts`)."""
+    def count(mask, i):
+        return torch.clamp(mask.sum(), min=1) if counts is None else counts[i]
+
     losses = {}
     if use_uv:
         bce = F.binary_cross_entropy_with_logits(pitch_pred[:, :, 1], uv,
                                                  reduction="none")
-        losses["uv"] = (bce * nonpadding).sum() \
-            / torch.clamp(nonpadding.sum(), min=1) * lambda_uv
+        losses["uv"] = (bce * nonpadding).sum() / count(nonpadding, 0) \
+            * lambda_uv
         nonpadding = nonpadding * (uv == 0).to(nonpadding.dtype)
     diff = pitch_pred[:, :, 0] - f0
     err = diff.abs() if pitch_loss == "l1" else diff ** 2
-    losses["f0"] = (err * nonpadding).sum() \
-        / torch.clamp(nonpadding.sum(), min=1) * lambda_f0
+    losses["f0"] = (err * nonpadding).sum() / count(nonpadding, 1) \
+        * lambda_f0
     return losses
+
+
+def frame_counts(batch: Dict, use_uv: bool = True):
+    """The uv and f0 denominators of :func:`f0_uv_losses` over a whole
+    collated batch (host numpy): its nonpadding frames (a mel row not all
+    zero, in a real row of ``sample_mask``) and, with ``use_uv``, the
+    voiced ones among them; each at least 1."""
+    mels = np.asarray(batch["mels"], np.float32)
+    nonpadding = np.abs(mels).sum(-1) > 0
+    if batch.get("sample_mask") is not None:
+        nonpadding &= np.asarray(batch["sample_mask"])[:, None] > 0
+    n_all = max(float(nonpadding.sum()), 1.0)
+    if not use_uv:
+        return n_all, n_all
+    voiced = nonpadding & (np.asarray(batch["uv"]) == 0)
+    return n_all, max(float(voiced.sum()), 1.0)
 
 
 def _train_bn_stats(model: PitchExtractor) -> None:
@@ -94,8 +123,12 @@ class PitchExtractionTask(Optimized):
         return {k: torch.as_tensor(batch[k]).to(self.device) for k in PE_KEYS
                 if batch.get(k) is not None}
 
-    def loss(self, batch: Dict):
-        """(total loss, {'uv', 'f0'}) of a collated numpy batch."""
+    def use_uv(self) -> bool:
+        return self.hp.get("pitch_type", "frame") == "frame"
+
+    def loss(self, batch: Dict, counts=None):
+        """(total loss, {'uv', 'f0'}) of a collated numpy batch; ``counts``:
+        see :func:`f0_uv_losses`."""
         jb = self.prepare_batch(batch)
         mels = jb["mels"].float()
         out = self.model.compute(mels)
@@ -107,17 +140,20 @@ class PitchExtractionTask(Optimized):
             out["pitch_pred"], jb["f0"].float(), jb["uv"].float(), nonpadding,
             lambda_f0=float(hp.get("lambda_f0", 1.0)),
             lambda_uv=float(hp.get("lambda_uv", 1.0)),
-            use_uv=hp.get("pitch_type", "frame") == "frame",
-            pitch_loss=hp.get("pitch_loss", "l2"))
+            use_uv=self.use_uv(), pitch_loss=hp.get("pitch_loss", "l2"),
+            counts=counts)
         return sum(losses.values()), losses
 
     def loss_and_grads(self, batch: Dict):
-        """(loss, {'uv', 'f0'}, one grad per parameter) of a batch.  The
-        backward's convolutions run in true f32 too: cuDNN reads
-        ``allow_tf32`` when the backward runs, not when the forward
-        recorded it."""
+        """(loss, {'uv', 'f0'}, one grad per parameter) of this rank's rows
+        of a global batch, normalized by the global batch's frame counts,
+        not yet summed over ranks.  The backward's convolutions run in true
+        f32 too: cuDNN reads ``allow_tf32`` when the backward runs, not when
+        the forward recorded it."""
+        counts = frame_counts(batch, self.use_uv())
+        local = local_rows(batch, dist.block(int(np.shape(batch["mels"])[0])))
         with fnn.true_f32_convs():
-            loss, losses = self.loss(batch)
+            loss, losses = self.loss(local, counts)
             grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
@@ -125,9 +161,14 @@ class PitchExtractionTask(Optimized):
             grads
 
     def train_step(self, batch: Dict) -> Dict:
-        """One micro-step: loss, grads, and an AdamW update at the end of
-        each accumulation window.  Metrics loss, uv, f0, lr, grad_norm."""
+        """One micro-step on a global batch: this rank's loss and grads,
+        their SUM over ranks, and an AdamW update at the end of each
+        accumulation window.  Metrics loss, uv, f0, lr, grad_norm."""
         loss, losses, grads = self.loss_and_grads(batch)
+        n = len(grads)
+        summed = dist.all_reduce_sum([*grads, loss, *losses.values()])
+        grads, loss = summed[:n], summed[n]
+        losses = dict(zip(losses, summed[n + 1:]))
         grad_norm = global_norm(grads)
         lr = self.apply_grads(grads)
         return {"loss": loss, **losses, "lr": lr, "grad_norm": grad_norm}

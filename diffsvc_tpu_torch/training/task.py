@@ -10,11 +10,23 @@ optional EMA of the weights, and the diffusion loss as the 'mel' loss.
 
 One step runs eagerly: the loss through K4 or K5 (``diffnet.apply``'s
 training route, picked by the batch's shape), ``torch.autograd.grad``, then
-the update.  It runs on the card unless ``device="cpu"`` is asked for.  The step's random draws
-(t and the noise) come from a ``torch.Generator`` on the task's device
-seeded from (``seed``, step), so a step's draws do not depend on the steps
-before it, as JAX folds the step into its key.  Single device; DDP is later
-work.
+the update.  It runs on the card unless ``device="cpu"`` is asked for.  The
+step's random draws (t and the noise) come from a ``torch.Generator`` on
+the task's device seeded from (``seed``, step), so a step's draws do not
+depend on the steps before it, as JAX folds the step into its key.
+
+Data parallel (``parallel/dist.py``): every rank is given the same global
+batch (padded to a multiple of the world size, ``sample_mask`` marking the
+real rows), draws t and the noise at the global shape and takes its
+contiguous block of rows, as ``NamedSharding(P("data"))`` places them, so a
+sample sees the same draws at every world size.  Each rank divides its
+masked sum by the global batch's count of real rows (the JAX step's
+``max(sum(sample_mask), 1)``), so the ranks' losses and gradients sum to
+the global ones: one SUM ``all_reduce`` of the gradients and the loss, not
+``DistributedDataParallel``'s mean over ranks, which is wrong for a ragged
+last batch.  The training route is decided on the rank's block, as JAX
+decides it at ``b // n_dp``.  Clipping, accumulation, the optimizer and the
+EMA then run on every rank on the same numbers.
 """
 
 from __future__ import annotations
@@ -28,13 +40,14 @@ import torch
 
 from ..infer.svc import default_device
 from ..models.diffusion import GaussianDiffusion
+from ..parallel import dist
 from ..utils.convert import strip_prefix
 from .scheduler import build_lr_schedule
 
 BATCH_KEYS = ("hubert", "mels", "mel2ph", "energy", "f0", "uv", "sample_mask")
 
 
-TRAIN, VALID, SAMPLE = 0, 1, 2   # streams of draws
+TRAIN, VALID, SAMPLE, DROPOUT = 0, 1, 2, 3   # streams of draws
 
 
 def draw_generator(device, seed: int, *key: int) -> torch.Generator:
@@ -47,6 +60,21 @@ def draw_generator(device, seed: int, *key: int) -> torch.Generator:
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares over every gradient (optax.global_norm)."""
     return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+
+
+def local_rows(batch: Dict, rows: slice) -> Dict:
+    """The rows ``rows`` of every array of a collated global batch whose
+    leading axis is the batch axis."""
+    n = int(np.shape(batch["mels"])[0])
+    return {k: v[rows] if isinstance(v, np.ndarray) and v.ndim
+            and v.shape[0] == n else v for k, v in batch.items()}
+
+
+def real_rows(batch: Dict) -> Optional[float]:
+    """The global batch's ``max(sum(sample_mask), 1)``, or None without a
+    mask."""
+    mask = batch.get("sample_mask")
+    return None if mask is None else max(float(np.sum(mask)), 1.0)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -247,22 +275,49 @@ class SVCTask(Optimized):
             jb["spk_embed"] = torch.as_tensor(batch["spk_ids"]).to(self.device)
         return jb
 
-    def train_step(self, batch: Dict, *, t=None, noise=None) -> Dict:
-        """One micro-step: loss, grads, and an optimizer update at the end
-        of each accumulation window.  ``t`` and ``noise`` override the
-        step's draws.  Returns metrics loss, mel, lr, grad_norm (tensors
-        stay on the device; read them only when logging)."""
-        jb = self.prepare_batch(batch)
+    def draws(self, batch: Dict, t=None, noise=None):
+        """The step's t [B] and noise [B, T, M] at the global batch's shape
+        (those given, the rest drawn from the (TRAIN, step) stream, t
+        first)."""
+        mels = np.shape(batch["mels"])
+        gen = draw_generator(self.device, self.seed, TRAIN, self.step)
+        if t is None:
+            t = torch.randint(0, self.model.K_step, mels[:1], generator=gen,
+                              device=self.device)
+        if noise is None:
+            noise = torch.randn(mels, generator=gen, device=self.device)
+        return t, noise
+
+    def loss_and_grads(self, batch: Dict, *, t=None, noise=None,
+                       rows: Optional[slice] = None):
+        """This rank's loss and one grad per parameter (zeros where the loss
+        does not reach, as in JAX) of its rows of a global ``batch``, not
+        yet summed over ranks: each rank's loss is its rows' share of the
+        global mean, so the sum over ranks is the global loss and gradient.
+        ``rows`` takes another block (the checks sum every rank's block in
+        one process)."""
+        t, noise = self.draws(batch, t, noise)
+        if rows is None:
+            rows = dist.block(int(np.shape(batch["mels"])[0]))
+        jb = self.prepare_batch(local_rows(batch, rows))
         loss, _ = self.model.training_loss(
-            jb, t=t, noise=noise,
-            generator=draw_generator(self.device, self.seed, TRAIN,
-                                     self.step))
+            jb, t=t[rows], noise=noise[rows],
+            generator=draw_generator(self.device, self.seed, DROPOUT,
+                                     self.step, dist.rank()),
+            count=real_rows(batch))
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        loss = loss.detach()
-        # a parameter the loss does not reach gets a zero grad, as in JAX
-        # (AdamW then still applies its weight decay to it)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(self.params, grads)]
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(self.params, grads)]
+
+    def train_step(self, batch: Dict, *, t=None, noise=None) -> Dict:
+        """One micro-step on a global ``batch``: this rank's loss and grads,
+        their SUM over ranks, and an optimizer update at the end of each
+        accumulation window.  ``t`` [B] and ``noise`` [B, T, M] (global)
+        override the step's draws.  Returns metrics loss, mel, lr,
+        grad_norm (tensors stay on the device; read them only when
+        logging)."""
+        loss, grads = self.loss_and_grads(batch, t=t, noise=noise)
+        *grads, loss = dist.all_reduce_sum([*grads, loss])
         grad_norm = global_norm(grads)
         if self.hp.get("print_nan_grads"):
             for name, g in zip(self.names, grads):
@@ -283,7 +338,8 @@ class SVCTask(Optimized):
         call (JAX uses one fixed key)."""
         loss, _ = self.model.training_loss(
             self.prepare_batch(batch),
-            generator=draw_generator(self.device, self.seed, VALID))
+            generator=draw_generator(self.device, self.seed, VALID),
+            train=False)
         return float(loss)
 
     @torch.no_grad()

@@ -105,10 +105,32 @@ def _layer_norm(sd, name, p):
     sd[f"{name}.bias"] = _t(p["bias"])
 
 
+def _fft_blocks(sd, prefix, p):
+    """``tts_modules`` FFT-block params -> the reference's FFTBlocks names
+    (the inverse of ``convert_torch.convert_fft_blocks``)."""
+    for i, lp in enumerate(p["layers"]):
+        base = f"{prefix}.layers.{i}.op"
+        att = lp["attn"]
+        _layer_norm(sd, f"{base}.layer_norm1", lp["ln1"])
+        sd[f"{base}.self_attn.in_proj_weight"] = _t(np.concatenate(
+            [np.asarray(att[k]["w"]).T for k in ("q", "k", "v")]))
+        _linear(sd, f"{base}.self_attn.out_proj", att["out"])
+        _layer_norm(sd, f"{base}.layer_norm2", lp["ln2"])
+        _conv(sd, f"{base}.ffn.ffn_1", lp["ffn"]["conv"])
+        _linear(sd, f"{base}.ffn.ffn_2", lp["ffn"]["out"])
+    if "ln" in p:
+        _layer_norm(sd, f"{prefix}.layer_norm", p["ln"])
+
+
 def diffusion_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
-    """{'fs2', 'denoise_fn'} JAX params -> GaussianDiffusion state dict."""
+    """{'fs2', 'denoise_fn'} JAX params -> GaussianDiffusion state dict:
+    the FS2-full encoder and decoder when present, DiffNet or the FFT
+    denoiser (``candidate_decoder``, recognized by ``get_decode_inp``)."""
     sd = {}
     fs2 = params["fs2"]
+    for part in ("encoder", "decoder"):
+        if part in fs2:
+            _fft_blocks(sd, f"fs2.{part}", fs2[part])
     _linear(sd, "fs2.mel_out", fs2["mel_out"])
     for name in ("pitch_embed", "energy_embed"):
         if name in fs2:
@@ -122,6 +144,12 @@ def diffusion_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
     _conv(sd, "denoise_fn.input_projection", dn["input_projection"])
     _linear(sd, "denoise_fn.mlp.0", dn["mlp"]["w1"])
     _linear(sd, "denoise_fn.mlp.2", dn["mlp"]["w2"])
+    if "get_decode_inp" in dn:
+        _linear(sd, "denoise_fn.get_decode_inp", dn["get_decode_inp"])
+        _linear(sd, "denoise_fn.get_mel_out", dn["get_mel_out"])
+        sd["denoise_fn.pos_embed_alpha"] = _t(dn["pos_embed_alpha"])
+        _fft_blocks(sd, "denoise_fn", dn["blocks"])
+        return sd
     layers = dn["layers"]
     n_layers = np.asarray(layers["dilated_conv"]["w"]).shape[0]
     for i in range(n_layers):

@@ -746,3 +746,77 @@ def test_pe_step_card_matches_cpu(cuda):
     assert _rel(lc, lp) <= 1e-4
     for a, b in zip(gc, gp):
         assert _rel(a, b) <= 1e-4 or float(b.norm()) == 0.0
+
+
+def test_nccl_world1_step_equals_no_process_group(cuda, tmp_path):
+    """Three SVCTask steps at the tiny widths (a ragged last batch) under
+    nccl at world 1 equal the same steps with no process group bit for
+    bit: params and optimizer state (a spawned process, deterministic
+    algorithms, cuBLAS's workspace fixed)."""
+    import torch.multiprocessing as mp
+
+    import _torch_dist_worker
+    from _torch_fixtures import HID, MEL, TINY_HP
+
+    rng = np.random.RandomState(0)
+    batches = []
+    for n in (3, 3, 2):
+        t = 64
+        batches.append({
+            "hubert": rng.randn(3, t, HID).astype(np.float32),
+            "mels": (rng.randn(3, t, MEL) - 3.0).astype(np.float32),
+            "mel2ph": np.tile(np.arange(1, t + 1), (3, 1)),
+            "f0": np.full((3, t), 200.0, np.float32),
+            "uv": np.zeros((3, t), np.float32),
+            "sample_mask": (np.arange(3) < n).astype(np.float32)})
+    hp = dict(TINY_HP, lr=1e-3, scheduler="step_lr", decay_steps=100,
+              diff_loss_type="l1", diffnet_train_stream_dtype="bf16")
+    args = str(tmp_path / "args.pt")
+    torch.save({"hp": hp, "batches": batches}, args)
+    mp.spawn(_torch_dist_worker.nccl_world1,
+             args=(str(tmp_path / "store"), args, str(tmp_path)), nprocs=1,
+             join=True)
+    out = torch.load(str(tmp_path / "rank0.pt"))
+    assert out == {"backend": "nccl", "bit_equal": True}
+
+
+def test_batched_sharded_on_the_card(cuda, tmp_path, monkeypatch):
+    """``FusedSvc.batched_sharded`` at the tiny project's widths with two
+    replicas on this card: three chunks padded to four, three results, each
+    within 1e-5 of ``batched``'s on the same draws; once captured, K2 and
+    K3 run once per replica."""
+    from _torch_fixtures import TINY_HP, TINY_VOC, voiced_wav
+    from diffsvc_tpu_torch.infer.fused import FusedSvc
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.models.hubert import HubertConfig
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder, vocoder_tail
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.vocoders.generator import draw_randoms
+
+    monkeypatch.chdir(tmp_path)          # Svc keeps ./infer_tools caches
+    cfg_fn, ckpt = synth.write_project(
+        str(tmp_path / "proj"),
+        dict(TINY_HP, vocoder="diffsvc_tpu.vocoders.nsf_hifigan.NsfHifiGAN"),
+        TINY_VOC)
+    hub = synth.write_hubert(str(tmp_path / "hub.pt"), HubertConfig(
+        dim=32, num_heads=2, num_layers=2, ffn_dim=64, proj_dim=32))
+    svc = Svc("proj", cfg_fn, False, ckpt, device=cuda)
+    fused = FusedSvc(svc.hp, svc.model, svc.vocoder, hub.to(cuda).eval(),
+                     speedup=10)
+    wavs = [voiced_wav(secs=0.6 + 0.1 * i, f0=200.0 + 30 * i, seed=i)
+            for i in range(3)]
+    geo = fused.geometry(max(map(len, wavs)))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    noise = torch.randn(3, geo["pad_t"], 16, generator=g, device=cuda)
+    randoms = draw_randoms(3, geo["n_voc"], 8, g, cuda)
+    ref = fused.batched(wavs, init_noise=noise, voc_randoms=randoms)
+    kw = dict(init_noise=noise, voc_randoms=randoms)
+    fused.batched_sharded(wavs, [cuda, cuda], **kw)    # captures
+    k2, k3 = plms_ladder.launches, vocoder_tail.launches
+    got = fused.batched_sharded(wavs, [cuda, cuda], **kw)
+    assert (plms_ladder.launches - k2, vocoder_tail.launches - k3) == (2, 2)
+    assert len(got) == 3
+    for (a, _, am), (b, _, bm) in zip(got, ref):
+        assert len(a) == len(b)
+        assert _rel(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-5
+        assert _rel(torch.from_numpy(am), torch.from_numpy(bm)) <= 1e-5

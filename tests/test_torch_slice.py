@@ -144,6 +144,8 @@ from diffsvc_tpu_torch.data import batching, binarizer, dataset, indexed_dataset
 from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train
 from diffsvc_tpu_torch.ops import crepe
 from diffsvc_tpu_torch.models import contentvec, pe
+from diffsvc_tpu_torch.models import candidate_decoder, tts_modules
+from diffsvc_tpu_torch.parallel import dist
 from diffsvc_tpu_torch.vocoders import hifigan, vocoder_utils
 from diffsvc_tpu_torch.training import checkpoint, scheduler, task, trainer
 from _torch_fixtures import SR, fake_units, voiced_wav, write_project
@@ -202,7 +204,10 @@ print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
 def test_port_never_imports_jax(tmp_path):
     """``import diffsvc_tpu_torch``, its training modules, its entry points
     (``run``, ``binarize``, ``batch``, ``flask_api``), the serving modules
-    (``infer.fused``, ``infer.streaming``) and the rest of conversion
+    (``infer.fused``, ``infer.streaming``), the data-parallel process
+    group (``parallel.dist``), the FS2-full and FFT-denoiser modules
+    (``models.tts_modules``, ``models.candidate_decoder``) and the rest of
+    conversion
     (``ops.crepe``, ``models.pe``, ``models.contentvec``,
     ``vocoders.hifigan``, ``vocoders.vocoder_utils``) and of training and
     data (``training.pe_task``, ``losses``, ``test_runner``, ``ops.ssim``,
