@@ -4,8 +4,9 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
 
-(``--deterministic-step BUNDLE`` is phase 5's child process and
-``--dist-job JOB BUNDLE`` a rank of phase 10, below.)
+(``--deterministic-step BUNDLE`` is phase 5's child process,
+``--dist-job JOB BUNDLE`` a rank of phase 10 and ``--vocoder-resume
+BUNDLE`` phase 11's child, below.)
 
 Phases, in order; any failure exits non-zero and no result line is printed:
 
@@ -129,12 +130,14 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    (a) DDPM (``acc=1``, 1000 steps) on phase 4's project: a 3 s voiced
    clip through ``run_clip``, modular and fused graph, in bf16 and f32 (the
    output's length, finite, non-silent; K1's counter a whole number of
-   1000-step trajectories, at least one per chunk, and K2's 0); the
-   sampler alone timed and profiled (ms, launches and device ms per step),
-   a fused chunk's replay per step, the acc=1 bucket's warm-up, capture
-   and pool; a 0.5 s conversion card vs CPU with ``use_gt_mel`` at 50 steps
-   and the per-step noise shared, at phase 4's limits, the skip-bias fault
-   above them.
+   1000-step trajectories, at least one per chunk, and K2's 0), the fused
+   route again warm; the sampler alone timed and profiled over a 100-step
+   use_gt_mel trajectory (ms, launches and device ms per step), a fused
+   chunk's replay timed and profiled (ms and device events per
+   step), the acc=1 bucket's warm-up, capture and pool; a 0.5 s conversion
+   card vs CPU with ``use_gt_mel`` at 50 steps and the
+   per-step noise shared, at phase 4's limits, the skip-bias fault above
+   them, in each dtype.
    (b) CREPE (random weights in torchcrepe's ``full.pth`` layout): the 14 s
    clip through ``get_pitch`` on the card (tracker ``crepe``), the network
    and the Viterbi timed apart; its posteriors card vs CPU on a block of
@@ -219,10 +222,46 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    0.1 (FS2-full on K4; the FFT denoiser on no kernel) whose encoder
    (denoiser) grads are finite and not zero.
 
+11. The other vocoders and GAN vocoder training (``[voc]`` lines; every
+   counter reset before each route or run and read after it):
+   (a) the iSTFT head at config_44k's geometry (dim 512, 8 layers, n_fft
+   2048, hop 512, the f0 embedding; its weights written by the port's
+   ``save_params``): phase 4's 14 s clip through ``Svc.infer`` and the
+   fused graph in bf16 and f32 diffusion, and once with
+   ``voc_compute_dtype: bfloat16`` (K2 moving, K3 at 0; RTF, busy share),
+   phase 7's 17 s clip through ``FusedSvc.batched`` (B=3) and
+   ``batched_sharded`` over two replicas on the card (within
+   ``BATCHED_TOL``), the head alone card vs CPU in f32 (``VOC_TOL``) and
+   with its bf16 backbone (``VOC_TOL_BF16``), its final LayerNorm dropped
+   above both, and ``Svc.infer_batched`` refused; (b) PWG at config_24k's
+   geometry (30 layers, 3 stacks, 64 / 128 / 64 channels, scales 4, 4, 4,
+   2, aux window 2) from an official-layout directory (weight-norm keys,
+   ``stats.npy``) with ``loud_norm: true``: the 14 s clip at 24 kHz through
+   the modular route and ``--batch_chunks`` (K2 moving, K3 at 0),
+   ``spec2wav`` card vs CPU on one mel and seed (its last residual layer
+   dropped above the limit), ``wav2spec`` with loud_norm card vs CPU, a
+   fused route refused; (c) MelGAN's generator at its defaults (causal and
+   not), its multi-scale discriminator, a PQMF round trip and the
+   cyclic-noise source, each card vs CPU; (d) ``run_task`` with a vocoder
+   ``task_cls`` for the hifigan (openvpi NSF-HiFiGAN width, MPD + MSD),
+   istft (512 x 8) and pwg families on phase 5's 32 clips binarized with
+   their waveforms: 3 steps of B=8 crops of 32 frames each (finite losses,
+   ms per step, peak memory, K1-K6 at 0), a resume from the step-2
+   checkpoint equal to the uninterrupted step 3 bit for bit (in a child
+   process, ``chip_smoke.py --vocoder-resume BUNDLE``, under deterministic
+   algorithms with ``CUBLAS_WORKSPACE_CONFIG`` set), and one hifigan step
+   card vs CPU at B=2 (losses, D and G grads; the card's updated params
+   against the first AdamW update on its own grads), G's grads against the
+   old D as the planted fault, and G's grads at the init with every leaky
+   ReLU smooth (``GAN_TWIN_TOL``), TF32 on the card as the planted fault; the task's AdamW on the card over 20 steps
+   of fixed grads against optax's update written out, torch's default
+   weight decay as the planted fault.
+
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
-in each of phase 9's parts and phase 10's, errors, times, bound);
+in each of phase 9's parts, phase 10's and phase 11's, errors, times,
+bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -522,7 +561,6 @@ def kernel_breakdown(fn, reps: int) -> dict:
     ``reps`` calls after a warm-up): {name: [ms per call, launches per
     call]}, the name cut at its argument list and to 60 characters."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -536,12 +574,11 @@ def kernel_breakdown(fn, reps: int) -> dict:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                name = e.name.replace("(anonymous namespace)::", "")
-                tot = out.setdefault(name.split("(")[0][:60], [0.0, 0])
-                tot[0] += (e.time_range.end - e.time_range.start) / 1e3 / reps
-                tot[1] += 1
+        for start, end, name in device_events(prof):
+            name = name.replace("(anonymous namespace)::", "")
+            tot = out.setdefault(name.split("(")[0][:60], [0.0, 0])
+            tot[0] += (end - start) / 1e3 / reps
+            tot[1] += 1
         if out:
             break
         log(f"[profile] trace {attempt + 1} holds no device event")
@@ -1297,12 +1334,24 @@ def profile_clip(svc, wav_fn, out_fn):
                                    file_path=wav_fn, out_path=out_fn))
 
 
+def device_events(prof) -> list:
+    """The card's events of a finished ``torch.profiler`` run as (start us,
+    end us, name), read from its kineto results as they are:
+    ``prof.events()`` first builds a record of every host event and their
+    tree, which a trace of a thousand sampler steps makes slow."""
+    from torch.autograd import DeviceType
+
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def profile_run(label, fn):
     """torch.profiler over one call of ``fn``.  Device busy time is the
     union of the card's kernel and copy intervals; the busy share is that
     over the profiled wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1313,12 +1362,10 @@ def profile_run(label, fn):
         torch.cuda.synchronize()
         wall = time.time() - t0
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        tot = by_name.setdefault(e.name, [0.0, 0])
-        tot[0] += (e.time_range.end - e.time_range.start) / 1e3
+    for start, end, name in device_events(prof):
+        spans.append((start, end))
+        tot = by_name.setdefault(name, [0.0, 0])
+        tot[0] += (end - start) / 1e3
         tot[1] += 1
     busy_us, reach = 0.0, float("-inf")
     for a, b in sorted(spans):
@@ -1366,6 +1413,9 @@ def denoiser_head(svc):
     return head.weight, head.bias
 
 
+CPU_SVCS = {}   # (config, checkpoint) -> the CPU Svc of cpu_agreement
+
+
 def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
                   same_f0=False, head=denoiser_head, fault=skip_bias_dropped,
                   fault_name="bskip dropped", **infer_kw):
@@ -1397,7 +1447,12 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
     save_wav(wav[: int(secs * sr)], short, sr)
     dt = svc_dev.hp["diff_compute_dtype"] or "float32"
     tol = SLICE_TOL_BF16 if dt == "bfloat16" else SLICE_TOL
-    svc_cpu = Svc("proj", cfg_fn, False, ckpt, device="cpu")
+    # one CPU Svc per project, kept for the project's next check (the other
+    # dtype, DDPM): its weights are only read, eps = 0's are restored
+    svc_cpu = CPU_SVCS.get((cfg_fn, ckpt))
+    if svc_cpu is None:
+        svc_cpu = CPU_SVCS[(cfg_fn, ckpt)] = Svc("proj", cfg_fn, False, ckpt,
+                                                 device="cpu")
     svc_cpu.hp["diff_compute_dtype"] = svc_dev.hp["diff_compute_dtype"]
     batch = svc_cpu.pre(short, acc, use_crepe=False)
     t_mel = batch["mels"].shape[1]
@@ -1554,7 +1609,6 @@ def fused_trace(label, fn):
     device-to-host copy may start before the chunk's last kernel ends (the
     program keeps everything on the card until its outputs)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1565,16 +1619,14 @@ def fused_trace(label, fn):
         torch.cuda.synchronize()
         wall = time.time() - t0
     kernels, d2h, spans = [], [], []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        span = (e.time_range.start, e.time_range.end)
+    for start, end, name in device_events(prof):
+        span = (start, end)
         spans.append(span)
-        if "DtoH" in e.name or "Device -> Pageable" in e.name \
-                or "Device -> Pinned" in e.name:
-            d2h.append((span, e.name))
-        elif "Memcpy" not in e.name and "Memset" not in e.name:
-            kernels.append((span, e.name))
+        if "DtoH" in name or "Device -> Pageable" in name \
+                or "Device -> Pinned" in name:
+            d2h.append((span, name))
+        elif "Memcpy" not in name and "Memset" not in name:
+            kernels.append((span, name))
     busy_us, reach = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy_us += max(0.0, b - max(a, reach))
@@ -1599,7 +1651,7 @@ def fused_trace(label, fn):
     return res
 
 
-def route_run(label, secs, n_chunks, fn, pools=0):
+def route_run(label, secs, n_chunks, fn, pools=0, tag="serve"):
     """A route's wall over one conversion (host clock, ending in a sync),
     then a profiled one for the device busy share."""
     import torch
@@ -1609,14 +1661,14 @@ def route_run(label, secs, n_chunks, fn, pools=0):
     fn()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    prof = profile_run(f"{label} (serve)", fn)
+    prof = profile_run(f"{label} ({tag})", fn)
     prof.pop("names")
     rec = {"wall_s": wall, "rtf": wall / secs, "chunks": n_chunks,
            "wall_per_chunk_s": wall / n_chunks,
            "busy_share": prof["busy_share"],
            "device_busy_ms": prof["device_busy_ms"],
            "graph_pool_mib": pools / 2 ** 20}
-    log(f"[serve] route {label}: wall={wall:.4f}s rtf={rec['rtf']:.4f} "
+    log(f"[{tag}] route {label}: wall={wall:.4f}s rtf={rec['rtf']:.4f} "
         f"per chunk {rec['wall_per_chunk_s']:.4f}s busy_share="
         f"{rec['busy_share']:.3f} device_busy={rec['device_busy_ms']:.1f}ms "
         f"graph pools {rec['graph_pool_mib']:.1f} MiB")
@@ -2461,6 +2513,9 @@ DDPM_CLIP = (3.0, 262.0, [])
 # the card-vs-CPU DDPM check: use_gt_mel from the input's mel q-sampled to
 # step 49, then 50 DDPM steps, on 0.5 s
 DDPM_CPU_STEPS = 50
+# the sampler's wall and profile: a use_gt_mel trajectory of this many
+# steps (the same step as a full trajectory's)
+DDPM_PROF_STEPS = 100
 # CREPE's card-vs-CPU check: its posteriors on this block of frames of the
 # 14 s clip (the CPU's network costs ~2.8 GFLOP a frame)
 CREPE_BLOCK = (1000, 1128)
@@ -2486,28 +2541,34 @@ def clip_checks(label, audio, src_len):
 
 
 def ddpm_step_times(svc, wav_fn) -> dict:
-    """Sampling alone at acc=1 on the clip's batch (``model.infer``): wall
-    per step (host clock ending in a sync) and, from a profiled run, the
-    device kernels per step and the device busy time per step."""
+    """Sampling alone at acc=1 on the clip's batch (``model.infer``) over a
+    use_gt_mel trajectory of DDPM_PROF_STEPS (the step of a full
+    trajectory): wall per step (host clock ending in a sync) and, from a
+    profiled run of the same trajectory, the device kernels per step and
+    the device busy time per step."""
     import numpy as np
     import torch
 
-    k_step = svc.model.K_step
     b = svc.pre(wav_fn, 1, use_crepe=False)
     tb = {k: torch.from_numpy(np.asarray(b[k])).to(svc.device)
           for k in ("hubert", "mels", "mel2ph", "energy", "f0", "uv")}
+    n = DDPM_PROF_STEPS
+
+    def run():
+        svc.model.infer(tb, speedup=1, use_gt_mel=True, add_noise_step=n)
+
+    run()
     torch.cuda.synchronize()
     t0 = time.time()
-    svc.model.infer(tb, speedup=1)
+    run()
     torch.cuda.synchronize()
     wall = time.time() - t0
     prof = profile_run(f"{svc.hp['diff_compute_dtype'] or 'float32'} DDPM "
-                       f"sampling, {k_step} steps at T={b['mels'].shape[1]}",
-                       lambda: svc.model.infer(tb, speedup=1))
-    return {"frames": int(b["mels"].shape[1]), "steps": k_step,
-            "ms_per_step": wall * 1e3 / k_step,
-            "launches_per_step": prof["device_events"] / k_step,
-            "device_ms_per_step": prof["device_busy_ms"] / k_step,
+                       f"sampling, {n} steps at T={b['mels'].shape[1]}", run)
+    return {"frames": int(b["mels"].shape[1]), "steps": n,
+            "ms_per_step": wall * 1e3 / n,
+            "launches_per_step": prof["device_events"] / n,
+            "device_ms_per_step": prof["device_busy_ms"] / n,
             "busy_share": prof["busy_share"]}
 
 
@@ -2516,7 +2577,6 @@ def phase_ddpm(project, workdir, launches):
     modular and fused graph, in bf16 and f32 (K1 one launch per step, K2
     none); ms per step, launches per step, RTF, the acc=1 bucket's capture
     and pool; a 0.5 s conversion card vs CPU with use_gt_mel at 50 steps."""
-    import numpy as np
     import torch
 
     from diffsvc_tpu_torch import infer_cli
@@ -2529,22 +2589,26 @@ def phase_ddpm(project, workdir, launches):
     src_len = len(load_wav(wav_fn)[0])
     n_chunks = len(voiced_chunks(wav_fn))
     res = {"clip_s": secs, "chunks": n_chunks}
+    routes = (("modular", {}), ("fused graph", {"fused": True}))
+
+    def clip(svc, **kw):
+        return infer_cli.run_clip(
+            svc, key=0, acc=1, use_pe=False, use_crepe=False, thre=0.05,
+            use_gt_mel=False, add_noise_step=500, file_path=wav_fn,
+            out_path=wav_fn[:-4] + "_ddpm.wav", **kw)
+
     for dt, svc in project["svcs"].items():
         name = dt or "float32"
         k_step = svc.model.K_step
         rec = res.setdefault(name, {})
-        for route, kw in (("modular", {}), ("fused graph", {"fused": True})):
+        for route, kw in routes:
             label = f"DDPM {route} {name}"
             with counted(label, launches, moved=("residual_stack",
                                                  "vocoder_tail"),
                          still=("plms_ladder",), tag="rest"):
                 torch.cuda.synchronize()
                 t0 = time.time()
-                _, _, audio = infer_cli.run_clip(
-                    svc, key=0, acc=1, use_pe=False, use_crepe=False,
-                    thre=0.05, use_gt_mel=False, add_noise_step=500,
-                    file_path=wav_fn, out_path=wav_fn[:-4] + "_ddpm.wav",
-                    **kw)
+                _, _, audio = clip(svc, **kw)
                 torch.cuda.synchronize()
                 wall = time.time() - t0
             k1 = launches[label]["residual_stack"]
@@ -2574,26 +2638,23 @@ def phase_ddpm(project, workdir, launches):
                                         "pool_mib": fused.pool_bytes()[k]
                                         / 2 ** 20}
                            for k, (w, c) in fused.capture_seconds().items()}
-        # each route again, warm (packs built, the bucket captured)
-        for route, kw in (("modular", {}), ("fused graph", {"fused": True})):
-            torch.cuda.synchronize()
-            t0 = time.time()
-            infer_cli.run_clip(svc, key=0, acc=1, use_pe=False,
-                               use_crepe=False, thre=0.05, use_gt_mel=False,
-                               add_noise_step=500, file_path=wav_fn,
-                               out_path=wav_fn[:-4] + "_ddpm.wav", **kw)
-            torch.cuda.synchronize()
-            rec[route]["rtf_warm"] = (time.time() - t0) / secs
+        # the fused route again, warm (the bucket captured); the modular
+        # route's warm step is the sampler's, above
+        torch.cuda.synchronize()
+        t0 = time.time()
+        clip(svc, fused=True)
+        torch.cuda.synchronize()
+        rec["fused graph"]["rtf_warm"] = (time.time() - t0) / secs
         smp = rec["sampling"]
         log(f"[rest] DDPM {name}: {secs:.1f}s clip ({n_chunks} chunk) RTF "
-            f"modular {rec['modular']['rtf']:.4f} (warm "
-            f"{rec['modular']['rtf_warm']:.4f}), fused graph "
+            f"modular {rec['modular']['rtf']:.4f}, fused graph "
             f"{rec['fused graph']['rtf_warm']:.4f} (first, with its "
             f"captures, {rec['fused graph']['rtf']:.4f}); sampling alone "
             f"{smp['ms_per_step']:.4f} ms/step at T={smp['frames']}, "
             f"{smp['launches_per_step']:.1f} launches/step, device "
             f"{smp['device_ms_per_step']:.4f} ms/step (busy share "
-            f"{smp['busy_share']:.3f}); fused chunk replay "
+            f"{smp['busy_share']:.3f}; over a {smp['steps']}-step "
+            f"trajectory); fused chunk replay "
             f"{rec['fused_chunk_ms_per_step']:.4f} ms/step, "
             f"{rec['fused_launches_per_step']:.1f} device events/step; "
             "captures "
@@ -2864,11 +2925,15 @@ def phase_24k(device, workdir, launches):
 def phase_rest(device, project, workdir):
     """Phase 8 on phase 4's project, a CREPE checkpoint and a config_24k
     project."""
-    launches = {}
-    res = {"ddpm": phase_ddpm(project, workdir, launches),
-           "crepe": phase_crepe(device, project, workdir),
-           "24k": phase_24k(device, workdir, launches)}
-    res["launches"] = launches
+    launches, seconds = {}, {}
+    res = {"launches": launches, "seconds": seconds}
+    for part, fn in (("ddpm", lambda: phase_ddpm(project, workdir, launches)),
+                     ("crepe", lambda: phase_crepe(device, project, workdir)),
+                     ("24k", lambda: phase_24k(device, workdir, launches))):
+        t0 = time.time()
+        res[part] = fn()
+        seconds[part] = time.time() - t0
+    log(f"[rest] phase 8 took { {k: round(v, 1) for k, v in seconds.items()} }s")
     return res
 
 
@@ -3116,6 +3181,23 @@ def smooth_relus():
         return F.softplus(x, beta=50.0)
 
     with swapped(torch, relu=soft), swapped(F, relu=soft):
+        yield
+
+
+@contextlib.contextmanager
+def smooth_leaky_relus(beta=50.0):
+    """Every leaky ReLU (``F.leaky_relu``, the HiFi-GAN generator's and its
+    discriminators') as ``s x + (1 - s) softplus(x, beta)`` inside the
+    block."""
+    import torch.nn.functional as F
+
+    softplus = F.softplus
+
+    def soft(x, negative_slope=0.01, inplace=False):
+        return (negative_slope * x
+                + (1.0 - negative_slope) * softplus(x, beta=beta))
+
+    with swapped(F, leaky_relu=soft):
         yield
 
 
@@ -4130,6 +4212,798 @@ def phase_multi(device, workdir, project):
     return res
 
 # ---------------------------------------------------------------------------
+# Phase 11: the other vocoders and GAN vocoder training
+# ---------------------------------------------------------------------------
+
+# A vocoder alone, card vs CPU on one input (relative L2 of the waveform),
+# TF32 off: f32 convolutions, products and FFTs summed in other orders on
+# the two sides.  The iSTFT head's bf16 backbone has a limit of its own:
+# both sides round the same values to bf16 but sum them in other orders,
+# so a few roundings flip and move the phases.  The planted faults: the
+# iSTFT head's final LayerNorm dropped, PWG's last residual layer dropped.
+VOC_TOL = 1e-4
+VOC_TOL_BF16 = 5e-2
+# loud_norm's pwg mel, card vs CPU (largest absolute log10 difference)
+LOUD_MEL_TOL = 1e-3
+# the iSTFT head at config_44k's geometry: dim 512, 8 layers, n_fft 2048,
+# hop 512, the f0 embedding (use_nsf)
+ISTFT_OVER = {"vocoder": "IstftVocoder", "istft_dim": 512, "istft_layers": 8}
+# PWG at config_24k's geometry: 80 mel, hop 128 -> upsample scales
+# _factor_scales(128) = (4, 4, 4, 2), 30 layers in 3 stacks, 64 residual /
+# 128 gate / 64 skip channels, aux context window 2
+PWG_PARAMS = dict(layers=30, stacks=3, residual_channels=64,
+                  gate_channels=128, skip_channels=64, aux_channels=80,
+                  aux_context_window=2,
+                  upsample_params={"upsample_scales": [4, 4, 4, 2]})
+# GAN training: crops of 32 frames, B=8 (base.yaml's max_sentences is 88:
+# cut for time), 3 steps a family with a checkpoint after step 2
+VOC_SEG, VOC_B, VOC_STEPS = 32, 8, 3
+# One hifigan GAN step card vs CPU at B=2 from the same init, crops and
+# draws, TF32 off: the losses (relative), the D and the G grads (relative L2
+# over all of each), and each param the card updated against optax's first
+# adamw update on the card's own grad, p (1 - lr wd) - lr g / (|g| + eps),
+# within GAN_UPDATE_TOL lr beyond 4 f32 ulps of the value (the card's
+# params are not held to the CPU's: Adam's first update is about lr *
+# sign(g), and an element whose grad is near 0 can take the other sign on
+# the other device).  G's grads have a limit of their own: on the H100
+# and on the CPU alike they read 1.8e-4 to 1.0e-3 from the same step in
+# float64 over init seeds 0-2, card against CPU 2.4e-4 to 1.1e-3, TF32 on
+# 6.6e-4 to 1.2e-3 (tools/gan_step_error.py); the D update adds nothing
+# (G's grads against the D from before the step read the same), nor does
+# the loss's mel (computed in float64: the same readings).  The cause is
+# the leaky ReLUs of G and D: an input within rounding of 0 takes the
+# other slope in f32 than in f64 and passes 1 where the reference passes
+# 0.1.  With every leaky ReLU as s x + (1 - s) softplus(x, beta=50) (the
+# twin), G's grads read 1.9e-5 to 4.0e-5 from float64 on either device,
+# card against CPU 3.9e-5 to 4.0e-5, and TF32 on 6.6e-4 to 8.1e-4.  So
+# G's grads are gated twice: the step's at GAN_GRAD_TOL["g"], its planted
+# fault G's grads against the old D (3.8e-3), and the twin's at the init
+# at GAN_TWIN_TOL, its planted fault TF32 on the card.
+GAN_LOSS_TOL = 1e-4
+GAN_GRAD_TOL = {"d": 1e-4, "g": 2e-3}
+GAN_TWIN_TOL = 1.5e-4
+GAN_UPDATE_TOL = 1e-3
+# The task's AdamW on the card through VocoderTask._update (the rate from
+# its update count), 20 steps on fixed random grads from params of scale
+# 0.1, against optax's adamw written out in float64: rel-L2 of the total
+# update.  The f32 rounding of the params at each step reads 4.3e-5 on the
+# H100 and on the CPU; the planted fault, torch's default weight decay
+# 1e-2, 4.1e-3 (the
+# betas and the decayed rate are held to optax itself in float64 by
+# tests/test_torch_vocoder_task.py).
+ADAMW_TOL = 4e-4
+ADAMW_STEPS = 20
+VOC_TIMEOUT = 900
+
+
+def with_vocoder_ckpt(cfg_fn, path, **extra):
+    """The project's config.yaml pointing at another vocoder checkpoint."""
+    import yaml
+
+    with open(cfg_fn) as f:
+        cfg = yaml.safe_load(f)
+    with open(cfg_fn, "w") as f:
+        yaml.safe_dump(dict(cfg, vocoder_ckpt=path, **extra), f)
+
+
+@contextlib.contextmanager
+def final_ln_dropped(head):
+    """The iSTFT head ``head`` with its final LayerNorm left out."""
+    from diffsvc_tpu_torch.vocoders import istft_head as ih
+
+    real = ih._ln
+
+    def ln(layer, x):
+        return x.float() if layer is head.final_ln else real(layer, x)
+    ih._ln = ln
+    try:
+        yield
+    finally:
+        ih._ln = real
+
+
+@contextlib.contextmanager
+def last_residual_dropped(gen):
+    """A PWG generator with its last residual layer left out."""
+    layers = gen.conv_layers
+    gen.conv_layers = layers[:-1]
+    try:
+        yield
+    finally:
+        gen.conv_layers = layers
+
+
+def voc_card_vs_cpu(label, run, fault, tol):
+    """``run(card)`` on the CPU (``card`` False) and on the card (numpy
+    outputs), and the card's run under the planted ``fault`` (a context
+    manager): the sound rel-L2 within ``tol``, the fault's above it."""
+    import torch
+
+    ref = torch.from_numpy(run(False))
+    got = torch.from_numpy(run(True))
+    with fault():
+        bad = torch.from_numpy(run(True))
+    res = {"rel_l2": rel_l2(got, ref), "fault_rel_l2": rel_l2(bad, ref),
+           "tol": tol, "max_abs_err": float((got - ref).abs().max())}
+    log(f"[voc] {label} card vs CPU: rel_l2 {res['rel_l2']:.3e} (tol "
+        f"{tol:g}), planted fault {res['fault_rel_l2']:.3e}")
+    if not res["rel_l2"] <= tol < res["fault_rel_l2"]:
+        raise SmokeError(f"{label} card vs CPU: {res}")
+    return res
+
+
+def voc_routes(label, svc, wav_fn, secs, launches, routes):
+    """Each route of ``routes`` ({name: run_clip kwargs}) counted (K2 moving,
+    K3 not: the vocoder is no HiFi-GAN) with its output checked, then timed
+    (RTF, busy share)."""
+    from diffsvc_tpu_torch import infer_cli
+    from diffsvc_tpu_torch.utils.audio_io import load_wav
+
+    src_len = len(load_wav(wav_fn)[0])
+    n_chunks = len(voiced_chunks(wav_fn))
+    out = {}
+
+    def clip(**kw):
+        return infer_cli.run_clip(
+            svc, key=0, acc=ACC, use_pe=False, use_crepe=False, thre=0.05,
+            use_gt_mel=False, add_noise_step=500, file_path=wav_fn,
+            out_path=wav_fn[:-4] + "_voc.wav", **kw)
+
+    for route, kw in routes.items():
+        name = f"{label} {route}"
+        with counted(name, launches, moved=("plms_ladder",),
+                     still=("vocoder_tail",), tag="voc"):
+            _, _, audio = clip(**kw)
+        peak = clip_checks(name, audio, src_len)
+        pools = sum(svc.fused_model(ACC).pool_bytes().values()) \
+            if kw.get("fused") else 0
+        out[route] = dict(route_run(name, secs, n_chunks,
+                                    lambda kw=kw: clip(**kw), pools,
+                                    tag="voc"), peak=peak)
+    return out
+
+
+def phase_voc_istft(device, workdir, inputs, launches):
+    """(a) The iSTFT head at config_44k's geometry (weights written by the
+    port's save_params): the 14 s clip through Svc.infer and the fused
+    graph in bf16 and f32 diffusion and once with voc_compute_dtype
+    bfloat16; the 17 s clip through FusedSvc.batched (B=3) and
+    batched_sharded over two replicas on the card; K2 moving, K3 at 0 on
+    each; the vocoder card vs CPU in f32 and with the bf16 backbone, the
+    final LayerNorm dropped above both limits; Svc.infer_batched refused."""
+    import copy
+
+    import torch
+
+    from diffsvc_tpu_torch.config import set_hparams
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.vocoders import istft_head as ih
+
+    res = {"routes": {}}
+    cfg_fn, ckpt = variant_project(workdir, "istft_proj", ISTFT_OVER,
+                                   inputs["hubert"])
+    npz = os.path.join(workdir, "istft_proj", "istft", "istft_head.npz")
+    cfg = ih.IstftVocoderConfig.from_hparams(set_hparams(
+        config=cfg_fn, exp_name="istft_proj", reset=True,
+        print_hparams=False))
+    synth.write_istft(npz, cfg, seed=7)
+    with_vocoder_ckpt(cfg_fn, npz)
+    secs = CLIPS[-1][0]
+    for dt in ("bfloat16", ""):
+        svc = Svc("istft_proj", cfg_fn, True, ckpt, device=device)
+        if not isinstance(svc.vocoder, ih.IstftVocoder) or cfg != \
+                svc.vocoder.cfg:
+            raise SmokeError(f"the iSTFT project's vocoder: {svc.vocoder}")
+        svc.hp["diff_compute_dtype"] = dt
+        res["routes"][dt or "float32"] = voc_routes(
+            f"istft {dt or 'float32'}", svc, inputs["clip"], secs, launches,
+            {"modular": {}, "fused graph": {"fused": True}})
+    # the backbone in bf16 once (the fused program reads voc_compute_dtype)
+    svc.hp["voc_compute_dtype"] = "bfloat16"
+    svc._fused = None
+    res["routes"]["float32"]["fused graph, bf16 backbone"] = voc_routes(
+        "istft float32, bf16 backbone", svc, inputs["clip"], secs, launches,
+        {"fused graph": {"fused": True}})["fused graph"]
+    svc.hp["voc_compute_dtype"] = ""
+    svc._fused = None
+    # the 17 s clip: batched at B=3 and sharded over two replicas
+    chunks = voiced_chunks(inputs["batch_clip"])
+    fused = svc.fused_model(ACC)
+    geo = fused.geometry(fused._padded_length(max(len(c) for c in chunks)))
+    g = torch.Generator(device=device).manual_seed(6)
+    noise = torch.randn(len(chunks), geo["pad_t"], svc.mel_bins, generator=g,
+                        device=device)
+    outs, walls = {}, {}
+    for route, fn in (("batched", lambda: fused.batched(
+            chunks, init_noise=noise)), ("batched_sharded", lambda: fused.
+            batched_sharded(chunks, [device, device], init_noise=noise))):
+        fn()                                  # captures its buckets
+        with counted(f"istft {route} B={len(chunks)}", launches,
+                     moved=("plms_ladder",), still=("vocoder_tail",),
+                     tag="voc"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            outs[route] = fn()
+            torch.cuda.synchronize()
+            walls[route] = time.time() - t0
+    rels = [rel_l2(torch.from_numpy(a[0]), torch.from_numpy(b[0]))
+            for a, b in zip(outs["batched_sharded"], outs["batched"])]
+    res["batch_clip"] = {"chunks": len(chunks), "wall_s": walls,
+                         "sharded_vs_batched_rel_l2": rels}
+    log(f"[voc] istft 17 s clip: {len(chunks)} chunks, batched "
+        f"{walls['batched']:.4f}s, batched_sharded over 2 replicas "
+        f"{walls['batched_sharded']:.4f}s, sharded vs batched rel_l2 "
+        f"{[f'{r:.2e}' for r in rels]} (tol {BATCHED_TOL:g})")
+    if len(outs["batched_sharded"]) != len(chunks) or \
+            not max(rels) <= BATCHED_TOL:
+        raise SmokeError(f"istft batched_sharded: {res['batch_clip']}")
+    # the vocoder alone, card vs CPU, on one mel and f0 of 200 frames
+    gm = torch.Generator().manual_seed(12)
+    mel = torch.randn(1, 200, cfg.num_mels, generator=gm) * 0.7 - 4.0
+    f0 = 150.0 + 250.0 * torch.rand(1, 200, generator=gm)
+    heads = {False: copy.deepcopy(svc.vocoder.gen).cpu(),
+             True: svc.vocoder.gen}
+
+    def run(card, dtype=None):
+        dev = device if card else "cpu"
+        with torch.no_grad():
+            return ih.apply(heads[card], mel.to(dev), f0.to(dev),
+                            dtype=dtype).cpu().numpy()
+
+    res["cpu_agreement"] = {
+        name: voc_card_vs_cpu(f"istft head {name}",
+                              lambda card, dt=dtype: run(card, dt),
+                              lambda: final_ln_dropped(heads[True]), tol)
+        for name, dtype, tol in (("f32", None, VOC_TOL),
+                                 ("bf16 backbone", torch.bfloat16,
+                                  VOC_TOL_BF16))}
+    res["head_ms"] = cuda_time_ms(lambda: run(True), reps=5)
+    log(f"[voc] istft head on 200 frames: {res['head_ms']:.3f} ms (f32)")
+    try:
+        svc.infer_batched([inputs["clip"]], key=0, acc=ACC, use_pe=False,
+                          use_crepe=False)
+    except ValueError as e:
+        res["infer_batched_refused"] = str(e)
+        log(f"[voc] Svc.infer_batched with the iSTFT head refused: {e}")
+    else:
+        raise SmokeError("Svc.infer_batched ran the iSTFT head")
+    return res
+
+
+def phase_voc_pwg(device, workdir, inputs, launches):
+    """(b) PWG at config_24k's geometry from an official-layout directory
+    (config.yaml, checkpoint-400000steps.pkl with weight-norm keys,
+    stats.npy), ``loud_norm: true``: the 14 s clip at 24 kHz through the
+    modular route and --batch_chunks (K2 moving, K3 at 0); spec2wav card vs
+    CPU on one mel and seed, the last residual layer dropped above the
+    limit; wav2spec with loud_norm card vs CPU; a fused route refused."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.infer.svc import Svc
+    from diffsvc_tpu_torch.ops import mel as mel_ops
+    from diffsvc_tpu_torch.utils import synth
+    from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
+    from diffsvc_tpu_torch.vocoders import hifigan
+
+    res = {}
+    root = os.path.join(workdir, "pwg_proj")
+    cfg_fn, ckpt = synth.write_project(
+        root, {"base_config": [os.path.join(ROOT, "configs",
+                                            "config_24k.yaml")],
+               "vocoder": "network.vocoders.pwg.PWG", "loud_norm": True},
+        VOC24_H)
+    os.makedirs(os.path.join(root, "hubert"), exist_ok=True)
+    os.symlink(inputs["hubert"], os.path.join(root, "hubert",
+                                              "hubert_soft.pt"))
+    pwg_dir = os.path.join(root, "pwg")
+    synth.write_pwg(pwg_dir, PWG_PARAMS, hop_size=128, seed=8)
+    with_vocoder_ckpt(cfg_fn, pwg_dir)
+    secs, f0, gaps = CLIPS[-1]
+    wav_fn = os.path.join(workdir, "clip24_pwg.wav")
+    save_wav(synth.voiced_wav(secs, 24000, f0, gaps, seed=2), wav_fn, 24000)
+    svc = Svc("pwg_proj", cfg_fn, True, ckpt, device=device)
+    if not isinstance(svc.vocoder, hifigan.PWG):
+        raise SmokeError(f"the PWG project's vocoder: {svc.vocoder}")
+    res["routes"] = voc_routes("pwg float32", svc, wav_fn, secs, launches,
+                               {"modular": {}, "batched":
+                                {"batch_chunks": True}})
+    # spec2wav card vs CPU on one mel (300 frames) and seed
+    cpu_voc = hifigan.PWG(svc.hp, device="cpu")
+    mel = (np.random.RandomState(13).randn(300, 80) * 0.7 - 3.0).astype(
+        np.float32)
+    vocs = {False: cpu_voc, True: svc.vocoder}
+    res["cpu_agreement"] = voc_card_vs_cpu(
+        "pwg spec2wav", lambda card: vocs[card].spec2wav(mel, seed=4),
+        lambda: last_residual_dropped(svc.vocoder.impl.gen), VOC_TOL)
+    # spec2wav's wall (host numpy in and out, the noise drawn on the host)
+    res["spec2wav_ms"] = cuda_time_ms(lambda: svc.vocoder.spec2wav(
+        mel, seed=4), reps=3)
+    # wav2spec with loud_norm, card vs CPU
+    wav, _ = load_wav(wav_fn, sr=24000)
+    (w_cpu, m_cpu), (w_dev, m_dev) = (mel_ops.wav2spec(wav, svc.hp, d)
+                                      for d in ("cpu", device))
+    plain = mel_ops.wav2spec(wav, dict(svc.hp, loud_norm=False), "cpu")[1]
+    err = float(np.abs(m_dev - m_cpu).max())
+    res["loud_norm_mel"] = {"max_abs_err": err, "tol": LOUD_MEL_TOL,
+                            "wav_equal": bool(np.array_equal(w_cpu, w_dev)),
+                            "moved_from_plain": float(np.abs(
+                                m_cpu - plain).max())}
+    log(f"[voc] wav2spec with loud_norm (-22 LUFS) card vs CPU: mel max abs "
+        f"err {err:.3e} (tol {LOUD_MEL_TOL:g}), wavs equal "
+        f"{res['loud_norm_mel']['wav_equal']}, the mel moved "
+        f"{res['loud_norm_mel']['moved_from_plain']:.3f} from the plain one")
+    if not (err <= LOUD_MEL_TOL and res["loud_norm_mel"]["wav_equal"]
+            and res["loud_norm_mel"]["moved_from_plain"] > 0.1):
+        raise SmokeError(f"loud_norm wav2spec: {res['loud_norm_mel']}")
+    try:
+        svc.infer_fused(load_wav(wav_fn, sr=24000)[0][:24000], acc=ACC)
+    except ValueError as e:
+        res["fused_refused"] = str(e)
+        log(f"[voc] PWG on the fused route refused: {e}")
+    else:
+        raise SmokeError("the fused route ran PWG")
+    log(f"[voc] pwg spec2wav on 300 frames: {res['spec2wav_ms']:.3f} ms "
+        "(wall, host numpy in and out)")
+    return res
+
+
+def phase_voc_inventory(device):
+    """(c) MelGAN's generator at its defaults (512 channels, scales 8, 8, 2,
+    2), causal and not, its multi-scale discriminator, a PQMF round trip and
+    the cyclic-noise source, each card vs CPU (VOC_TOL)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.vocoders import melgan, pqmf, source
+
+    res = {}
+    g = torch.Generator().manual_seed(14)
+    mel = torch.randn(1, 40, 80, generator=g)
+    wav = torch.randn(2, 8192, generator=g) * 0.3
+
+    def pair(build):
+        torch.manual_seed(15)
+        mod = build()
+        return {"cpu": mod, "card": copy.deepcopy(mod).to(device)}
+
+    def check(label, mods, fn):
+        with torch.no_grad():
+            outs = {d: [o.cpu() for o in fn(mods[d], dev)]
+                    for d, dev in (("cpu", "cpu"), ("card", device))}
+        rels = [rel_l2(a, b) for a, b in zip(outs["card"], outs["cpu"])]
+        res[label] = {"rel_l2": max(rels), "outputs": len(rels),
+                      "tol": VOC_TOL}
+        log(f"[voc] {label} card vs CPU: rel_l2 {max(rels):.3e} over "
+            f"{len(rels)} outputs (tol {VOC_TOL:g})")
+        if not max(rels) <= VOC_TOL:
+            raise SmokeError(f"{label} card vs CPU: {rels}")
+
+    for causal in (False, True):
+        mods = pair(lambda: melgan.MelGANGenerator(melgan.MelGANConfig(
+            use_causal_conv=causal)))
+        check(f"MelGAN generator{' causal' if causal else ''}", mods,
+              lambda m, d: [m(mel.to(d))])
+    mods = pair(melgan.MelGANMultiScaleDiscriminator)
+    check("MelGAN multi-scale discriminator", mods,
+          lambda m, d: [o for scale in m(wav.to(d)) for o in scale])
+    mods = {"cpu": pqmf.PQMF(), "card": pqmf.PQMF(device=device)}
+    t = torch.arange(8192) / 16000.0
+    x = (0.5 * torch.sin(2 * np.pi * 440 * t))[None]
+    check("PQMF analysis + synthesis", mods,
+          lambda m, d: [m.analysis(x.to(d)), m.synthesis(m.analysis(x.to(d)))])
+    rec = mods["card"].synthesis(mods["card"].analysis(x.to(device)))[0].cpu()
+    err = float((x[0] - torch.roll(rec, -2))[100:-100].abs().mean()
+                / x[0, 100:-100].abs().mean())
+    res["pqmf_reconstruction_err"] = err
+    log(f"[voc] PQMF round trip on the card: {err:.4f} of the input at its "
+        "2-sample delay (must be < 0.05)")
+    if not err < 0.05:
+        raise SmokeError(f"PQMF reconstruction {err}")
+    # 1 s at 44.1 kHz: f0 172.27 / 344.53 Hz (phase steps 1/256, 1/128,
+    # exact in f32: both devices' cumsums wrap at the same samples)
+    sr = 44100
+    f0 = torch.cat([torch.stack([torch.full((sr // 2,), sr / 256.0),
+                                 torch.full((sr // 2,), sr / 128.0)]),
+                    torch.zeros(2, sr // 2)], 1)
+    draws = source.draw_cyc_noise(2, f0.shape[1], sr,
+                                  generator=torch.Generator().manual_seed(16))
+    check("cyclic-noise source", {"cpu": None, "card": None},
+          lambda m, d: source.source_module_cyc_noise(
+              f0.to(d), sr, [r.to(d) for r in draws]))
+    return res
+
+
+def voc_family_config(workdir, family) -> dict:
+    """config_44k (phase 5's training config) for GAN training of one
+    vocoder family on phase 5's clips binarized with their waveforms."""
+    voc = {"hifigan": {},
+           "istft": dict(ISTFT_OVER),
+           "pwg": {"vocoder": "network.vocoders.pwg.PWG"}}[family]
+    return dict(train_config(workdir), **voc,
+                binary_data_dir=os.path.join(workdir, "bin_voc"),
+                work_dir=os.path.join(workdir, f"work_voc_{family}"),
+                binarization_args={"shuffle": False, "with_align": True,
+                                   "with_f0": True, "with_hubert": True,
+                                   "with_spk_embed": False,
+                                   "with_wav": True},
+                hubert_path=os.path.join(workdir, "proj", "hubert",
+                                         "hubert_soft.pt"),
+                task_cls="training.task.vocoder.HifiGanTask",
+                max_sentences=VOC_B, vocoder_segment_frames=VOC_SEG,
+                max_updates=VOC_STEPS, val_check_interval=2, log_interval=1)
+
+
+VOC_FAMILIES = ("hifigan", "istft", "pwg")
+
+
+def voc_resume(bundle_fn: str) -> int:
+    """Phase 11's child: for each family of the bundle (the phase starts one
+    child per family, side by side), 3 steps from a fresh work_dir (a
+    checkpoint after step 2), then a run resumed from that step-2
+    checkpoint alone, under ``torch.use_deterministic_algorithms`` (its
+    parent sets ``CUBLAS_WORKSPACE_CONFIG``); prints, per family, whether
+    the two step-3 checkpoints are equal bit for bit."""
+    import shutil
+
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.run import run_task
+
+    with open(bundle_fn) as f:
+        bundle = json.load(f)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    for family, cfg in bundle["configs"].items():
+        a, b = cfg["work_dir"] + "_det", cfg["work_dir"] + "_resumed"
+        ta = run_task(HParams(dict(cfg, work_dir=a)), device=bundle["device"])
+        os.makedirs(b)
+        shutil.copy(os.path.join(a, "model_ckpt_steps_2.ckpt"), b)
+        tb = run_task(HParams(dict(cfg, work_dir=b)), device=bundle["device"])
+        sa, sb = ta.state_dict(), tb.state_dict()
+        same = all(torch.equal(sb["state_dict"][k], v)
+                   for k, v in sa["state_dict"].items())
+        for oa, ob in zip(sa["optimizer_states"], sb["optimizer_states"]):
+            same = same and all(torch.equal(ob["state"][i][k], v)
+                                for i, st in oa["state"].items()
+                                for k, v in st.items())
+        out[family] = {"identical": bool(same),
+                       "resumed_steps": [h["step"] for h in tb.history]}
+    print(json.dumps(out))
+    return 0
+
+
+def adamw_plain(p0, grads, lrs, b1, b2, eps, wd):
+    """optax.adamw's update written out on whole tensors, step by step, in
+    float64."""
+    p = p0.double()
+    m, v = 0.0 * p, 0.0 * p
+    for t, (g, lr) in enumerate(zip(grads, lrs), start=1):
+        g = g.double()
+        m = (1.0 - b1) * g + b1 * m
+        v = (1.0 - b2) * g * g + b2 * v
+        m_hat, v_hat = m / (1.0 - b1 ** t), v / (1.0 - b2 ** t)
+        p = p - lr * (m_hat / (v_hat.sqrt() + eps) + wd * p)
+    return p
+
+
+def adamw_vs_plain(task) -> dict:
+    """The task's AdamW (its class and settings, driven through
+    ``VocoderTask._update``, which sets the rate from the update count) on
+    the card, ADAMW_STEPS steps on fixed random grads over as many values
+    as the generator has parameters, against :func:`adamw_plain` at JAX's
+    settings and optax's schedule lr * 0.999 ** (n / 1000); and with
+    torch's default weight decay as the planted fault."""
+    import torch
+    from torch import nn
+
+    from diffsvc_tpu_torch.training import vocoder_task as vt
+
+    n = sum(p.numel() for p in task.gen.parameters())
+    gen = torch.Generator(device=task.device).manual_seed(5)
+    p0 = torch.randn(n, generator=gen, device=task.device) * 0.1
+    grads = [torch.randn(n, generator=gen, device=task.device) * 1e-3
+             for _ in range(ADAMW_STEPS)]
+    lrs = [task.lr * 0.999 ** (i / 1000) for i in range(ADAMW_STEPS)]
+    cfg = {k: task.opt_g.defaults[k] for k in ("betas", "eps",
+                                                "weight_decay")}
+
+    def port(**over):
+        mod = nn.Module()
+        mod.w = nn.Parameter(p0.clone())
+        opt = type(task.opt_g)([mod.w], lr=task.lr, **dict(cfg, **over))
+        for g in grads:
+            vt.VocoderTask._update(task, opt, mod, (mod.w * g).sum())
+        return mod.w.detach()
+
+    # JAX's settings: optax.adamw(sched, b1=0.8, b2=0.99), eps and weight
+    # decay at optax's defaults
+    ref = adamw_plain(p0, grads, lrs, 0.8, 0.99, 1e-8, 1e-4) - p0.double()
+    res = {"rel_l2": rel_l2(port() - p0, ref),
+           "fault_rel_l2": rel_l2(port(weight_decay=1e-2) - p0, ref),
+           "tol": ADAMW_TOL, "values": n, "steps": ADAMW_STEPS,
+           "settings": cfg}
+    log(f"[voc] the vocoder task's AdamW on the card vs optax's adamw "
+        f"written out, {ADAMW_STEPS} steps on {n} values: rel_l2 "
+        f"{res['rel_l2']:.3e} (tol {ADAMW_TOL:g}); planted fault [weight "
+        f"decay 1e-2: {res['fault_rel_l2']:.3e}]")
+    if not res["rel_l2"] <= ADAMW_TOL < res["fault_rel_l2"]:
+        raise SmokeError(f"the vocoder task's AdamW: {res}")
+    return res
+
+
+def first_update_err(mod, before, lr) -> float:
+    """Each parameter of ``mod`` after one AdamW step against optax's first
+    update on its own grad from ``before`` (weight decay 1e-4, eps 1e-8,
+    the rate at count 0): the largest error beyond 4 f32 ulps of the value,
+    in units of lr."""
+    import torch
+
+    ulp = torch.finfo(torch.float32).eps
+    worst = 0.0
+    for k, p in mod.named_parameters():
+        g, p0 = p.grad.double(), before[k].double()
+        ref = p0 * (1 - lr * 1e-4) - lr * g / (g.abs() + 1e-8)
+        err = (p.detach().double() - ref).abs() - 4 * ulp * ref.abs()
+        worst = max(worst, float(err.max()) / lr)
+    return worst
+
+
+def g_grads_smooth(task, batch, draws, tf32=False):
+    """G's grads of the task's G loss against its current D with every
+    leaky ReLU smooth (:func:`smooth_leaky_relus`), TF32 off, as one float64
+    vector on the CPU; ``tf32``: TF32 on for products and cuDNN (the
+    planted fault)."""
+    import torch
+
+    from diffsvc_tpu_torch.models.nn import true_f32_convs
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(smooth_leaky_relus())
+        if tf32:
+            for flags in (torch.backends.cuda.matmul, torch.backends.cudnn):
+                stack.enter_context(swapped(flags, allow_tf32=True))
+        else:
+            stack.enter_context(true_f32_convs())
+        loss, _ = task.g_loss(task.batch_on_device(batch), draws)
+        grads = torch.autograd.grad(loss, list(task.gen.parameters()))
+    return torch.cat([g.double().cpu().reshape(-1) for g in grads])
+
+
+def gan_step_vs_cpu(device, hp) -> dict:
+    """One hifigan GAN step on the card and on the CPU at B=2 of the crops,
+    the same init and draws, and the planted fault, the card's G grads
+    against the old D; before it, G's grads with smooth leaky ReLUs on each
+    side and on the card with TF32 on (the planted fault)."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.data.dataset import FastSpeechDataset
+    from diffsvc_tpu_torch.models.nn import true_f32_convs
+    from diffsvc_tpu_torch.training.vocoder_task import (VocoderTask,
+                                                         crop_batch)
+
+    hp = HParams(hp)
+    ds = FastSpeechDataset("train", hp)
+    batch = crop_batch([ds._get_item(i) for i in range(2)], hp,
+                       np.random.RandomState(3), VOC_SEG)
+    cpu, card = (VocoderTask(hp, device=d) for d in ("cpu", device))
+    draws = cpu.draw(cpu.batch_on_device(batch),
+                     torch.Generator().manual_seed(4))
+    dev_draws = tuple(x.to(device) for x in draws)
+    twin = {"cpu": g_grads_smooth(cpu, batch, draws),
+            "card": g_grads_smooth(card, batch, dev_draws),
+            "card_tf32": g_grads_smooth(card, batch, dev_draws, tf32=True)}
+    old_d = {k: v.clone() for k, v in card.disc.state_dict().items()}
+    old_g = {k: v.clone() for k, v in card.gen.state_dict().items()}
+    t0 = time.time()
+    m_cpu = cpu.train_step(batch, draws=draws)
+    cpu_s = time.time() - t0
+    m_dev = card.train_step(batch, draws=dev_draws)
+
+    def flat(mod):
+        return torch.cat([p.grad.detach().double().cpu().reshape(-1)
+                          for p in mod.parameters()])
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    res = {"losses": {k: abs(float(m_dev[k]) - float(m_cpu[k]))
+                      / abs(float(m_cpu[k])) for k in ("d_loss", "g_loss")},
+           "d_grad_rel_l2": rel(flat(card.disc), flat(cpu.disc)),
+           "g_grad_rel_l2": rel(flat(card.gen), flat(cpu.gen)),
+           "twin_g_grad_rel_l2": rel(twin["card"], twin["cpu"]),
+           "twin_fault_rel_l2": rel(twin["card_tf32"], twin["cpu"]),
+           "update_err_lr": max(first_update_err(card.gen, old_g, card.lr),
+                                first_update_err(card.disc, old_d, card.lr)),
+           "cpu_step_s": cpu_s}
+    # the fault: G's grads against the D from before the step
+    updated_d = {k: v.clone() for k, v in card.disc.state_dict().items()}
+    card.disc.load_state_dict(old_d)
+    card.gen.load_state_dict(old_g)
+    with true_f32_convs():
+        loss, _ = card.g_loss(card.batch_on_device(batch), dev_draws)
+        grads = torch.autograd.grad(loss, list(card.gen.parameters()))
+    card.disc.load_state_dict(updated_d)
+    res["fault_g_grad_rel_l2"] = rel(
+        torch.cat([g.double().cpu().reshape(-1) for g in grads]),
+        flat(cpu.gen))
+    log(f"[voc] hifigan GAN step card vs CPU (B=2, TF32 off): losses "
+        f"{ {k: f'{v:.2e}' for k, v in res['losses'].items()} } (tol "
+        f"{GAN_LOSS_TOL:g}), D grads rel_l2 {res['d_grad_rel_l2']:.3e} (tol "
+        f"{GAN_GRAD_TOL['d']:g}), G grads {res['g_grad_rel_l2']:.3e} (tol "
+        f"{GAN_GRAD_TOL['g']:g}; planted fault, G against the old D: "
+        f"{res['fault_g_grad_rel_l2']:.3e}); G's grads with smooth leaky "
+        f"ReLUs (at the init) {res['twin_g_grad_rel_l2']:.3e} (tol "
+        f"{GAN_TWIN_TOL:g}; planted fault, TF32 on the card: "
+        f"{res['twin_fault_rel_l2']:.3e}); the card's params against the "
+        f"first adamw update on its own grads within "
+        f"{res['update_err_lr']:.2e} lr (limit {GAN_UPDATE_TOL:g}); the "
+        f"CPU's step {cpu_s:.1f}s")
+    if not (max(res["losses"].values()) <= GAN_LOSS_TOL
+            and res["d_grad_rel_l2"] <= GAN_GRAD_TOL["d"]
+            and res["g_grad_rel_l2"] <= GAN_GRAD_TOL["g"]
+            < res["fault_g_grad_rel_l2"]
+            and res["twin_g_grad_rel_l2"] <= GAN_TWIN_TOL
+            < res["twin_fault_rel_l2"]
+            and res["update_err_lr"] <= GAN_UPDATE_TOL):
+        raise SmokeError(f"hifigan GAN step card vs CPU: {res}")
+    res["adamw"] = adamw_vs_plain(card)
+    return res
+
+
+def phase_voc_train(device, workdir, inputs, launches):
+    """(d) ``train_vocoder`` through ``run_task`` with a vocoder task_cls,
+    for the hifigan (openvpi NSF-HiFiGAN width, MPD + MSD), istft (512 x 8,
+    MPD + MSD) and pwg (its discriminator) families, on phase 5's clips
+    binarized with their waveforms: 3 steps at B=8 of 32-frame crops, the
+    losses finite, ms per step and peak memory, K1-K6 at 0; in a child
+    process under deterministic algorithms, a resume from the step-2
+    checkpoint equal to the uninterrupted step 3 bit for bit; one hifigan
+    step card vs CPU."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+    from diffsvc_tpu_torch.data.binarizer import binarize
+    from diffsvc_tpu_torch.run import run_task
+
+    res = {}
+    cfgs = {}
+    for fam in VOC_FAMILIES:
+        cfg = voc_family_config(workdir, fam)
+        cfg["raw_data_dir"] = inputs["raw"]
+        cfg_fn = os.path.join(workdir, f"voc_{fam}.yaml")
+        with open(cfg_fn, "w") as f:
+            yaml.safe_dump(cfg, f)
+        cfgs[fam] = dict(set_hparams(config=cfg_fn, exp_name=f"voc_{fam}",
+                                     reset=True, print_hparams=False))
+    t0 = time.time()
+    binarize(HParams(cfgs["hifigan"]), device=device)
+    res["binarize_s"] = time.time() - t0
+    lengths = np.load(os.path.join(cfgs["hifigan"]["binary_data_dir"],
+                                   "train_lengths.npy"))
+    log(f"[voc] binarized {TRAIN_CLIPS} clips with their waveforms in "
+        f"{res['binarize_s']:.2f}s ({len(lengths)} train items)")
+    for fam, cfg in cfgs.items():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        label = f"train_vocoder {fam}"
+        with counted(label, launches, moved=(), still=ALL_KERNELS,
+                     tag="voc"):
+            t0 = time.time()
+            task = run_task(HParams(cfg), device=device)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        hist = task.history
+        log(f"[voc] {label}: run_task took {wall:.1f}s")
+        rec = {"steps": task.step, "wall_s": wall,
+               "ms_per_step": [h["seconds_per_step"] * 1e3 for h in hist],
+               "losses": [{k: v for k, v in h.items()
+                           if k not in ("step", "seconds_per_step")}
+                          for h in hist],
+               # the run's own peak, above what earlier phases still hold
+               "peak_gb": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
+               "gen_params_m": sum(p.numel() for p in task.gen.parameters())
+               / 1e6,
+               "disc_params_m": sum(p.numel() for p in task.disc.parameters())
+               / 1e6,
+               "checkpoints": sorted(os.listdir(cfg["work_dir"]))}
+        res[fam] = rec
+        finite = all(np.isfinite(v) for h in rec["losses"]
+                     for v in h.values())
+        log(f"[voc] {label}: {rec['steps']} steps at B={VOC_B} x "
+            f"{VOC_SEG} frames, ms/step "
+            f"{[round(v, 1) for v in rec['ms_per_step']]}, peak "
+            f"{rec['peak_gb']:.2f} GB, G {rec['gen_params_m']:.1f}M / D "
+            f"{rec['disc_params_m']:.1f}M params, last losses "
+            f"{ {k: round(v, 4) for k, v in rec['losses'][-1].items()} }, "
+            f"checkpoints {rec['checkpoints']}")
+        if not finite or rec["steps"] != VOC_STEPS or rec["checkpoints"] != [
+                "model_ckpt_steps_2.ckpt", "model_ckpt_steps_3.ckpt"]:
+            raise SmokeError(f"{label}: {rec}")
+        del task
+    # the resume, bit for bit: one child per family under deterministic
+    # algorithms, side by side, while this process holds a step card vs
+    # CPU (nothing timed runs meanwhile but the CPU's step, printed only)
+    t0 = time.time()
+    procs = {}
+    try:
+        for fam, cfg in cfgs.items():
+            bundle = os.path.join(workdir, f"voc_resume_{fam}.json")
+            with open(bundle, "w") as f:
+                json.dump({"device": str(device), "configs": {fam: cfg}}, f)
+            logs = [open(f"{bundle[:-5]}.{k}", "w+") for k in ("out", "err")]
+            procs[fam] = (subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                 "--vocoder-resume", bundle], stdout=logs[0],
+                stderr=logs[1], text=True,
+                env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")),
+                logs)
+        res["step_vs_cpu"] = gan_step_vs_cpu(device, cfgs["hifigan"])
+        res["step_vs_cpu_s"] = time.time() - t0
+        res["resume"] = {}
+        for fam, (proc, (out, err)) in procs.items():
+            code = proc.wait(timeout=VOC_TIMEOUT)
+            out.seek(0)
+            err.seek(0)
+            if code != 0:
+                raise SmokeError(f"vocoder resume {fam}: exit {code}\n"
+                                 f"{err.read()[-3000:]}")
+            res["resume"].update(json.loads(out.read().strip()
+                                            .splitlines()[-1]))
+    finally:
+        for proc, logs in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            for f in logs:
+                f.close()
+    res["resume_s"] = time.time() - t0
+    log(f"[voc] resume from step 2 vs the uninterrupted step 3 (a child "
+        f"process per family, deterministic algorithms, side by side, "
+        f"{res['resume_s']:.1f}s with the step card vs CPU): "
+        f"{res['resume']}")
+    if not all(r["identical"] and r["resumed_steps"] == [3]
+               for r in res["resume"].values()):
+        raise SmokeError(f"vocoder resume not bit exact: {res['resume']}")
+    return res
+
+
+def phase_voc(device, workdir, project):
+    """Phase 11: the other vocoders and GAN vocoder training (``[voc]``
+    lines), on earlier phases' inputs: phase 4's HuBERT-soft file and 14 s
+    clip, phase 7's 17 s clip, phase 5's raw clips."""
+    t0 = time.time()
+    launches, seconds = {}, {}
+    inputs = {"hubert": os.path.join(os.path.dirname(project["cfg_fn"]),
+                                     "hubert", "hubert_soft.pt"),
+              "clip": project["wavs"][SERVE_CLIP],
+              "batch_clip": os.path.join(workdir, "batch_clip.wav"),
+              "raw": train_config(workdir)["raw_data_dir"]}
+    res = {"launches": launches, "seconds": seconds}
+    for part, fn in (("istft", lambda: phase_voc_istft(device, workdir,
+                                                       inputs, launches)),
+                     ("pwg", lambda: phase_voc_pwg(device, workdir, inputs,
+                                                   launches)),
+                     ("inventory", lambda: phase_voc_inventory(device)),
+                     ("train", lambda: phase_voc_train(device, workdir,
+                                                       inputs, launches))):
+        t = time.time()
+        res[part] = fn()
+        seconds[part] = time.time() - t
+    seconds["total"] = time.time() - t0
+    log(f"[voc] phase 11 took { {k: round(v, 1) for k, v in seconds.items()} }s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4150,6 +5024,10 @@ def main(argv=None) -> int:
                     metavar=("JOB", "BUNDLE"),
                     help="a rank of phase 10 (world1 or world2), started by "
                     "the phase itself")
+    ap.add_argument("--vocoder-resume", default="", metavar="BUNDLE",
+                    help="phase 11's child process: each vocoder family's "
+                    "resume against its uninterrupted run, under "
+                    "deterministic algorithms")
     args = ap.parse_args(argv)
     if not os.path.isdir(os.path.join(ROOT, "diffsvc_tpu_torch")):
         print("chip_smoke: run from a checkout of the repository "
@@ -4168,6 +5046,8 @@ def main(argv=None) -> int:
         return deterministic_step(args.deterministic_step)
     if args.dist_job:
         return dist_job(*args.dist_job)
+    if args.vocoder_resume:
+        return voc_resume(args.vocoder_resume)
     record = {}
     try:
         card = card_line()
@@ -4219,12 +5099,14 @@ def main(argv=None) -> int:
                 record["train2"] = timed("9 train2", phase_train2, device, tmp)
                 record["multi"] = timed("10 multi", phase_multi, device, tmp,
                                         project)
+                record["voc"] = timed("11 voc", phase_voc, device, tmp,
+                                     project)
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-10: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-11: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -4240,7 +5122,8 @@ def main(argv=None) -> int:
     # the 24 kHz profile); launches_train2: phase 9's parts (RAdam's
     # run_task, the trained pe's conversion, --infer); launches_multi:
     # phase 10's parts (each rank of the training runs in its own process
-    # and counts its own launches)
+    # and counts its own launches); launches_voc: phase 11's routes and GAN
+    # training runs
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -4277,6 +5160,9 @@ def main(argv=None) -> int:
                         "launches_multi": {
                             part: counts[name] for part, counts in
                             record["multi"]["launches"].items()},
+                        "launches_voc": {
+                            part: counts[name] for part, counts in
+                            record["voc"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -15,7 +15,12 @@ sampling through ``GaussianDiffusion.infer`` (K2, with K1 inside; at
 ``acc <= 1`` DDPM, one K1 call per step) and the vocoder through
 ``generator.apply_serving`` (K3), fed ln-mel for NSF-HiFiGAN and the
 log10-mel as it is for HiFi-GAN (``diffsvc_tpu/infer/fused.py:146-190,
-263``).  Like the JAX program it runs no pe.
+263``), or the iSTFT head (``vocoders/istft_head.apply``, no kernel) on the
+NSF mel's geometry and the log10-mel as it is, its backbone in bf16 with
+``voc_compute_dtype: bfloat16`` (``:134-147``, ``:272-276``).  Like the
+JAX program it runs no pe.  PWG is refused: the JAX program reads the
+vocoder's ``params`` and ``cfg`` (``:117``, ``:142``), which its PWG
+wrapper lacks, so no fused route runs it.
 
 On the card each (length, batch size, ``use_gt_mel``, ``add_noise_step``,
 input wire dtype) is captured once as a CUDA graph, the counterpart of
@@ -47,6 +52,7 @@ from ..ops import mel as mel_ops
 from ..ops.hopper import diffnet_stack, plms_ladder, vocoder_tail
 from ..ops.resample import resample_poly_device
 from ..vocoders import generator as gen_mod
+from ..vocoders import istft_head
 
 # the kernels' launch counters: (module, counter names)
 COUNTERS = ((diffnet_stack, ("launches", "launches_tc", "launches_tf32x3")),
@@ -192,8 +198,8 @@ class FusedSvc:
                  cuda_graphs: bool = True):
         """:param model: a loaded ``GaussianDiffusion``; its weights are
             shared, and the device is theirs
-        :param vocoder: the NSF-HiFiGAN or HiFi-GAN wrapper (``.gen``,
-            ``.cfg``)
+        :param vocoder: the NSF-HiFiGAN, HiFi-GAN or iSTFT-head wrapper
+            (``.gen``, ``.cfg``)
         :param hubert: the ``HubertSoft`` (or ``ContentVec``) module
         :param cuda_graphs: capture each bucket on the card (False runs the
             same body eagerly there: the comparison of the two)"""
@@ -203,7 +209,17 @@ class FusedSvc:
         self.hp = type(hp)(hp)
         if compute_dtype:
             self.hp["diff_compute_dtype"] = compute_dtype
-        self.is_nsf = "nsf" in str(self.hp.get("vocoder", "")).lower()
+        voc_name = str(self.hp.get("vocoder", "")).lower()
+        self.is_nsf = "nsf" in voc_name
+        # the iSTFT head is served on the NSF mel's geometry, fed the
+        # log10-mel as it is
+        self.is_istft = "istft" in voc_name
+        if not hasattr(vocoder, "gen"):
+            raise ValueError(
+                f"the fused program cannot run the {type(vocoder).__name__} "
+                "vocoder (the JAX package's fused program reads a "
+                "generator's params and cfg, which its PWG wrapper lacks); "
+                "convert with Svc.infer or infer_batched")
         if hubert is None:
             raise FileNotFoundError("the fused program needs the HuBERT-soft "
                                     "checkpoint (hubert_path)")
@@ -228,12 +244,14 @@ class FusedSvc:
         """Static sizes of the program for ``n44`` input samples."""
         hp = self.hp
         hop, nfft = int(hp["hop_size"]), int(hp["fft_size"])
-        if self.is_nsf:
+        if self.is_nsf or self.is_istft:
             t_mel = 1 + (n44 + 2 * ((nfft - hop) // 2) - nfft) // hop
         else:
             t_mel = 1 + n44 // hop
+        cfg = self.vocoder.cfg
+        up = cfg.hop if self.is_istft else int(np.prod(cfg.upsample_rates))
         return dict(t_mel=t_mel, pad_t=-(-t_mel // 128) * 128,
-                    n_voc=t_mel * int(np.prod(self.vocoder.cfg.upsample_rates)))
+                    n_voc=t_mel * up)
 
     def ddpm_steps(self, use_gt_mel: bool = False,
                    add_noise_step: int = 500) -> int:
@@ -263,6 +281,8 @@ class FusedSvc:
                    win_length=int(hp["win_size"]), n_mels=nmel,
                    fmin=float(hp["fmin"]), fmax=float(hp["fmax"]))
         voc_scale = mel_ops.LN_10 if self.is_nsf else 1.0
+        voc_dtype = torch.bfloat16 if str(hp.get(
+            "voc_compute_dtype", "")) in ("bf16", "bfloat16") else None
 
         @torch.no_grad()
         def program(wav, key_shift, spk, noise, rand_ini, unit_noise,
@@ -271,7 +291,7 @@ class FusedSvc:
                 # as to_float on the host, so both wires agree bit for bit
                 wav = wav.float() / 32767.0
             wav16 = resample_poly_device(wav, sr, 16000)
-            if self.is_nsf:
+            if self.is_nsf or self.is_istft:
                 mel = mel_ops.wav2mel_nsf(wav, **geo)
             else:
                 mel = mel_ops.wav2mel_pwg(
@@ -316,8 +336,13 @@ class FusedSvc:
             # the vocoder's f0 is the conditioner's (key-shifted) one, as the
             # reference's use_pe=False path
             f0_voc = out["f0_denorm"][:, :t_mel]
-            wav_out = gen_mod.apply_serving(gen, mel_pred * voc_scale,
-                                            f0_voc, (rand_ini, unit_noise))
+            if self.is_istft:
+                wav_out = istft_head.apply(
+                    gen, mel_pred, f0_voc if gen.cfg.use_f0 else None,
+                    dtype=voc_dtype)
+            else:
+                wav_out = gen_mod.apply_serving(gen, mel_pred * voc_scale,
+                                                f0_voc, (rand_ini, unit_noise))
             if out_int16:
                 wav_out = torch.round(torch.clamp(wav_out, -1.0, 1.0)
                                       * 32767.0).to(torch.int16)
@@ -363,7 +388,12 @@ class FusedSvc:
         if init_noise is None:
             init_noise = torch.randn((b, g["pad_t"], self.model.mel_bins),
                                      generator=generator, device=dev)
-        if voc_randoms is None:
+        if voc_randoms is None and self.is_istft:
+            # the iSTFT head draws nothing: empty stand-ins keep the
+            # program's inputs
+            voc_randoms = (torch.zeros((b, 0), device=dev),
+                           torch.zeros((b, 0, 0), device=dev))
+        elif voc_randoms is None:
             voc_randoms = gen_mod.draw_randoms(
                 b, g["n_voc"], self.vocoder.cfg.harmonic_num, generator, dev)
         draws = [init_noise, *voc_randoms]

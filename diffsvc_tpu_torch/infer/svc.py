@@ -221,11 +221,7 @@ class Svc:
         print(f"executing 'diff_infer' costed {self.timings['diffusion']:.3f}s")
 
         batch["outputs"] = mel_out
-        batch["f0_gt"] = denorm_f0(
-            batch["f0"], batch["uv"], pitch_norm=self.hp.get("pitch_norm", "log"),
-            use_uv=self.hp.get("use_uv", False),
-            f0_mean=float(self.hp.get("f0_mean", 0.0) or 0.0),
-            f0_std=float(self.hp.get("f0_std", 1.0) or 1.0))
+        batch["f0_gt"] = self._f0_gt(batch)
         f0_pred = outputs["f0_denorm"]
         if use_pe and self.pe is not None:
             t0 = time.time()
@@ -247,8 +243,22 @@ class Svc:
         ``init_noise`` (one [T, M] array per input, T its padded mel length)
         and ``voc_randoms`` (one (rand_ini [H+1], unit_noise [H+1, T*hop])
         pair per input) replace the draws from ``seed``.  With ``use_pe``
-        and pe loaded, the vocoder's f0 is pe's on the group's mel."""
+        and pe loaded, the vocoder's f0 is pe's on the group's mel.
+
+        PWG vocodes each input's mel through its ``spec2wav`` (noise from
+        ``seed``), as the JAX package does for a wrapper without generator
+        weights.  The iSTFT head is refused: the JAX package's
+        ``infer_batched`` takes any wrapper with ``params`` and ``cfg`` for
+        a HiFi-GAN generator and fails on it
+        (``diffsvc_tpu/infer/svc.py:263-290``)."""
         hp, dev = self.hp, self.device
+        if "istft" in str(hp.get("vocoder", "")).lower():
+            raise ValueError(
+                "infer_batched does not take the iSTFT-head vocoder (the JAX "
+                "package's infer_batched runs it as a HiFi-GAN generator and "
+                "fails); convert with infer, infer_fused or "
+                "infer_fused_batched")
+        per_chunk = not hasattr(self.vocoder, "gen")
         is_nsf = "nsf" in str(hp.get("vocoder", "")).lower()
         samples = []
         for in_path in inputs:
@@ -261,7 +271,6 @@ class Svc:
             groups.setdefault((b1["mels"].shape[1], b1["hubert"].shape[1]),
                               []).append(i)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
-        cfg = self.vocoder.cfg
         results = [None] * len(samples)
         for idxs in groups.values():
             stack = {k: np.concatenate([samples[i][k] for i in idxs])
@@ -280,6 +289,15 @@ class Svc:
             f0_pred_all = out["f0_denorm"]
             if use_pe and self.pe is not None:
                 f0_pred_all = self.pe(mel_out)["f0_denorm_pred"]
+            if per_chunk:
+                f0_gt_all = self._f0_gt(stack)
+                for j, i in enumerate(idxs):
+                    results[i] = self.after_infer(
+                        {"mels": stack["mels"][j],
+                         "outputs": mel_out[j].cpu().numpy(),
+                         "f0_gt": f0_gt_all[j],
+                         "f0_pred": f0_pred_all[j].cpu().numpy()}, seed=seed)
+                continue
             # collate-padding frames are exact-0 mel: as log-mel that is
             # loud broadband energy that would bleed into the kept frames
             # through the generator's receptive field, so floor them to the
@@ -290,6 +308,7 @@ class Svc:
                                                         hp["mel_vmin"]),
                                    mel_clip)
             b, t_mel = mel_out.shape[:2]
+            cfg = self.vocoder.cfg
             n_voc = t_mel * int(np.prod(cfg.upsample_rates))
             if voc_randoms is None:
                 randoms = gen_mod.draw_randoms(b, n_voc, cfg.harmonic_num,
@@ -303,11 +322,7 @@ class Svc:
                 f0_pred_all if hp.get("use_nsf") else None, randoms)
             mel_out, wavs = mel_out.cpu().numpy(), wavs.cpu().numpy()
             f0_pred_all = f0_pred_all.cpu().numpy()
-            f0_gt_all = denorm_f0(
-                stack["f0"], stack["uv"], pitch_norm=hp.get("pitch_norm", "log"),
-                use_uv=hp.get("use_uv", False),
-                f0_mean=float(hp.get("f0_mean", 0.0) or 0.0),
-                f0_std=float(hp.get("f0_std", 1.0) or 1.0))
+            f0_gt_all = self._f0_gt(stack)
             hop_up = wavs.shape[1] // t_mel
             for j, i in enumerate(idxs):
                 # real frames are a prefix: the padding is trailing
@@ -315,6 +330,15 @@ class Svc:
                 results[i] = (f0_gt_all[j][mask], f0_pred_all[j][mask],
                               wavs[j][: int(mask.sum()) * hop_up])
         return results
+
+    def _f0_gt(self, batch) -> np.ndarray:
+        """The conditioner's f0 in Hz from a batch's normalized f0 and uv."""
+        hp = self.hp
+        return denorm_f0(
+            batch["f0"], batch["uv"], pitch_norm=hp.get("pitch_norm", "log"),
+            use_uv=hp.get("use_uv", False),
+            f0_mean=float(hp.get("f0_mean", 0.0) or 0.0),
+            f0_std=float(hp.get("f0_std", 1.0) or 1.0))
 
     def after_infer(self, prediction, singer=False, in_path="", seed=0,
                     voc_randoms=None):

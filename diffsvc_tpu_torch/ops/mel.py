@@ -12,8 +12,9 @@ Counterpart of ``diffsvc_tpu/ops/mel.py`` (``wav2mel_nsf``,
   zero padding, ``|STFT|``, Slaney mel, ``log10(max(eps, mel))``.
 
 Runs on the wav tensor's device (window and filterbank uploaded once per
-device), over leading batch dimensions.  ``loud_norm`` (the reference's
-BS.1770 normalization before the pwg mel) is not ported.
+device), over leading batch dimensions.  ``loud_norm`` normalizes the wav
+to -22 LUFS (BS.1770, ``ops/loudness.py``, on the host) before the pwg
+mel, as the reference's ``process_utterance`` does.
 """
 
 from __future__ import annotations
@@ -108,19 +109,29 @@ def _basis_support(basis: np.ndarray):
 
 
 def stft_mag(y: torch.Tensor, n_fft: int, hop: int, win_length: int,
-             mag_eps: float = 0.0, bin_lo: int = 0,
-             bin_hi: int = -1) -> torch.Tensor:
-    """Magnitude STFT [..., n_frames, bin_hi-bin_lo] of an already padded
-    signal [..., n] (no centering); a win_length window is zero-padded
-    centered in the n_fft frame."""
+             mag_eps: float = 0.0, bin_lo: int = 0, bin_hi: int = -1,
+             center: bool = False, pad_mode: str = "constant",
+             power_floor: float = 0.0) -> torch.Tensor:
+    """Magnitude STFT [..., n_frames, bin_hi-bin_lo] of a signal [..., n];
+    a win_length window is zero-padded centered in the n_fft frame.
+    ``center`` pads n_fft//2 on both sides first (``pad_mode`` "constant"
+    or "reflect"); by default the signal is taken as already padded.
+    ``mag_eps`` adds to the power before the root, ``power_floor`` clamps
+    it from below (parallel_wavegan's STFT loss)."""
     if bin_hi < 0:
         bin_hi = n_fft // 2 + 1
+    if center:
+        lead = y.shape[:-1]
+        y = F.pad(y.reshape(-1, 1, y.shape[-1]), (n_fft // 2, n_fft // 2),
+                  mode=pad_mode).reshape(*lead, -1)
     frames = y.unfold(-1, n_fft, hop) * hann_window_on(win_length, y.device,
                                                        n_fft)
     spec = torch.fft.rfft(frames, n=n_fft, dim=-1)[..., bin_lo:bin_hi]
     power = spec.real ** 2 + spec.imag ** 2
     if mag_eps > 0:
         return torch.sqrt(power + mag_eps)
+    if power_floor > 0:
+        return torch.sqrt(torch.clamp(power, min=power_floor))
     return torch.sqrt(power)
 
 
@@ -189,10 +200,14 @@ def wav2spec(wav: np.ndarray, hp, device="cpu") -> tuple:
     if "nsf" in str(hp.get("vocoder", "")).lower():
         return wav, wav2mel_nsf(x, **geo).cpu().numpy()
     if hp.get("loud_norm"):
-        raise NotImplementedError(
-            "loud_norm (BS.1770 loudness normalization before the pwg mel) "
-            "is not ported; it comes with the PWG vocoder (ROADMAP Queue 1 "
-            "#7)")
+        # the reference's process_utterance loud_norm: -22 LUFS, then the
+        # peak brought to 1 when above (data_gen_utils.py:117-122)
+        from .loudness import normalize_loudness
+
+        wav = normalize_loudness(wav, hp["audio_sample_rate"], -22.0)
+        if len(wav) and np.abs(wav).max() > 1.0:
+            wav = wav / np.abs(wav).max()
+        x = torch.from_numpy(wav).to(device)
     mel = wav2mel_pwg(x, eps=float(hp.get("wav2spec_eps", 1e-6)), **geo)
     mel = mel.cpu().numpy()
     l_pad, r_pad = librosa_pad_lr(len(wav), hp["fft_size"], hp["hop_size"])

@@ -58,17 +58,21 @@ def maybe_initialize_distributed(hp=None, device=None,
     world size come from that environment; ``init_method`` defaults to
     ``env://`` (``MASTER_ADDR``/``MASTER_PORT``).  The backend is
     :func:`backend_for` the rank's device (``cuda:LOCAL_RANK`` unless
-    ``device`` names a card or the CPU).  A second call does nothing; unconfigured, the
-    process stays single.  Returns True when more than one rank runs."""
+    ``device`` names a card or the CPU; with no card only an explicit CPU
+    device starts a group, as ``infer.svc.default_device`` decides).  A
+    second call does nothing; unconfigured, the process stays single.
+    Returns True when more than one rank runs."""
     if is_initialized():
         return world_size() > 1
     want = bool(hp.get("distributed")) if hp else False
     want = want or all(os.environ.get(k) for k in _ENV)
     if not want:
         return False
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    # the card unless the caller asks for the CPU, as every entry point:
+    # no card and no device asked for raises before any group starts
+    from ..infer.svc import default_device
+
+    device = default_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", local_rank())
     backend = backend_for(device, hp)

@@ -16,7 +16,10 @@ or ``distributed: true`` with ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
 ``WORLD_SIZE`` set (``parallel/dist.py``: nccl, or ``dist_backend: gloo``).
 ``--validate`` runs one validation pass on the latest checkpoint;
 ``--infer`` renders the test split from it (``training/test_runner.py``);
-both on rank 0 alone.  Vocoder training is not ported.
+both on rank 0 alone.  A vocoder ``task_cls`` (e.g.
+``training.task.vocoder.HifiGanTask``) trains the config's vocoder family
+adversarially (``training/vocoder_task.train_vocoder``: hifigan, istft or
+pwg) on one device.
 """
 
 import argparse
@@ -63,13 +66,20 @@ def run_infer(trainer: Trainer) -> str:
     return run_test(hp, trainer.task, vocoder, global_step=step)
 
 
-def run_task(hp, device=None) -> Trainer:
+def run_task(hp, device=None):
     """Train (or ``validate``, or ``infer``) on ``device``, by default the
     card; under torchrun (or ``distributed: true``) one rank of
-    data-parallel training."""
+    data-parallel training.  Returns the Trainer, or for a vocoder
+    ``task_cls`` the trained ``VocoderTask``."""
     if not hp.get("task_cls", ""):
         raise ValueError("config must define task_cls")
     dist.maybe_initialize_distributed(hp, device=device)
+    if "vocoder" in str(hp["task_cls"]).lower():
+        # adversarial vocoder training has its own loop (crops of raw
+        # waveforms, D then G steps), as in the JAX package's run.py
+        from .training.vocoder_task import train_vocoder
+
+        return train_vocoder(hp, device=device)
     # --infer logs nothing: no TensorBoard writer (nor its vocoder)
     trainer = Trainer(hp, device=device,
                       log_writer=False if hp.get("infer") else None)

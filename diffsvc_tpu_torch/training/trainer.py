@@ -60,11 +60,14 @@ def vocoder_weights_available(hp) -> bool:
 def resolve_task_cls(name: str):
     """The task of a reference ``task_cls`` string, as
     ``diffsvc_tpu/training/trainer.py:58-63``: the pe task for a
-    ``...PitchExtractionTask``, SVCTask otherwise.  Vocoder training is not
-    ported."""
+    ``...PitchExtractionTask``, the GAN vocoder task for a vocoder one
+    (trained by ``vocoder_task.train_vocoder``, which ``run_task`` routes
+    it to, as the JAX package's ``run.py:17-23`` does), SVCTask
+    otherwise."""
     if "vocoder" in name.lower():
-        raise NotImplementedError(f"task_cls {name} is not ported to torch "
-                                  "(SVCTask and PitchExtractionTask are)")
+        from .vocoder_task import VocoderTask
+
+        return VocoderTask
     if "pe" in name.lower() and "PitchExtraction" in name:
         from .pe_task import PitchExtractionTask
 
@@ -78,8 +81,12 @@ class Trainer:
         self.work_dir = hp["work_dir"]
         os.makedirs(self.work_dir, exist_ok=True)
         save_hparams(hp, self.work_dir)
-        self.task = resolve_task_cls(str(hp.get("task_cls", "")))(
-            hp, device=device)
+        task_cls = resolve_task_cls(str(hp.get("task_cls", "")))
+        if task_cls.__name__ == "VocoderTask":
+            raise ValueError(f"task_cls {hp['task_cls']} trains through "
+                             "run_task (training.vocoder_task."
+                             "train_vocoder), not the Trainer")
+        self.task = task_cls(hp, device=device)
         self.world = dist.world_size()
         self.is_rank0 = dist.rank() == 0
         self.global_step = 0

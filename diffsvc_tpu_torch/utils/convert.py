@@ -8,7 +8,11 @@
 - :func:`jax_to_torch` turns the JAX package's parameter pytrees (numpy
   arrays) into the port's state dicts, inverting the layouts of
   ``convert_torch.py``: Conv1d HIO [k, in, out] -> [out, in, k]; ConvT
-  [k, out, in] -> [in, out, k]; Linear [in, out] -> [out, in].
+  [k, out, in] -> [in, out, k]; Linear [in, out] -> [out, in].  The
+  vocoder families' converters (the iSTFT head, MelGAN and its
+  discriminators, HiFi-GAN's MPD and MSD with their weight-norm ``v``/``g``
+  and spectral-norm ``w_bar`` leaves, PQMF's filters) are here too; PWG
+  needs none, its modules keep the official layout.
 """
 
 from __future__ import annotations
@@ -226,3 +230,94 @@ def jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
     if "feature_extractor" in params:
         return hubert_jax_to_torch(params)
     raise ValueError(f"unrecognized parameter tree with keys {sorted(params)}")
+
+
+# ---------------------------------------------------------------------------
+# The vocoder families
+# ---------------------------------------------------------------------------
+
+def istft_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """iSTFT-head JAX params (``istft_head.init``'s tree) -> IstftHead
+    state dict."""
+    sd = {}
+    _conv(sd, "stem", params["stem"])
+    _layer_norm(sd, "stem_ln", params["stem_ln"])
+    _layer_norm(sd, "final_ln", params["final_ln"])
+    _linear(sd, "head", params["head"])
+    for i, blk in enumerate(params["blocks"]):
+        _conv(sd, f"blocks.{i}.conv", blk["conv"])
+        _layer_norm(sd, f"blocks.{i}.ln", blk["ln"])
+        _linear(sd, f"blocks.{i}.mlp1", blk["mlp1"])
+        _linear(sd, f"blocks.{i}.mlp2", blk["mlp2"])
+        sd[f"blocks.{i}.gamma"] = _t(blk["gamma"])
+    if "f0_embed" in params:
+        sd["f0_embed.weight"] = _t(params["f0_embed"])
+    return sd
+
+
+def melgan_jax_to_torch(params: Dict) -> Dict[str, torch.Tensor]:
+    """MelGAN generator JAX params -> MelGANGenerator state dict."""
+    sd = {}
+    _conv(sd, "conv_in", params["conv_in"])
+    _conv(sd, "conv_out", params["conv_out"])
+    for i, up in enumerate(params["ups"]):
+        _conv(sd, f"ups.{i}", up)
+        for j, blk in enumerate(params["blocks"][i]):
+            for name in ("c1", "c2", "skip"):
+                _conv(sd, f"blocks.{i}.{j}.{name}", blk[name])
+    return sd
+
+
+def melgan_discriminator_jax_to_torch(params, prefix: str = ""
+                                      ) -> Dict[str, torch.Tensor]:
+    """MelGAN discriminator JAX params (one conv per layer) ->
+    MelGANDiscriminator state dict: the first conv at ``layers.0.1``, the
+    middle ones at ``layers.{i}.0``, the last at ``layers.{n-1}``.  A list
+    of such lists (the multi-scale discriminator) goes under
+    ``discriminators.{i}.``."""
+    if isinstance(params[0], (list, tuple)):
+        sd = {}
+        for i, p in enumerate(params):
+            sd.update(melgan_discriminator_jax_to_torch(
+                p, f"{prefix}discriminators.{i}."))
+        return sd
+    sd = {}
+    last = len(params) - 1
+    for i, p in enumerate(params):
+        name = {0: "layers.0.1", last: f"layers.{last}"}.get(
+            i, f"layers.{i}.0")
+        _conv(sd, prefix + name, p)
+    return sd
+
+
+def _reparam_conv(sd, name, p):
+    """A discriminator conv in the parameterization its leaves name:
+    weight norm (``v``, ``g``), spectral norm (``w_bar``) or plain."""
+    if "v" in p:
+        sd[f"{name}.weight_v"] = _t(np.asarray(p["v"]).transpose(2, 1, 0))
+        sd[f"{name}.weight_g"] = _t(p["g"])
+    elif "w_bar" in p:
+        sd[f"{name}.weight_bar"] = _t(
+            np.asarray(p["w_bar"]).transpose(2, 1, 0))
+    else:
+        sd[f"{name}.weight"] = _t(np.asarray(p["w"]).transpose(2, 1, 0))
+    sd[f"{name}.bias"] = _t(p["b"])
+
+
+def hifigan_discriminator_jax_to_torch(params: list
+                                       ) -> Dict[str, torch.Tensor]:
+    """MPD (``init_mpd``) or MSD (``init_msd``) JAX params -> the
+    MultiPeriodDiscriminator / MultiScaleDiscriminator state dict."""
+    sd = {}
+    for i, d in enumerate(params):
+        for j, c in enumerate(d["convs"]):
+            _reparam_conv(sd, f"discriminators.{i}.convs.{j}", c)
+        _reparam_conv(sd, f"discriminators.{i}.conv_post", d["conv_post"])
+    return sd
+
+
+def pqmf_jax_to_torch(pqmf) -> Dict[str, torch.Tensor]:
+    """A JAX ``PQMF``'s filters (``h_analysis`` / ``h_synthesis`` [S, K])
+    -> the PQMF module's buffers."""
+    return {"analysis_filter": _t(pqmf.h_analysis)[:, None, :],
+            "synthesis_filter": _t(pqmf.h_synthesis)[None]}

@@ -120,6 +120,51 @@ def write_hifigan(dirpath: str, voc_h: dict, use_nsf: bool = True,
     return gen
 
 
+def write_pwg(dirpath: str, generator_params: dict, hop_size: int,
+              seed: int = 0):
+    """An official ParallelWaveGAN directory: ``config.yaml``
+    (``generator_params``, ``hop_size``), ``checkpoint-400000steps.pkl``
+    ({"model": {"generator": state dict}}, every conv weight-normed) and
+    ``stats.npy`` (the StandardScaler's [mean; scale], mean 0.3 N and scale
+    0.5 + U(0, 1) per mel bin).  Returns the generator (its weights
+    folded)."""
+    from ..vocoders.pwg import ParallelWaveGANGenerator, PWGConfig
+
+    cfg = PWGConfig.from_dict(generator_params)
+    gen = ParallelWaveGANGenerator(cfg)
+    randomize(gen, seed)
+    convs = [n for n, m in gen.named_modules()
+             if isinstance(m, torch.nn.Conv1d)]
+    os.makedirs(dirpath, exist_ok=True)
+    torch.save({"model": {"generator": _weight_norm(gen.state_dict(),
+                                                    convs)},
+                "steps": 400000},
+               os.path.join(dirpath, "checkpoint-400000steps.pkl"))
+    with open(os.path.join(dirpath, "config.yaml"), "w") as f:
+        yaml.safe_dump({"generator_params": dict(generator_params),
+                        "hop_size": int(hop_size)}, f)
+    rng = np.random.RandomState(seed)
+    m = cfg.aux_channels
+    np.save(os.path.join(dirpath, "stats.npy"), np.stack(
+        [0.3 * rng.randn(m), 0.5 + rng.rand(m)]).astype(np.float32))
+    return gen
+
+
+def write_istft(path: str, cfg, seed: int = 0):
+    """The iSTFT head's ``.npz`` (``istft_head.save_params``) with torch's
+    default init drawn from ``seed`` and its norms off (1, 0)
+    (:func:`randomize_norms`).  Returns the module."""
+    from ..vocoders.istft_head import IstftHead, save_params
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        head = IstftHead(cfg)
+    randomize_norms(head, seed)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    save_params(path, head)
+    return head
+
+
 def write_pe(path: str, hp, seed: int = 0) -> PitchExtractor:
     """A reference pe checkpoint (``{"state_dict": {"model.<name>": ...}}``,
     modules/fastspeech/pe.py's names) at ``hp``'s widths."""

@@ -19,15 +19,16 @@ def register_vocoder(cls):
 
 
 def get_vocoder_cls(hp):
-    from . import hifigan, nsf_hifigan  # noqa: F401  (register the classes)
+    # register the classes
+    from . import hifigan, istft_head, nsf_hifigan  # noqa: F401
 
     name = str(hp["vocoder"])
     short = name.split(".")[-1]
     for key in (name, short, short.replace("_", "").lower()):
         if key in VOCODERS:
             return VOCODERS[key]
-    raise NotImplementedError(f"vocoder {name!r} is not ported to torch yet "
-                              f"(available: {sorted(set(VOCODERS))})")
+    raise KeyError(f"no vocoder {name!r} (available: "
+                   f"{sorted(set(VOCODERS))})")
 
 
 class BaseVocoder:

@@ -10,7 +10,9 @@ apply_serving` (K3 on a CUDA device), with the NSF source when ``use_nsf``
 is set in hp and an f0 is given; ``vocoder_denoise_c > 0`` runs
 :func:`vocoder_utils.denoise` on the result.  Its ``wav2spec`` is the pwg
 mel (``ops/mel.wav2spec``).  :func:`bucket_mel_f0` is shared with the
-NSF-HiFiGAN wrapper.
+NSF-HiFiGAN wrapper.  ``PWG`` is the ParallelWaveGAN slot
+(``diffsvc_tpu/vocoders/hifigan.py:121-134``): the same ``wav2spec``, the
+generator of ``vocoders/pwg.py``.
 """
 
 from __future__ import annotations
@@ -132,3 +134,20 @@ class HifiGAN(BaseVocoder):
         else:
             wav = np.asarray(inp_path, np.float32)
         return mel_ops.wav2spec(wav, hp, device)
+
+
+@register_vocoder
+class PWG(HifiGAN):
+    """ParallelWaveGAN slot: HifiGAN's (pwg) ``wav2spec``, with
+    ``loud_norm`` where the config sets it; ``spec2wav`` through
+    :class:`pwg.PWGGenerator` (its noise from ``seed``)."""
+
+    def __init__(self, hp, device="cpu"):
+        from .pwg import PWGGenerator
+
+        self.hp = hp
+        self.device = torch.device(device)
+        self.impl = PWGGenerator(hp, self.device)
+
+    def spec2wav(self, mel, f0=None, seed: int = 0, randoms=None):
+        return self.impl.spec2wav(mel, f0=f0, seed=seed)

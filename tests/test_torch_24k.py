@@ -82,8 +82,13 @@ def test_wav2mel_pwg_and_wav2spec_match_jax(n):
     np.testing.assert_allclose(t_mel, j_mel, atol=1e-4)
     assert tmel.librosa_pad_lr(n, 512, HOP, 2) == jmel.librosa_pad_lr(
         n, 512, HOP, 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-        tmel.wav2spec(wav, dict(HP24, loud_norm=True))
+    # loud_norm: -22 LUFS (the copied BS.1770 meter) before the pwg mel
+    t_wav, t_mel = tmel.wav2spec(wav, dict(HP24, loud_norm=True))
+    j_wav, j_mel = jmel.wav2spec(wav, dict(HP24, loud_norm=True))
+    np.testing.assert_array_equal(t_wav, j_wav)
+    np.testing.assert_allclose(t_mel, j_mel, atol=1e-4)
+    # the tone reads -13.7 LUFS: brought down to -22
+    assert np.abs(t_wav).max() < 0.5 * np.abs(wav).max()
 
 
 def test_wav2spec_for_bucketed_matches_jax(tmp_path):

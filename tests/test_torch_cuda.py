@@ -820,3 +820,68 @@ def test_batched_sharded_on_the_card(cuda, tmp_path, monkeypatch):
         assert len(a) == len(b)
         assert _rel(torch.from_numpy(a), torch.from_numpy(b)) <= 1e-5
         assert _rel(torch.from_numpy(am), torch.from_numpy(bm)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 1e-4), (torch.bfloat16, 3e-2)])
+def test_istft_head_card_matches_cpu(cuda, dtype, tol):
+    """The iSTFT head (config_44k's geometry at 128 x 2 layers) on the card
+    against the CPU on one mel and f0: f32 with TF32 off within 1e-4
+    relative L2 (cuFFT's and the host FFT's sums), the bf16 backbone
+    within 3e-2; no kernel of the port moves."""
+    from diffsvc_tpu_torch.ops.hopper import vocoder_tail
+    from diffsvc_tpu_torch.vocoders import istft_head as ih
+
+    cfg = ih.IstftVocoderConfig(dim=128, n_layers=2)
+    torch.manual_seed(0)
+    head = ih.IstftHead(cfg)
+    g = torch.Generator().manual_seed(1)
+    mel = torch.randn(2, 40, 128, generator=g) * 0.5 - 4.0
+    f0 = 150.0 + 300.0 * torch.rand(2, 40, generator=g)
+    k3 = vocoder_tail.launches
+    with torch.no_grad():
+        ref = ih.apply(head, mel, f0, dtype=dtype)
+        got = ih.apply(head.to(cuda), mel.to(cuda), f0.to(cuda),
+                       dtype=dtype).cpu()
+    assert got.shape == (2, 40 * 512) and torch.isfinite(got).all()
+    assert _rel(got, ref) <= tol
+    assert vocoder_tail.launches == k3
+
+
+def test_hifigan_gan_step_card_matches_cpu(cuda):
+    """One hifigan-family GAN step (NSF, tiny generator, full MPD and MSD)
+    on the card and on the CPU from the same init, crops and draws: both
+    losses 1e-4 relative, each D and G grad within 1e-3 relative L2; each
+    param the card updated equals optax's first adamw update (weight decay
+    1e-4, eps 1e-8, the rate at count 0: p (1 - lr wd) - lr g / (|g| +
+    eps)) on the card's own grad, within 1e-3 lr and 4 f32 ulps of the
+    value; the port's kernels do not move."""
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder, vocoder_tail
+    from diffsvc_tpu_torch.training.vocoder_task import VocoderTask
+    from test_torch_vocoder_task import BASE, FAMILIES, _batch
+
+    hp = HParams(dict(BASE, **FAMILIES["hifigan"]))
+    tasks = [VocoderTask(hp, device=d) for d in ("cpu", cuda)]
+    mods = (tasks[1].gen, tasks[1].disc)
+    init = [p.detach().double() for m in mods for p in m.parameters()]
+    batch = _batch(8)
+    draws = tasks[0].draw(tasks[0].batch_on_device(batch),
+                          torch.Generator().manual_seed(3))
+    before = (plms_ladder.launches, vocoder_tail.launches)
+    ms = [t.train_step(batch, draws=tuple(x.to(t.device) for x in draws))
+          for t in tasks]
+    assert (plms_ladder.launches, vocoder_tail.launches) == before
+    for k in ("d_loss", "g_loss"):
+        assert abs(float(ms[1][k]) - float(ms[0][k])) <= 1e-4 * abs(
+            float(ms[0][k])), k
+    for a, b in ((tasks[0].gen, tasks[1].gen),
+                 (tasks[0].disc, tasks[1].disc)):
+        for (k, p), q in zip(a.named_parameters(), b.parameters()):
+            assert _rel(q.grad.cpu(), p.grad) <= 1e-3, k
+    lr, ulp = tasks[1].lr, torch.finfo(torch.float32).eps
+    params = [p for m in mods for p in m.parameters()]
+    for p0, p in zip(init, params):
+        g = p.grad.double()
+        ref = p0 * (1 - lr * 1e-4) - lr * g / (g.abs() + 1e-8)
+        err = (p.detach().double() - ref).abs() - 4 * ulp * ref.abs()
+        assert float(err.max()) <= 1e-3 * lr

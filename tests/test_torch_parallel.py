@@ -77,6 +77,30 @@ def test_unconfigured_process_stays_single(monkeypatch):
     assert dist.broadcast_state(state) is state
 
 
+def test_no_card_and_no_device_raises_before_a_group(monkeypatch):
+    """``distributed: true`` with no card and no device asked for raises
+    as every entry point does, and no process group starts; asked for the
+    CPU it goes on to the group (here stopped at its rendezvous, which the
+    environment lacks)."""
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    started = []
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        lambda *a, **k: started.append((a, k)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist.maybe_initialize_distributed({"distributed": True})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dist.maybe_initialize_distributed({"distributed": True},
+                                          device="cuda")
+    assert started == [] and not dist.is_initialized()
+    with pytest.raises(KeyError, match="WORLD_SIZE"):
+        dist.maybe_initialize_distributed({"distributed": True},
+                                          device="cpu")
+    assert started == []
+
+
 # ---------------------------------------------------------------- SVCTask --
 
 HP = dict(

@@ -147,7 +147,11 @@ from diffsvc_tpu_torch.models import contentvec, pe
 from diffsvc_tpu_torch.models import candidate_decoder, tts_modules
 from diffsvc_tpu_torch.parallel import dist
 from diffsvc_tpu_torch.vocoders import hifigan, vocoder_utils
+from diffsvc_tpu_torch.vocoders import (discriminators, istft_head, melgan,
+                                        pqmf, pwg, source)
+from diffsvc_tpu_torch.ops import istft, loudness, stft_loss
 from diffsvc_tpu_torch.training import checkpoint, scheduler, task, trainer
+from diffsvc_tpu_torch.training import vocoder_task
 from _torch_fixtures import SR, fake_units, voiced_wav, write_project
 from diffsvc_tpu_torch.utils.audio_io import save_wav
 from diffsvc_tpu_torch.infer.svc import Svc
@@ -209,7 +213,10 @@ def test_port_never_imports_jax(tmp_path):
     (``models.tts_modules``, ``models.candidate_decoder``) and the rest of
     conversion
     (``ops.crepe``, ``models.pe``, ``models.contentvec``,
-    ``vocoders.hifigan``, ``vocoders.vocoder_utils``) and of training and
+    ``vocoders.hifigan``, ``vocoders.vocoder_utils``), the other vocoder
+    families and GAN training (``vocoders.istft_head``, ``pwg``,
+    ``melgan``, ``pqmf``, ``source``, ``discriminators``, ``ops.istft``,
+    ``loudness``, ``stft_loss``, ``training.vocoder_task``) and of training and
     data (``training.pe_task``, ``losses``, ``test_runner``, ``ops.ssim``,
     ``ops.cwt``, ``data.textgrid``, ``utils.misc`` and the other copies),
     plus tiny CPU conversions through the port's Svc (CREPE asked for,

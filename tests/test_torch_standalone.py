@@ -81,7 +81,12 @@ def test_port_sources_cover_this_slice():
                 "training/pe_task.py", "training/losses.py",
                 "training/test_runner.py", "ops/ssim.py", "ops/cwt.py",
                 "data/textgrid.py", "utils/misc.py", "utils/multiprocess.py",
-                "utils/text_encoder.py", "utils/text_norm.py"):
+                "utils/text_encoder.py", "utils/text_norm.py",
+                "ops/loudness.py", "ops/istft.py", "ops/stft_loss.py",
+                "vocoders/pwg.py", "vocoders/melgan.py",
+                "vocoders/istft_head.py", "vocoders/source.py",
+                "vocoders/pqmf.py", "vocoders/discriminators.py",
+                "training/vocoder_task.py"):
         assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
 
 
@@ -312,3 +317,56 @@ def test_numpy_copies_match_originals(tmp_path, name, original, copy, run):
     assert {m.split(".")[0] for m in mods} <= {
         "__future__", "re", "typing", "numpy", "multiprocessing",
         "traceback", "json"}, mods
+
+
+def _run_loudness(mod, tmp):
+    """tests/test_loudness.py's meter cases: the K-weighting at three
+    rates, a full-scale 997 Hz sine, a tone with silence, a too-short and
+    a silent input, and normalize_loudness to -22 LUFS."""
+    out = [mod.k_weighting_coeffs(sr) for sr in (48000, 44100, 24000)]
+    t = np.arange(48000) / 48000.0
+    sine = np.sin(2 * np.pi * 997 * t)
+    tone = 0.3 * np.sin(2 * np.pi * 220 * t)
+    tone[12000:30000] = 0.0
+    for wav, sr in ((sine, 48000), (tone, 48000), (tone[:4000], 48000),
+                    (np.zeros(48000), 48000), (tone[::2], 24000)):
+        out += [mod.integrated_loudness(wav, sr),
+                mod.normalize_loudness(wav, sr, -22.0)]
+    return out
+
+
+def _run_trim(mod, tmp):
+    """tests/test_loudness.py's trim cases: short and long gaps at 16 and
+    44.1 kHz, with and without the -20 LUFS normalization, the energy gate
+    alone, a pluggable detector."""
+    out = []
+    for sr, norm in ((16000, False), (44100, True)):
+        t = np.arange(3 * sr) / sr
+        wav = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+        wav[int(0.5 * sr): int(0.7 * sr)] = 0.0
+        wav[int(1.2 * sr): int(2.4 * sr)] = 0.0
+        out += list(mod.trim_long_silences(wav, sr, norm=norm))
+    pcm = (np.sin(np.arange(480) / 3.0) * 2000).astype(np.int16)
+    out += [mod._energy_vad(pcm, -40.0), mod._energy_vad(pcm // 100, -40.0)]
+    out += list(mod.trim_long_silences(
+        out[0], 16000, vad_fn=lambda w: bool(w.max() > 3000)))
+    return out
+
+
+@pytest.mark.parametrize("original,copy,run", [
+    ("diffsvc_tpu.ops.loudness", "diffsvc_tpu_torch.ops.loudness",
+     _run_loudness),
+    ("diffsvc_tpu.utils.audio_io", "diffsvc_tpu_torch.utils.audio_io",
+     _run_trim),
+], ids=["loudness", "trim_long_silences"])
+def test_loudness_and_trim_copies_match_originals(tmp_path, original, copy,
+                                                  run):
+    """The port's copies of ``ops/loudness.py`` and of ``_energy_vad`` /
+    ``trim_long_silences`` give the original's results bit for bit; they
+    import the standard library, numpy and scipy alone."""
+    want = run(importlib.import_module(original), tmp_path)
+    got = run(importlib.import_module(copy), tmp_path)
+    assert _same(got, want)
+    mods = _imports(os.path.join(REPO, *copy.split(".")) + ".py")
+    assert {m.split(".")[0] for m in mods} <= {
+        "__future__", "io", "os", "typing", "numpy", "scipy"}, mods

@@ -397,10 +397,11 @@ def test_trainer_fit_and_resume(binarized):
         assert torch.equal(model.state_dict()[k], v), k
 
     # --validate through the entry point (--infer: test_torch_train_rest.py);
-    # vocoder training is not ported and says so
+    # a vocoder task_cls goes to train_vocoder, which refuses items binarized
+    # without their waveforms
     t3 = run_task(HParams(dict(hp, validate=True)), device="cpu")
     assert t3.global_step == 8
-    with pytest.raises(NotImplementedError, match="task_cls"):
+    with pytest.raises(ValueError, match="with_wav"):
         run_task(HParams(dict(hp, task_cls="training.task.vocoder."
                                   "HifiGanTask")), device="cpu")
 
