@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py [--out results.json]
 
 (``--deterministic-step BUNDLE`` is phase 5's child process,
-``--dist-job JOB BUNDLE`` a rank of phase 10 and ``--vocoder-resume
+``--dist-job JOB BUNDLE`` a rank of phase 10 or 12 and ``--vocoder-resume
 BUNDLE`` phase 11's child, below.)
 
 Phases, in order; any failure exits non-zero and no result line is printed:
@@ -257,11 +257,34 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    of fixed grads against optax's update written out, torch's default
    weight decay as the planted fault.
 
+12. The mesh's seq axis (``[seq]`` lines), on phase 6's data at config_44k's
+   full width with the f32 train stream, on a (data = 2, seq = 2) grid:
+   (a) in one process, a batch of B=4 clips of T=4096 frames (47.6 s):
+   the unsharded step against the sum of the four cells' shares (each its
+   rows and its own frames widened by the halo H = 75 on each side), loss
+   and every gradient with one set of draws (``DIST_TOL`` per tensor,
+   ``DIST_LOSS_TOL`` on the loss), both on K4 at the f32 stream; each
+   run's ms and peak memory; the planted faults above the limits: the
+   halo frames counted in the loss, and a halo of H - 1 at one dilation
+   cycle (4 layers, H = 15; at 20 layers its reading is printed: it is
+   below f32's resolution there); K4 moving on every window and K5, K6 at
+   0; (b) four gloo ranks sharing this card at (2, 2) (``chip_smoke.py
+   --dist-job seq BUNDLE``): two steps on (a)'s batch, the second with 3
+   real rows of 4, each step's all-reduced grads and loss against rank
+   0's one-process share sum (``DIST_TOL``, ``DIST_LOSS_TOL``), the four
+   ranks' params bit for bit, each rank's K4 moving and K5 at 0, ms per
+   step and peak memory per rank; (c) ``run_task`` on the same ranks with
+   ``mesh_axes: data,seq``, ``mesh_shape: [2, 2]`` for 3 steps at 8 per
+   data block (finite losses; the first batch's items those of a
+   data-only d = 2 run on every rank), then one FS2-full step with
+   dropout 0.1 whose encoder output is bit-equal on the two seq ranks of
+   each data block.
+
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
-in each of phase 9's parts, phase 10's and phase 11's, errors, times,
-bound);
+in each of phase 9's parts, phase 10's, phase 11's and phase 12's, errors,
+times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -3760,6 +3783,10 @@ def dist_job(job: str, bundle_fn: str) -> int:
     out = {"rank": rank, "world": world}
     torch.use_deterministic_algorithms(True)
 
+    if job == "seq":
+        print(json.dumps(seq_job(b, device, rank, world)))
+        return 0
+
     if job == "world1":
         # (a): the same three steps without a process group, then under
         # nccl at world 1, from the same fresh state
@@ -5004,6 +5031,452 @@ def phase_voc(device, workdir, project):
 
 
 # ---------------------------------------------------------------------------
+# Phase 12: the mesh's seq axis
+# ---------------------------------------------------------------------------
+
+# (a)'s batch: config_44k at full width, B=4 clips of 4096 frames (47.6 s at
+# hop 512, 44.1 kHz) with 2380 HuBERT-soft frames (50 Hz) padded to 2432 (a
+# multiple of 128, as the collate pads), on a (data = 2, seq = 2) grid.
+SEQ_B, SEQ_T, SEQ_UNITS, SEQ_PADDED_UNITS = 4, 4096, 2380, 2432
+SEQ_GRID = (2, 2)
+# A halo of H - 1 changes an own frame only through the one path that
+# takes every layer's furthest tap, and that path shrinks the change by
+# about two per layer: at 20 layers it is below f32's resolution (the
+# loss bit for bit, the grads within their summation order; the reading is
+# printed), so the fault is gated at one dilation cycle (4 layers, H = 15),
+# where it reads 6.2e-4 per tensor (H100 80GB HBM3, 700 W).
+SEQ_FAULT_LAYERS = 4
+# K4 at the f32 stream computes in 3xTF32 products: its step differs from
+# the plain versions' true f32 by up to 5.4e-4 per tensor on (a)'s batch (the
+# conditioner and input projections, whose grads cancel most), and a
+# window sum through K4 from the unsharded step through K4 by 1.4e-6 or
+# 2.6e-4, as the spec range and the seed of the batch go (H100 80GB HBM3,
+# 700 W); the plain versions' window sum reads 1.6e-6 on both.  The decomposition's exactness is held on
+# the plain versions at DIST_TOL; the K4 route at phase 5's limit on a
+# step through the kernels against the plain versions.
+SEQ_K4_TOL = TRAIN_STEP_TOL
+SEQ_RUN_STEPS = 3
+SEQ_RUN_B = 8            # (c)'s max_sentences (per data block)
+SEQ_HEAD_SEED = 11
+
+
+def seq_hp(workdir: str):
+    """Phase 6's config_44k (full width, its binarizer's spec range) on the
+    (2, 2) grid: (a) and (b) at the f32 train stream, ``run_task`` (c) at
+    the config's own."""
+    from diffsvc_tpu_torch.config import HParams, set_hparams
+
+    own = set_hparams(config=os.path.join(workdir, "own.yaml"),
+                      exp_name="smoke_seq", reset=True, print_hparams=False)
+    run_hp = HParams(own, mesh_axes="data,seq", mesh_shape=list(SEQ_GRID),
+                     max_sentences=SEQ_RUN_B, max_updates=SEQ_RUN_STEPS)
+    return HParams(run_hp, diffnet_train_stream_dtype="f32"), run_hp
+
+
+def seq_batch(hp, real: int = SEQ_B, seed: int = 0) -> dict:
+    """(a)'s collated batch: random units, a uniform alignment (row 1's
+    last 496 frames padding), f0 around 200 Hz, mels drawn inside the
+    config's spec range; rows from ``real`` on padding (``sample_mask``
+    0)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    b, t, u = SEQ_B, SEQ_T, SEQ_UNITS
+    m = int(hp["audio_num_mel_bins"])
+    lo, hi = (np.broadcast_to(np.asarray(hp.get(k, d), np.float32).ravel(),
+                              (m,)) for k, d in (("spec_min", -6.0),
+                                                 ("spec_max", 1.5)))
+    mel2ph = np.tile(np.minimum(np.arange(t) * u // t, u - 1) + 1,
+                     (b, 1)).astype(np.int32)
+    mel2ph[1, 3600:] = 0
+    hubert = np.zeros((b, SEQ_PADDED_UNITS, int(hp["hidden_size"])),
+                      np.float32)
+    hubert[:, :u] = rng.randn(b, u, hubert.shape[2]) * 0.3
+    batch = {"hubert": hubert, "mel2ph": mel2ph,
+             "f0": (7.6 + 0.2 * rng.randn(b, t)).astype(np.float32),
+             "uv": np.zeros((b, t), np.float32),
+             "energy": np.zeros((b, t), np.float32),
+             "mels": (lo + (hi - lo) * rng.rand(b, t, m)).astype(np.float32),
+             "sample_mask": (np.arange(b) < real).astype(np.float32)}
+    for k in ("hubert", "mel2ph", "f0", "mels"):
+        batch[k][real:] = 0
+    return batch
+
+
+def seq_task(hp, device, layers=None, grid=None):
+    """An SVCTask on ``grid`` (default the process group's) with its
+    seeded init and a DiffNet head drawn from a seed (a zero head, JAX's
+    init, zeroes every gradient but the head's); ``layers`` cuts the
+    DiffNet's depth."""
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.training.task import SVCTask
+
+    if layers:
+        hp = HParams(hp, residual_layers=layers)
+    task = SVCTask(hp, device=device, grid=grid)
+    head = task.model.denoise_fn.output_projection
+    with torch.no_grad():
+        head.weight.copy_(torch.randn(head.weight.shape, generator=torch.
+                                      Generator().manual_seed(SEQ_HEAD_SEED))
+                          * 0.05)
+    return task
+
+
+def seq_shares(task, batch, t, noise, around=None):
+    """Every cell's share of the (2, 2) grid, computed in this process and
+    summed: (loss, grads), the ranks' SUM all-reduce.  ``around(cell)``
+    gives a context each cell's call runs in."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.parallel import dist
+
+    d, s = SEQ_GRID
+    n, tm = np.shape(batch["mels"])[:2]
+    saved, task.grid = task.grid, dist.Grid(d, s)
+    loss, grads = 0.0, None
+    try:
+        for i in range(d):
+            for j in range(s):
+                with (around((i, j)) if around else contextlib.nullcontext()):
+                    lo, g = task.loss_and_grads(
+                        batch, t=t, noise=noise, rows=dist.block(n, i, d),
+                        frames=dist.frames(tm, j, s))
+                loss += float(lo)
+                grads = g if grads is None else \
+                    [a + b for a, b in zip(grads, g)]
+    finally:
+        task.grid = saved
+    return loss, grads
+
+
+def halo_short():
+    """The planted fault: a halo of H - 1."""
+    from diffsvc_tpu_torch.parallel import dist
+
+    real = dist.halo
+    return swapped(dist, halo=lambda net, t: real(net, t) - 1)
+
+
+def halo_in_loss():
+    """The planted fault: the halo frames counted in the loss."""
+    from diffsvc_tpu_torch.models.diffusion import GaussianDiffusion
+
+    real = GaussianDiffusion.training_loss
+
+    def counted_all(self, batch, **kw):
+        kw["own"] = None if kw.get("own") is None else \
+            kw["own"].new_ones(kw["own"].shape)
+        return real(self, batch, **kw)
+
+    return swapped(GaussianDiffusion, training_loss=counted_all)
+
+
+def seq_readings(task, batch, t, noise, ref, fault=None, around=None,
+                 against=None) -> dict:
+    """The (2, 2) share sum against ``ref`` = (loss, grads) of the
+    unsharded step: the largest per-tensor rel-L2 and the loss's relative
+    error (under ``fault``, a context from the two above; ``around`` as
+    :func:`seq_shares`'s); with ``against``, another unsharded step, the
+    largest per-tensor rel-L2 against it too."""
+    with (fault() if fault else contextlib.nullcontext()):
+        loss, grads = seq_shares(task, batch, t, noise, around)
+    rels = sorted(((rel_l2(a, r), n) for n, a, r in
+                   zip(task.names, grads, ref[1])), reverse=True)
+    out = {"rel": rels[0][0], "loss_rel": abs(loss - ref[0]) / abs(ref[0]),
+           "worst": [f"{n} {r:.2e}" for r, n in rels[:3]]}
+    if against is not None:
+        out["rel_k4"] = max(rel_l2(a, r) for a, r in zip(grads, against[1]))
+    return out
+
+
+def k4_plain():
+    """K4's wrappers replaced by their plain (true f32) versions."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+
+    return swapped(k4, residual_stack_train_fwd=k4.
+                   residual_stack_train_fwd_plain,
+                   residual_stack_train_batched_bwd=k4.
+                   residual_stack_train_batched_bwd_plain)
+
+
+def seq_in_process(device, hp, batch, launches) -> dict:
+    """(a): the unsharded step against the sum of the four windows' shares:
+    on the plain versions (true f32) at ``DIST_TOL`` with the planted
+    faults, then through K4 at the f32 stream (the route of both) at
+    ``SEQ_K4_TOL``, each window's ms, peak memory and counts."""
+    import torch
+
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.parallel import dist
+
+    task = seq_task(hp, device, grid=dist.Grid(1, 1))
+    t, noise = task.draws(batch)
+    h = dist.halo(task.model.denoise_fn, SEQ_T)
+    c = task.model.denoise_fn.residual_channels
+    res = {"halo": h, "route_unsharded": diffnet.train_route(
+        task.model.denoise_fn.n_layers, task.model.denoise_fn.cycle, SEQ_T,
+        c, SEQ_B, "f32"), "runs": {}}
+    if res["route_unsharded"] == "per_sample":
+        raise SmokeError(f"(a)'s unsharded step would take K5: {res}")
+    k4_only = dict(moved=("residual_stack_train_batched",),
+                   still=("residual_stack_train", "fused_residual_block"),
+                   tag="seq")
+
+    @contextlib.contextmanager
+    def measured(label):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with counted(label, launches, **k4_only):
+            yield
+        torch.cuda.synchronize()
+        res["runs"][label] = {"ms": (time.time() - t0) * 1e3, "peak_gb": (
+            torch.cuda.max_memory_allocated() - base) / 1e9}
+
+    def unsharded(model):
+        loss, grads = model.loss_and_grads(batch, t=t, noise=noise)
+        return float(loss), grads
+
+    # the decomposition, in true f32: the plain versions on the card
+    with k4_plain():
+        ref = unsharded(task)
+        res["exact"] = seq_readings(task, batch, t, noise, ref)
+        res["halo_in_loss"] = seq_readings(task, batch, t, noise, ref,
+                                           halo_in_loss)
+        res["halo_short_20"] = seq_readings(task, batch, t, noise, ref,
+                                            halo_short)
+        cut = seq_task(hp, device, layers=SEQ_FAULT_LAYERS,
+                       grid=dist.Grid(1, 1))
+        res["halo_cut"] = dist.halo(cut.model.denoise_fn, SEQ_T)
+        cut_ref = unsharded(cut)
+        res["cut_exact"] = seq_readings(cut, batch, t, noise, cut_ref)
+        res["halo_short"] = seq_readings(cut, batch, t, noise, cut_ref,
+                                         halo_short)
+        del cut, cut_ref
+    # the route: K4 on the unsharded step and on every window
+    with measured("(a) unsharded"):
+        k4_ref = unsharded(task)
+    res["k4_vs_plain"] = seq_readings(task, batch, t, noise, ref,
+                                      around=lambda cell: measured(
+                                          f"(a) window {cell}"),
+                                      against=k4_ref)
+    res["k4_unsharded_vs_plain"] = {"rel": max(
+        rel_l2(a, r) for a, r in zip(k4_ref[1], ref[1])),
+        "loss_rel": abs(k4_ref[0] - ref[0]) / abs(ref[0])}
+    del task, ref, k4_ref
+    torch.cuda.empty_cache()
+    un = res["runs"]["(a) unsharded"]
+    log(f"[seq] (a) config_44k B={SEQ_B} T={SEQ_T} on a {SEQ_GRID} grid, "
+        f"halo H={h}: unsharded route {res['route_unsharded']} (K4 f32), "
+        f"{un['ms']:.1f} ms, peak {un['peak_gb']:.3f} GB over its base "
+        "(forward + backward, the process's first K4 call at these shapes)")
+    for label, w in res["runs"].items():
+        log(f"[seq] {label}: {w['ms']:.1f} ms, peak {w['peak_gb']:.3f} GB "
+            f"({w['peak_gb'] / un['peak_gb']:.3f} of the unsharded step's)")
+    plain = "the plain versions (true f32)"
+    for key, what, tol, gated in (
+            ("exact", f"the window sum on {plain}", DIST_TOL, "<="),
+            ("halo_in_loss", "planted fault [halo frames in the loss]",
+             DIST_TOL, ">"),
+            ("halo_short_20", "fault [a halo of H - 1] at 20 layers, not "
+             "gated: below f32's resolution", DIST_TOL, None),
+            ("cut_exact", f"the window sum at {SEQ_FAULT_LAYERS} layers "
+             f"(H={res['halo_cut']})", DIST_TOL, "<="),
+            ("halo_short", f"planted fault [a halo of H - 1] at "
+             f"{SEQ_FAULT_LAYERS} layers", DIST_TOL, ">"),
+            ("k4_unsharded_vs_plain", "K4's unsharded step vs the plain "
+             "one", SEQ_K4_TOL, "<="),
+            ("k4_vs_plain", "K4's window sum vs the plain unsharded step",
+             SEQ_K4_TOL, "<=")):
+        r = res[key]
+        log(f"[seq] (a) {what}: grads rel_l2 {r['rel']:.3e} (tol {tol:g}), "
+            f"loss {r['loss_rel']:.3e} (tol {DIST_LOSS_TOL:g})"
+            + (f"; vs K4's unsharded step {r['rel_k4']:.3e}"
+               if "rel_k4" in r else "")
+            + (f"; largest: {', '.join(r['worst'])}" if "worst" in r else ""))
+        ok = r["rel"] <= tol and r["loss_rel"] <= DIST_LOSS_TOL \
+            and r.get("rel_k4", 0.0) <= tol
+        if (gated == "<=" and not ok) or (gated == ">" and r["rel"] <= tol):
+            raise SmokeError(f"(a) {what}: {r}")
+    return res
+
+
+def seq_job(b: dict, device, rank: int, world: int) -> dict:
+    """A rank of phase 12's (b) and (c) (``chip_smoke.py --dist-job seq``):
+    two steps of the grid against rank 0's in-process share sum, then
+    ``run_task`` for 3 steps, then one FS2-full step with dropout."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.data.dataset import FastSpeechDataset
+    from diffsvc_tpu_torch.parallel import dist
+    from diffsvc_tpu_torch.run import run_task
+    from diffsvc_tpu_torch.training import trainer as trainer_mod
+    from diffsvc_tpu_torch.training.task import SVCTask
+
+    hp = HParams(b["hp"])
+    dist.maybe_initialize_distributed(
+        HParams(hp, distributed=True, dist_backend="gloo"), device=device)
+    out = {"rank": rank, "world": world, "cell": dist.grid(hp).cell(rank),
+           "backend": torch.distributed.get_backend()}
+    torch.use_deterministic_algorithms(True)
+
+    # (b): two steps, the second on a ragged batch
+    task = seq_task(hp, device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    steps, path = [], dict.fromkeys(kernel_counts_all(), 0)
+    for batch in b["batches"]:
+        ref = seq_shares(task, batch, *task.draws(batch)) if rank == 0 \
+            else None
+        dist.all_reduce_sum([torch.zeros(1, device=device)])
+        before = kernel_counts_all()
+        ms, loss, grads = timed_step(task, batch)
+        for k, v in kernel_counts_all().items():
+            path[k] += v - before[k]
+        rec = {"ms": ms, "loss": loss,
+               "real": int(np.sum(batch["sample_mask"]))}
+        if ref is not None:
+            rec["rel"] = max(rel_l2(a, r) for a, r in zip(grads, ref[1]))
+            rec["loss_rel"] = abs(loss - ref[0]) / abs(ref[0])
+        steps.append(rec)
+    torch.cuda.synchronize()
+    out["b"] = {"steps": steps, "launches": path,
+                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    torch.save([p.detach().cpu() for p in task.params],
+               f"{b['bundle']}.b.rank{rank}.pt")
+    del task
+    torch.cuda.empty_cache()
+
+    # (c): run_task on the grid; the batches it builds and steps on
+    run_hp = HParams(b["run_hp"], work_dir=b["work_dirs"][rank])
+    built, stepped, losses = [], [], []
+    real_build, real_step = trainer_mod.build_batches, SVCTask.train_step
+
+    def build(*a, **k):
+        built.append(real_build(*a, **k))
+        return built[-1]
+
+    def step(self, batch, **k):
+        stepped.append(np.where(batch["sample_mask"] > 0, batch["id"],
+                                -1).tolist())
+        m = real_step(self, batch, **k)
+        losses.append(float(m["loss"]))
+        return m
+
+    reset_counts()
+    trainer_mod.build_batches, SVCTask.train_step = build, step
+    try:
+        run_task(run_hp, device=device)
+    finally:
+        trainer_mod.build_batches, SVCTask.train_step = real_build, real_step
+    torch.cuda.synchronize()
+    d2 = real_build(FastSpeechDataset("train", run_hp, shuffle=True), run_hp,
+                    num_replicas=SEQ_GRID[0], rng=np.random.RandomState(
+                        int(run_hp.get("seed", 1234))))
+    out["c"] = {"losses": losses, "first_batch": stepped[0],
+                "first_built": [int(i) for i in built[0][0]],
+                "data_only_first": [int(i) for i in d2[0]],
+                "launches": kernel_counts_all()}
+
+    # (c): FS2-full with dropout, one step
+    reset_counts()
+    fs2 = seq_task(HParams(hp, no_fs2=False, dropout=0.1), device)
+    enc = []
+    fs2.model.fs2.encoder.register_forward_hook(
+        lambda m, a, o: enc.append(o.detach().cpu()))
+    m = fs2.train_step(b["batches"][0])
+    torch.save(enc[0], f"{b['bundle']}.fs2.rank{rank}.pt")
+    out["fs2"] = {"loss": float(m["loss"]), "launches": kernel_counts_all()}
+    dist.destroy()
+    return out
+
+
+def phase_seq(device, workdir):
+    """Phase 12 (``[seq]`` lines) on phase 6's data: (a) in one process
+    the unsharded step against the (2, 2) grid's window shares summed;
+    (b) four gloo ranks on this card at (2, 2); (c) ``run_task`` on them,
+    then an FS2-full step with dropout."""
+    import math
+
+    import torch
+
+    t0 = time.time()
+    res = {"launches": {}, "seconds": {}}
+    hp, run_hp = seq_hp(workdir)
+    batch = seq_batch(hp)
+    res["a"] = seq_in_process(device, hp, batch, res["launches"])
+    res["seconds"]["a"] = time.time() - t0
+
+    bundle = os.path.join(workdir, "seq.pt")
+    torch.save({"hp": dict(hp), "run_hp": dict(run_hp), "device": str(device),
+                "bundle": bundle,
+                "batches": [batch, seq_batch(hp, real=SEQ_B - 1)],
+                "work_dirs": [os.path.join(workdir, f"seq_work{r}")
+                              for r in range(4)]}, bundle)
+    ranks = run_ranks("seq", 4, bundle)
+    res["seconds"]["ranks"] = time.time() - t0 - res["seconds"]["a"]
+    r0 = ranks[0]["b"]
+    for i, st in enumerate(r0["steps"]):
+        log(f"[seq] (b) 4 gloo ranks {SEQ_GRID} step {i + 1}: {st['real']} "
+            f"real rows of {SEQ_B}, loss {st['loss']:.6f}; all-reduced grads "
+            f"vs rank 0's one-process share sum rel_l2 {st['rel']:.3e} (tol "
+            f"{DIST_TOL:g}), loss {st['loss_rel']:.3e} (tol "
+            f"{DIST_LOSS_TOL:g}); ms per step " + " / ".join(
+                f"{r['b']['steps'][i]['ms']:.1f}" for r in ranks)
+            + " (ranks 0-3)")
+        if not (st["rel"] <= DIST_TOL and st["loss_rel"] <= DIST_LOSS_TOL):
+            raise SmokeError(f"(b) step {i + 1}: {st}")
+    params = [torch.load(f"{bundle}.b.rank{r}.pt") for r in range(4)]
+    res["b_bit_equal"] = all(torch.equal(a, b) for p in params[1:]
+                             for a, b in zip(params[0], p))
+    for r in ranks:
+        cell, rb, rc, rf = r["cell"], r["b"], r["c"], r["fs2"]
+        log(f"[seq] (b) rank {r['rank']} at {tuple(cell)}: kernel launches "
+            f"{rb['launches']}, peak memory {rb['peak_mem_gb']:.2f} GB; (c) "
+            f"run_task losses {[round(x, 5) for x in rc['losses']]}, "
+            f"launches {rc['launches']}; FS2-full step loss "
+            f"{rf['loss']:.5f}, launches {rf['launches']}")
+        for part, counts in (("(b)", rb["launches"]),
+                             ("(c) run_task", rc["launches"]),
+                             ("(c) FS2-full", rf["launches"])):
+            res["launches"][f"{part} rank {r['rank']}"] = counts
+            if counts["residual_stack_train_batched"] <= 0 \
+                    or counts["residual_stack_train"] \
+                    or counts["fused_residual_block"]:
+                raise SmokeError(f"{part} rank {r['rank']}: K4 must move, "
+                                 f"K5 and K6 not: {counts}")
+        if len(rc["losses"]) != SEQ_RUN_STEPS or not all(
+                math.isfinite(x) for x in rc["losses"] + [rf["loss"]]):
+            raise SmokeError(f"(c) rank {r['rank']}: {rc['losses']}, "
+                             f"{rf['loss']}")
+    first = ranks[0]["c"]
+    same_batch = all(r["c"]["first_built"] == first["data_only_first"]
+                     and r["c"]["first_batch"] == first["first_batch"]
+                     for r in ranks) and [
+        i for i in first["first_batch"] if i >= 0] == first["data_only_first"]
+    enc = [torch.load(f"{bundle}.fs2.rank{r}.pt") for r in range(4)]
+    res["fs2_blocks_bit_equal"] = [torch.equal(enc[0], enc[1]),
+                                   torch.equal(enc[2], enc[3])]
+    log(f"[seq] (b) the four ranks' params bit-equal {res['b_bit_equal']}; "
+        f"(c) the first batch's items {first['first_batch']} (data-only d=2: "
+        f"{first['data_only_first']}) on every rank {same_batch}; FS2-full "
+        f"encoder output bit-equal within blocks (ranks 0/1, 2/3) "
+        f"{res['fs2_blocks_bit_equal']}")
+    if not (res["b_bit_equal"] and same_batch
+            and all(res["fs2_blocks_bit_equal"])):
+        raise SmokeError(f"phase 12 (b)/(c): {res}")
+    res["ranks"] = ranks
+    res["seconds"]["total"] = time.time() - t0
+    log(f"[seq] phase 12 took { {k: round(v, 1) for k, v in res['seconds'].items()} }s")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5022,8 +5495,8 @@ def main(argv=None) -> int:
                     "BUNDLE under deterministic algorithms")
     ap.add_argument("--dist-job", nargs=2, default=None,
                     metavar=("JOB", "BUNDLE"),
-                    help="a rank of phase 10 (world1 or world2), started by "
-                    "the phase itself")
+                    help="a rank of phase 10 (world1 or world2) or 12 "
+                    "(seq), started by the phase itself")
     ap.add_argument("--vocoder-resume", default="", metavar="BUNDLE",
                     help="phase 11's child process: each vocoder family's "
                     "resume against its uninterrupted run, under "
@@ -5101,12 +5574,13 @@ def main(argv=None) -> int:
                                         project)
                 record["voc"] = timed("11 voc", phase_voc, device, tmp,
                                      project)
+                record["seq"] = timed("12 seq", phase_seq, device, tmp)
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-11: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-12: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -5123,7 +5597,8 @@ def main(argv=None) -> int:
     # run_task, the trained pe's conversion, --infer); launches_multi:
     # phase 10's parts (each rank of the training runs in its own process
     # and counts its own launches); launches_voc: phase 11's routes and GAN
-    # training runs
+    # training runs; launches_seq: phase 12's parts (in process, and each
+    # rank of the grid)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -5163,6 +5638,9 @@ def main(argv=None) -> int:
                         "launches_voc": {
                             part: counts[name] for part, counts in
                             record["voc"]["launches"].items()},
+                        "launches_seq": {
+                            part: counts[name] for part, counts in
+                            record["seq"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

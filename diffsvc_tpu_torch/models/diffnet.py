@@ -33,7 +33,7 @@ _MIB = 2 ** 20
 
 
 def train_route(n_layers: int, cycle: int, t: int, c: int, b: int,
-                stream: str = "bf16") -> str:
+                stream: str = "bf16", seq: int = 1) -> str:
     """The training route of ``diffsvc_tpu/models/diffnet.py:219-295`` for
     a batch of ``b`` samples of ``t`` frames: the port's own copy of the
     shape arithmetic of ``supported_train_batched`` and ``supported_train``
@@ -44,7 +44,13 @@ def train_route(n_layers: int, cycle: int, t: int, c: int, b: int,
     configured ``stream`` (bf16 or f32) with weight grads summed over the
     whole batch; "per_sample" is K5 with f32 streams and per-sample sums;
     "scan" is the JAX package's f32 XLA scan, which the port computes
-    with K4 at the f32 stream (the scan's math in exact f32)."""
+    with K4 at the f32 stream (the scan's math in exact f32).  Under a
+    grid with a seq axis of ``seq`` > 1 every batch takes the scan,
+    whatever its shape and stream: JAX's ``_shardable_data_mesh``
+    (``diffnet.py:123-135``) refuses such a mesh, so ``want`` is False
+    (``:230-235``)."""
+    if seq > 1:
+        return "scan"
     if not (c % 128 == 0 and t % 128 == 0 and cycle >= 1
             and n_layers % cycle == 0 and 2 ** (cycle - 1) < t):
         return "scan"
@@ -110,6 +116,13 @@ class DiffNet(nn.Module):
 
     @classmethod
     def from_hparams(cls, hp) -> "DiffNet":
+        """The config's DiffNet.  ``use_remat`` (JAX: ``jax.checkpoint``
+        around each dilation cycle of its f32 scan, ``diffnet.py:321-324``)
+        changes no number and no route here: the backward of every port
+        route (K4, K5 and their plain versions' hand-written backwards)
+        already saves only each layer's input x_l and recomputes the gates
+        from it.  It saves L such [B, T, C] inputs (20 at config_44k)
+        where JAX's remat scan keeps the L / cycle cycle boundaries (5)."""
         return cls(in_dims=hp["audio_num_mel_bins"],
                    encoder_hidden=hp["hidden_size"],
                    residual_layers=hp["residual_layers"],
@@ -193,7 +206,7 @@ def step_bias(p: dict, step: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
-          train_stream: str | None = None):
+          train_stream: str | None = None, seq: int = 1):
     """Predict noise.  The compute dtype is ``spec.dtype`` (f32 or bf16).
 
     :param spec: [B, T, M] noisy mel
@@ -207,6 +220,8 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
         or K4 at the f32 stream, with their backward when grad is enabled;
         K1 on operands rounded through the route's stream when not
         (validation's loss)
+    :param seq: the seq axis of the training grid (> 1: a seq rank's
+        window, always the scan route)
     :return: [B, T, M] noise prediction in the compute dtype
     """
     dt = spec.dtype
@@ -225,7 +240,8 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
             p["bo"], cycle=net.cycle)
     else:
         b, t = spec.shape[:2]
-        route = train_route(n_layers, net.cycle, t, c, b, train_stream)
+        route = train_route(n_layers, net.cycle, t, c, b, train_stream,
+                            seq)
         ops = (x, sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"])
         if route == "per_sample":
             skip = diffnet_stack_per_sample.residual_stack_train(

@@ -101,7 +101,7 @@ def q_sample(tables: dict, x_start, t, noise):
 
 def p_losses(tables: dict, denoise_fn, x_start, t, noise,
              loss_type: str = "l2", nonpadding=None, sample_mask=None,
-             count=None):
+             count=None, own=None, frames: Optional[int] = None):
     """Diffusion training loss (``diffsvc_tpu/models/diffusion.py:116-149``,
     reference ``diffusion.py:205-225``) with the noise drawn by the caller.
 
@@ -110,8 +110,30 @@ def p_losses(tables: dict, denoise_fn, x_start, t, noise,
     batch padded on its batch axis and renormalizes over them.  ``count``
     replaces the number of real rows, ``max(sum(sample_mask), 1)``: a
     data-parallel rank passes the global batch's, so that the ranks'
-    losses sum to the global loss."""
+    losses sum to the global loss.
+
+    ``own`` [T_w] (0 / 1) marks a seq rank's own frames of its window and
+    ``frames`` is the global T: the loss is then those frames' share of
+    the global loss, the sum of their (masked) errors over ``count`` (or
+    the rows) times ``frames`` times M, since both losses take the mean
+    over the whole padded T.  Without ``own`` the numbers are those of the
+    unsharded loss, bit for bit."""
     x_recon = denoise_fn(q_sample(tables, x_start, t, noise), t)
+    if loss_type not in ("l1", "l2"):
+        raise NotImplementedError(loss_type)
+    if own is not None:
+        err = (noise - x_recon).abs() if loss_type == "l1" \
+            else (noise - x_recon) ** 2
+        if loss_type == "l1" and nonpadding is not None:
+            err = err * nonpadding[:, :, None]
+        err = err * own[None, :, None]
+        if sample_mask is not None:
+            err = err * sample_mask[:, None, None]
+            if count is None:
+                count = sample_mask.sum().clamp(min=1.0)
+        elif count is None:
+            count = err.shape[0]
+        return err.sum() / (count * frames * err.shape[2])
     if loss_type == "l1":
         err = (noise - x_recon).abs()
         if nonpadding is not None:
@@ -122,15 +144,13 @@ def p_losses(tables: dict, denoise_fn, x_start, t, noise,
         if count is None:
             count = sample_mask.sum().clamp(min=1.0)
         return err.sum() / (count * err.shape[1] * err.shape[2])
-    if loss_type == "l2":
-        sq = (noise - x_recon) ** 2
-        if sample_mask is None:
-            return sq.mean()
-        per_row = sq.mean(dim=(1, 2))
-        if count is None:
-            count = sample_mask.sum().clamp(min=1.0)
-        return (per_row * sample_mask).sum() / count
-    raise NotImplementedError(loss_type)
+    sq = (noise - x_recon) ** 2
+    if sample_mask is None:
+        return sq.mean()
+    per_row = sq.mean(dim=(1, 2))
+    if count is None:
+        count = sample_mask.sum().clamp(min=1.0)
+    return (per_row * sample_mask).sum() / count
 
 
 def p_sample_ddpm_scan(tables: dict, denoise_fn, x, t_start: int, *,
@@ -372,7 +392,8 @@ class GaussianDiffusion(nn.Module):
     def training_loss(self, batch: dict, *, t: Optional[torch.Tensor] = None,
                       noise: Optional[torch.Tensor] = None,
                       generator: Optional[torch.Generator] = None,
-                      train: bool = True, count=None):
+                      train: bool = True, count=None, own=None,
+                      frames: Optional[int] = None, seq: int = 1):
         """Diffusion loss of one batch (``diffsvc_tpu/models/diffusion.py:
         489-513``): returns (loss, conditioner outputs).
 
@@ -386,7 +407,10 @@ class GaussianDiffusion(nn.Module):
         conditioner.  The wavenet denoiser takes the training route of
         :func:`diffnet.apply` with ``diffnet_train_stream_dtype``; with grad
         enabled that is K4 or K5 and its backward (``diffnet.train_route``).
-        ``count``: see :func:`p_losses`."""
+        ``count``, ``own`` and ``frames``: see :func:`p_losses`; a seq
+        rank passes its window of every time axis with ``own`` and the
+        grid's ``seq``, which takes the wavenet's scan route (K4 at the f32
+        stream)."""
         dev = batch["mels"].device
         if t is None:
             t = torch.randint(0, self.K_step, (batch["mels"].shape[0],),
@@ -409,13 +433,13 @@ class GaussianDiffusion(nn.Module):
             if self.decoder_type == "fft":
                 return self.denoise_fn(x.to(dt), tt, cond_c, wdt=dt).float()
             return diffnet.apply(self.denoise_fn, x.to(dt), tt, cond_c,
-                                 train_stream=stream).float()
+                                 train_stream=stream, seq=seq).float()
 
         nonpadding = (batch["mel2ph"] > 0).to(x_start.dtype)
         loss = p_losses(self.tables(dev), denoise_fn, x_start, t.to(dev),
                         noise.to(dev, torch.float32),
                         str(self.hp.get("diff_loss_type", "l1")), nonpadding,
-                        batch.get("sample_mask"), count)
+                        batch.get("sample_mask"), count, own, frames)
         return loss, ret
 
     def _ladder(self, cond, x, t_start: int, interval: int, clip_v: float,

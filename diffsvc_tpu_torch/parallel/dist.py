@@ -1,12 +1,19 @@
-"""The process group of data-parallel training.
+"""The process group of training, and its (data, seq) grid of ranks.
 
 Counterpart of ``diffsvc_tpu/parallel/mesh.py``: where the JAX package
-builds one ``data`` mesh over every device and lets XLA insert the
-collectives, the port runs one process per card (``torchrun``, or
-``distributed: true`` with ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
+builds a ``data`` (or ``data,seq``) mesh over every device and lets XLA
+insert the collectives, the port runs one process per card (``torchrun``,
+or ``distributed: true`` with ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
 ``WORLD_SIZE``) joined by ``torch.distributed``.  Every rank holds the
-whole global batch and takes the contiguous block of rows that
-``NamedSharding(P("data"))`` would place on its device (:func:`block`).
+whole global batch.  ``mesh_axes``/``mesh_shape`` lay the ranks out as the
+JAX trainer lays out its devices (:func:`grid`): rank r sits at
+(r // s, r % s) of a (data = d, seq = s) grid and takes the contiguous
+block of rows (:func:`block`) and of frames (:func:`frames`) that
+``NamedSharding(P("data", "seq"))`` would place on its device.  Where XLA
+exchanges halos between the seq shards at every dilated conv, a seq rank
+here computes its frames widened by the denoiser's receptive field
+(:func:`halo`, :func:`window`) and nothing crosses ranks inside the layer
+stack (``training/task.py``).
 
 Only two collectives are used, ``all_reduce`` (SUM) and ``broadcast``, so
 the same code runs under ``nccl`` (one card per rank) and under ``gloo``
@@ -16,8 +23,9 @@ share one card).
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, List, NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
@@ -103,6 +111,88 @@ def block(n: int, r: int | None = None, w: int | None = None) -> slice:
         raise ValueError(f"a batch of {n} does not split over {w} ranks")
     k = n // w
     return slice(r * k, (r + 1) * k)
+
+
+class Grid(NamedTuple):
+    """The (data, seq) grid of ranks: ``data`` blocks of the batch axis
+    times ``seq`` blocks of the time axis."""
+    data: int = 1
+    seq: int = 1
+
+    def cell(self, r: int) -> tuple:
+        """Rank ``r``'s (data index, seq index): the position of device r
+        in ``np.arange(world).reshape(data, seq)``."""
+        return divmod(r, self.seq)
+
+
+def grid(hp=None, world: int | None = None) -> Grid:
+    """The grid that ``mesh_axes`` (``data``, the default, or
+    ``data,seq``) and ``mesh_shape`` lay over ``world`` ranks (default the
+    process group's), as ``diffsvc_tpu/training/trainer.py:79-83`` and
+    ``parallel/mesh.py:23-31`` build the mesh: the default shape is
+    [world, 1], and a shape whose product is not the world size raises.
+    A single rank is the grid (1, 1) whatever the shape, as JAX builds no
+    mesh on one device."""
+    world = world_size() if world is None else int(world)
+    hp = hp or {}
+    axes = tuple(a.strip() for a in
+                 str(hp.get("mesh_axes") or "data").split(","))
+    if axes not in (("data",), ("data", "seq")):
+        raise ValueError(f"mesh_axes {','.join(axes)!r}: the port lays out "
+                         "'data' or 'data,seq'")
+    if world == 1:
+        return Grid(1, 1)
+    shape = hp.get("mesh_shape")
+    shape = [world] + [1] * (len(axes) - 1) if shape is None else \
+        [int(n) for n in shape]
+    if len(shape) != len(axes) or math.prod(shape) != world:
+        raise ValueError(f"mesh_shape {shape} over mesh_axes "
+                         f"{','.join(axes)!r} does not lay out {world} ranks")
+    return Grid(*shape)
+
+
+def data_world(hp=None) -> int:
+    """The data axis's size: the batch is split over it, and the trainer
+    batches and pads for it (``data_parallel_world_size``)."""
+    return grid(hp).data
+
+
+def data_index(hp=None, r: int | None = None) -> int:
+    return grid(hp).cell(rank() if r is None else r)[0]
+
+
+def seq_index(hp=None, r: int | None = None) -> int:
+    return grid(hp).cell(rank() if r is None else r)[1]
+
+
+def frames(t: int, j: int, s: int, axis: str = "time") -> slice:
+    """Seq index ``j``'s own frames of a time axis of ``t``: ``[j t/s,
+    (j+1) t/s)``, the placement of ``P(..., "seq")``.  A ``t`` that does
+    not divide by ``s`` raises, as JAX's jit refuses it."""
+    if t % s:
+        raise ValueError(f"the {axis} axis of {t} frames does not split "
+                         f"over the seq axis of {s}")
+    k = t // s
+    return slice(j * k, (j + 1) * k)
+
+
+def halo(net, t: int) -> int:
+    """Frames on each side of a seq block that its own outputs depend on:
+    the wavenet's receptive radius, the sum of its dilations (each k=3
+    layer of dilation 2^(i % cycle) reaches that far either side),
+    ``(L / cycle) (2^cycle - 1)``: 75 at config_44k's 20 layers in cycles
+    of 4.  The FFT denoiser attends over the whole clip: ``t``."""
+    from ..models.diffnet import DiffNet
+
+    if not isinstance(net, DiffNet):
+        return t
+    return net.n_layers // net.cycle * (2 ** net.cycle - 1)
+
+
+def window(own: slice, t: int, h: int) -> slice:
+    """The frames a seq rank computes: its own frames widened by the halo
+    ``h`` on each side and clipped to ``[0, t)``."""
+    return slice(max(own.start - h, 0), min(own.stop + h, t))
 
 
 def all_reduce_sum(tensors: Sequence[torch.Tensor]) -> List[torch.Tensor]:

@@ -14,6 +14,10 @@ there is no fallback).  On N cards, one process per card:
 
 or ``distributed: true`` with ``MASTER_ADDR``/``MASTER_PORT``/``RANK``/
 ``WORLD_SIZE`` set (``parallel/dist.py``: nccl, or ``dist_backend: gloo``).
+``mesh_axes: data,seq`` with ``mesh_shape: [d, s]`` (d s = N) in the
+config lays the N ranks out as a (data, seq) grid: sequence-parallel
+training, each rank on its rows and its window of frames
+(``training/task.py``).
 ``--validate`` runs one validation pass on the latest checkpoint;
 ``--infer`` renders the test split from it (``training/test_runner.py``);
 both on rank 0 alone.  A vocoder ``task_cls`` (e.g.
@@ -74,7 +78,13 @@ def run_task(hp, device=None):
     if not hp.get("task_cls", ""):
         raise ValueError("config must define task_cls")
     dist.maybe_initialize_distributed(hp, device=device)
+    grid = dist.grid(hp)     # raises for a shape that is not the world's
     if "vocoder" in str(hp["task_cls"]).lower():
+        if grid.seq > 1:
+            raise ValueError(f"a vocoder task_cls ({hp['task_cls']}) trains "
+                             "without a seq axis (mesh_shape "
+                             f"{hp.get('mesh_shape')}), as the JAX package's "
+                             "vocoder task has no mesh")
         # adversarial vocoder training has its own loop (crops of raw
         # waveforms, D then G steps), as in the JAX package's run.py
         from .training.vocoder_task import train_vocoder

@@ -16,9 +16,14 @@ pe's convolutions, forward and backward, are true f32
 
 Data parallel as ``SVCTask``: each rank takes its contiguous rows of the
 global batch and divides by the global batch's frame counts, and the
-gradients and losses are summed over ranks.  pe's BatchNorm runs on its
-running statistics in training too (``diffsvc_tpu/models/pe.py:51-52,
-104``), so no statistic crosses samples and no synced BatchNorm is needed.
+gradients and losses are summed over ranks.  Under a seq axis the step is
+replicated over seq, as JAX shards it on ``data`` alone
+(``pe_task.py:100-106``): the rank at seq index 0 of each data block
+computes the block's share and the other seq ranks add zeros to the same
+SUM ``all_reduce``, so no block counts s times and every rank ends with
+the same numbers.  pe's BatchNorm runs on its running statistics in
+training too (``diffsvc_tpu/models/pe.py:51-52, 104``), so no statistic
+crosses samples and no synced BatchNorm is needed.
 """
 
 from __future__ import annotations
@@ -90,9 +95,10 @@ def _train_bn_stats(model: PitchExtractor) -> None:
 
 
 class PitchExtractionTask(Optimized):
-    def __init__(self, hp, device=None):
+    def __init__(self, hp, device=None, grid: Optional[dist.Grid] = None):
         self.hp = hp
         self.device = default_device(device)
+        self.grid = dist.grid(hp) if grid is None else grid
         self.seed = int(hp.get("seed", 1234))
         self.conv_layers = int(hp.get("pitch_extractor_conv_layers", 2))
         self.optimizer_name = "adamw"     # the JAX pe task's, whatever hp says
@@ -147,11 +153,18 @@ class PitchExtractionTask(Optimized):
     def loss_and_grads(self, batch: Dict):
         """(loss, {'uv', 'f0'}, one grad per parameter) of this rank's rows
         of a global batch, normalized by the global batch's frame counts,
-        not yet summed over ranks.  The backward's convolutions run in true
-        f32 too: cuDNN reads ``allow_tf32`` when the backward runs, not when
-        the forward recorded it."""
+        not yet summed over ranks (zeros past seq index 0).  The backward's
+        convolutions run in true f32 too: cuDNN reads ``allow_tf32`` when
+        the backward runs, not when the forward recorded it."""
+        i, j = self.grid.cell(dist.rank())
+        if j:
+            zero = torch.zeros((), device=self.device)
+            keys = ("uv", "f0") if self.use_uv() else ("f0",)
+            return zero, dict.fromkeys(keys, zero), \
+                [torch.zeros_like(p) for p in self.params]
         counts = frame_counts(batch, self.use_uv())
-        local = local_rows(batch, dist.block(int(np.shape(batch["mels"])[0])))
+        local = local_rows(batch, dist.block(int(np.shape(batch["mels"])[0]),
+                                             i, self.grid.data))
         with fnn.true_f32_convs():
             loss, losses = self.loss(local, counts)
             grads = torch.autograd.grad(loss, self.params, allow_unused=True)

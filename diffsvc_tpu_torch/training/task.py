@@ -27,6 +27,24 @@ the global ones: one SUM ``all_reduce`` of the gradients and the loss, not
 last batch.  The training route is decided on the rank's block, as JAX
 decides it at ``b // n_dp``.  Clipping, accumulation, the optimizer and the
 EMA then run on every rank on the same numbers.
+
+Sequence parallel (``mesh_axes: data,seq``, ``parallel/dist.grid``): the
+rank at (i, j) of a (d, s) grid takes the rows of data block i and, of
+every time axis but ``hubert``'s, the window of seq block j's own frames
+widened by the denoiser's receptive field (``dist.halo``: 75 frames at
+config_44k) and clipped to the clip.  The conditioner and the denoiser run
+on the window; at the clip's true edges it is not padded, so every layer
+zero-pads where the unsharded run does and the own frames' outputs are
+exact.  The loss is the own frames' share of the global loss, so every
+weight's gradient is the exact gradient of that share, and the shares of
+all d s ranks sum to the global loss and gradients under the same SUM
+``all_reduce``; no activation crosses ranks.  ``hubert`` stays whole (the
+``mel2ph`` gather indexes the whole unit sequence; JAX all-gathers it), so
+FS2-full runs its encoder over its rows' whole units on every seq rank,
+with its dropout drawn from the data index, and gathers the window.  As in
+JAX every seq-sharded step takes the wavenet's scan route, K4 at the f32
+stream (``diffnet.train_route``).  A window costs 2 H frames over its own
+T / s: 3.7% at T=4096, s=2.
 """
 
 from __future__ import annotations
@@ -45,6 +63,7 @@ from ..utils.convert import strip_prefix
 from .scheduler import build_lr_schedule
 
 BATCH_KEYS = ("hubert", "mels", "mel2ph", "energy", "f0", "uv", "sample_mask")
+TIME_KEYS = ("mels", "mel2ph", "energy", "f0", "uv")   # split over seq
 
 
 TRAIN, VALID, SAMPLE, DROPOUT = 0, 1, 2, 3   # streams of draws
@@ -68,6 +87,13 @@ def local_rows(batch: Dict, rows: slice) -> Dict:
     n = int(np.shape(batch["mels"])[0])
     return {k: v[rows] if isinstance(v, np.ndarray) and v.ndim
             and v.shape[0] == n else v for k, v in batch.items()}
+
+
+def local_frames(batch: Dict, win: slice) -> Dict:
+    """The frames ``win`` of every time axis of a collated batch (the mel
+    frame axis of :data:`TIME_KEYS`; ``hubert`` stays whole)."""
+    return {k: v[:, win] if k in TIME_KEYS and isinstance(v, np.ndarray)
+            else v for k, v in batch.items()}
 
 
 def real_rows(batch: Dict) -> Optional[float]:
@@ -235,9 +261,13 @@ def optimizer_name(hp) -> str:
 
 
 class SVCTask(Optimized):
-    def __init__(self, hp, device=None):
+    def __init__(self, hp, device=None, grid: Optional[dist.Grid] = None):
+        """``grid``: the (data, seq) grid of the step (default
+        ``dist.grid(hp)`` over the process group; a check that sums every
+        cell's share in one process passes it)."""
         self.hp = hp
         self.device = default_device(device)
+        self.grid = dist.grid(hp) if grid is None else grid
         self.ema_decay = float(hp.get("ema_decay", 0) or 0)
         self.seed = int(hp.get("seed", 1234))
         self.optimizer_name = optimizer_name(hp)
@@ -289,22 +319,48 @@ class SVCTask(Optimized):
         return t, noise
 
     def loss_and_grads(self, batch: Dict, *, t=None, noise=None,
-                       rows: Optional[slice] = None):
+                       rows: Optional[slice] = None,
+                       frames: Optional[slice] = None):
         """This rank's loss and one grad per parameter (zeros where the loss
-        does not reach, as in JAX) of its rows of a global ``batch``, not
-        yet summed over ranks: each rank's loss is its rows' share of the
-        global mean, so the sum over ranks is the global loss and gradient.
-        ``rows`` takes another block (the checks sum every rank's block in
+        does not reach, as in JAX) of its share of a global ``batch``, not
+        yet summed over ranks: its rows' (and, under a seq axis, its own
+        frames') share of the global mean, so the sum over ranks is the
+        global loss and gradient.  ``rows`` and ``frames`` take another
+        cell's rows and own frames (the checks sum every cell's share in
         one process)."""
         t, noise = self.draws(batch, t, noise)
+        n, t_len = np.shape(batch["mels"])[:2]
+        d, s = self.grid
+        i, j = self.grid.cell(dist.rank())
         if rows is None:
-            rows = dist.block(int(np.shape(batch["mels"])[0]))
-        jb = self.prepare_batch(local_rows(batch, rows))
+            rows = dist.block(n, i, d)
+        if frames is None and s > 1:
+            frames = dist.frames(t_len, j, s)
+        sharded = d * s > 1 or rows != slice(0, n) or frames is not None
+        if sharded and batch.get("sample_mask") is None:
+            # the sharded losses divide by the global count of rows, as the
+            # JAX step adds its sample_mask of ones under a mesh
+            batch = dict(batch, sample_mask=np.ones(n, np.float32))
+        local = local_rows(batch, rows)
+        noise = noise[rows]
+        own = None
+        if frames is not None:
+            # JAX splits hubert's time axis over seq too: its jit refuses a
+            # length that s does not divide
+            dist.frames(np.shape(batch["hubert"])[1], j, s, "hubert")
+            win = dist.window(frames, t_len,
+                              dist.halo(self.model.denoise_fn, t_len))
+            local, noise = local_frames(local, win), noise[:, win]
+            own = torch.zeros(win.stop - win.start, device=self.device)
+            own[frames.start - win.start: frames.stop - win.start] = 1.0
+        # FS2-full's dropout: one draw per data block, so that the seq ranks
+        # of a block run the same encoder
+        block_index = rows.start // max(rows.stop - rows.start, 1)
         loss, _ = self.model.training_loss(
-            jb, t=t[rows], noise=noise[rows],
+            self.prepare_batch(local), t=t[rows], noise=noise,
             generator=draw_generator(self.device, self.seed, DROPOUT,
-                                     self.step, dist.rank()),
-            count=real_rows(batch))
+                                     self.step, block_index),
+            count=real_rows(batch), own=own, frames=t_len, seq=s)
         grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(self.params, grads)]

@@ -885,3 +885,77 @@ def test_hifigan_gan_step_card_matches_cpu(cuda):
         ref = p0 * (1 - lr * 1e-4) - lr * g / (g.abs() + 1e-8)
         err = (p.detach().double() - ref).abs() - 4 * ulp * ref.abs()
         assert float(err.max()) <= 1e-3 * lr
+
+
+def test_seq_window_sum_on_the_card(cuda):
+    """The (data = 2, seq = 2) grid's four window shares of one step,
+    summed, against the unsharded step on the card at C=128, 8 layers
+    (halo 30), B=4, T=512: on the plain versions (true f32) every grad
+    within 1e-5 rel-L2 and the loss within 1e-6; through K4 at the f32
+    stream (3xTF32 products, whose rounding the windows need not repeat)
+    within 5e-3, chip_smoke.py's limit on a step through K4, with K4
+    moving on every window and K5 not."""
+    import contextlib
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack_per_sample,
+                                              diffnet_stack_train as k4)
+    from diffsvc_tpu_torch.parallel import dist
+    from diffsvc_tpu_torch.training.task import SVCTask
+
+    hp = HParams(
+        audio_num_mel_bins=32, hidden_size=64, residual_layers=8,
+        residual_channels=128, dilation_cycle_length=4, timesteps=20,
+        K_step=20, diff_loss_type="l1", schedule_type="linear",
+        max_beta=0.02, keep_bins=32, spec_min=[-6.0], spec_max=[1.5],
+        no_fs2=True, use_pitch_embed=True, pitch_norm="log", f0_bin=256,
+        f0_min=50.0, f0_max=1100.0, seed=0, lr=1e-3,
+        diffnet_train_stream_dtype="f32")
+    b, t, u = 4, 512, 256
+    rng = np.random.RandomState(0)
+    mel2ph = np.tile(np.arange(t) * u // t + 1, (b, 1)).astype(np.int32)
+    mel2ph[1, 400:] = 0
+    batch = {"hubert": (rng.randn(b, u, 64) * 0.3).astype(np.float32),
+             "mel2ph": mel2ph,
+             "f0": (7.6 + 0.2 * rng.randn(b, t)).astype(np.float32),
+             "uv": np.zeros((b, t), np.float32),
+             "energy": np.zeros((b, t), np.float32),
+             "mels": (rng.rand(b, t, 32) * 7.5 - 6.0).astype(np.float32),
+             "sample_mask": np.array([1, 1, 1, 0], np.float32)}
+    task = SVCTask(hp, device=cuda)
+    head = task.model.denoise_fn.output_projection
+    with torch.no_grad():
+        head.weight.copy_(torch.randn(head.weight.shape, generator=torch.
+                                      Generator().manual_seed(3)) * 0.2)
+    draws = task.draws(batch)
+
+    def step(plain, grid):
+        task.grid = dist.Grid(*grid)
+        loss, grads = 0.0, None
+        with contextlib.ExitStack() as stack:
+            if plain:
+                for name in ("residual_stack_train_fwd",
+                             "residual_stack_train_batched_bwd"):
+                    real = getattr(k4, name)
+                    stack.callback(setattr, k4, name, real)
+                    setattr(k4, name, getattr(k4, name + "_plain"))
+            for i in range(grid[0]):
+                for j in range(grid[1]):
+                    before = (k4.launches, diffnet_stack_per_sample.launches)
+                    lo, g = task.loss_and_grads(
+                        batch, t=draws[0], noise=draws[1],
+                        rows=dist.block(b, i, grid[0]),
+                        frames=dist.frames(t, j, grid[1]))
+                    assert (k4.launches > before[0]) != plain
+                    assert diffnet_stack_per_sample.launches == before[1]
+                    loss = loss + lo
+                    grads = g if grads is None else \
+                        [x + y for x, y in zip(grads, g)]
+        return loss, grads
+
+    for plain, tol in ((True, 1e-5), (False, 5e-3)):
+        l0, g0 = step(plain, (1, 1))
+        loss, grads = step(plain, (2, 2))
+        assert abs(float(loss - l0)) <= 1e-6 * abs(float(l0))
+        for x, y in zip(grads, g0):
+            assert _rel(x, y) <= tol or float(y.norm()) == 0.0
