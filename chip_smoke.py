@@ -280,11 +280,30 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    dropout 0.1 whose encoder output is bit-equal on the two seq ranks of
    each data block.
 
+13. The ONNX export (``[onnx]`` lines) of phase 4's project at full width:
+   the encoder, denoise, pred and after graphs, the DPM-Solver++ step graph
+   at ``config_44k_fast.yaml``'s sampler settings and the NSF-HiFiGAN graph,
+   each traced on the CPU at 10 frames (bytes per graph printed, export
+   seconds for the four split graphs' one call, dpmpp and hifigan),
+   run by the port's numpy runtime at 160 frames (the vocoder at 24) and
+   held against the card: (a) the denoise graph against ``diffnet.apply``
+   (K1 at f32) on the same noise, step and condition (K1's f32 limit,
+   1e-5); (b) encoder -> denoise -> pred -> after at acc=100 (11
+   evaluations) and the dpmpp chain against ``GaussianDiffusion.infer``'s
+   f32 K2 ladder from the same x_T, on the part of the ln-mel that the
+   denoiser put there (the run minus the same run with eps = 0, as K2's
+   check; K2's limit, 1e-4); (c) the hifigan graph against
+   ``generator.apply_serving`` (K3) on the same mel, f0, rand_ini and noise
+   (K3's limit, 1e-4).  The planted faults must read above the limits: a
+   pred graph with time and time_prev swapped, a denoise graph exported
+   with one layer's conditioner projection zeroed, a hifigan graph that
+   ignores its noise input.  K1, K2 and K3 must move (``launches_onnx``).
+
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
-in each of phase 9's parts, phase 10's, phase 11's and phase 12's, errors,
-times, bound);
+in each of phase 9's parts, phase 10's, phase 11's, phase 12's and phase
+13's, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5477,6 +5496,322 @@ def phase_seq(device, workdir):
 
 
 # ---------------------------------------------------------------------------
+# Phase 13: the ONNX export
+# ---------------------------------------------------------------------------
+
+# The graphs are traced at ONNX_TRACE frames and run by the port's numpy
+# runtime at ONNX_T (1.86 s at hop 512, 44.1 kHz; ONNX_T_PH HuBERT frames at
+# 50 Hz), the hifigan graph at ONNX_VOC_T: its numpy convolutions are the
+# runtime's slow part.  The limits are the kernels' own f32 limits.
+ONNX_TRACE, ONNX_T, ONNX_T_PH, ONNX_VOC_T = 10, 160, 93, 24
+ONNX_ACC = 100          # PLMS: 10 steps, 11 denoiser evaluations
+ONNX_STEP = 500         # (a)'s diffusion step
+ONNX_TOL = {"denoise": TOL[("residual_stack", "f32")],
+            "chain": TOL[("plms_ladder", "f32")],
+            "hifigan": TOL[("vocoder_tail", "f32")]}
+FAST_KEYS = ("sampler", "dpmpp_grid", "pndm_speedup", "sampler_clip_x0")
+
+
+def onnx_features(seed: int = 0) -> dict:
+    """Seeded encoder inputs at ONNX_T frames: HuBERT-like units, a
+    monotone 1-based alignment, log2 f0 around 200 Hz with a vibrato, and
+    x_T [1, 1, M, T]."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(ONNX_T)
+    return {"hubert": (rng.randn(1, ONNX_T_PH, H) * 0.3).astype(np.float32),
+            "mel2ph": (np.minimum(t * ONNX_T_PH // ONNX_T, ONNX_T_PH - 1)
+                       + 1)[None].astype(np.int64),
+            "f0": np.log2(200.0 * 2 ** (0.3 * np.sin(t / 9.0)))[None]
+            .astype(np.float32),
+            "noise": rng.randn(1, 1, M, ONNX_T).astype(np.float32)}
+
+
+@contextlib.contextmanager
+def hp_items(hp, items: dict):
+    """hparams entries replaced for the duration of the block."""
+    saved = {k: hp[k] for k in items if k in hp}
+    hp.update(items)
+    try:
+        yield
+    finally:
+        for k in items:
+            hp.pop(k, None)
+        hp.update(saved)
+
+
+def card_mel(model, feats, device, speedup: int):
+    """``GaussianDiffusion.infer`` on the card (K2) from the features' x_T:
+    the ln-mel [1, M, T], numpy."""
+    import numpy as np
+    import torch
+
+    batch = {k: torch.from_numpy(feats[k]).to(device)
+             for k in ("hubert", "mel2ph", "f0")}
+    x_t = torch.from_numpy(np.ascontiguousarray(
+        feats["noise"][:, 0].transpose(0, 2, 1))).to(device)
+    with torch.no_grad():
+        out = model.infer(batch, speedup=speedup, init_noise=x_t)
+    return (out["mel_out"].float() * np.log(10.0)).transpose(1, 2) \
+        .cpu().numpy()
+
+
+def onnx_mel(run, feats, sampler: str, k_step: int, meta=None, den=None,
+             pred=None):
+    """The exported chain on the numpy runtime (``onnx.chain``'s loops):
+    the ln-mel [1, M, T] and the encoder's condition."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.onnx import chain
+
+    cond, _ = run["encoder"](feats["hubert"], feats["mel2ph"],
+                             np.zeros((1,), np.int64), feats["f0"])
+    den = den or run["denoise"]
+    if sampler == "dpmpp":
+        x = chain.dpmpp_chain(den, run["dpmpp"], meta, feats["noise"], cond)
+    else:
+        x = chain.plms_chain(den, pred or run["pred"], feats["noise"], cond,
+                             k_step, ONNX_ACC)
+    return run["after"](x)[0], cond
+
+
+def zero_eps(x, t, cond):
+    """A denoise stand-in that predicts eps = 0 (the chain's baseline)."""
+    import numpy as np
+
+    return [np.zeros_like(x)]
+
+
+def rewired(run, inputs: dict, zeroed_inputs=()):
+    """``run`` (a runner of its own, a second parse of a graph) with its
+    nodes reading graph input ``inputs[x]`` where they read ``x``, and each
+    input of ``zeroed_inputs`` times zero: a planted fault."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.onnx import wire
+
+    names = dict(inputs)
+    for x in zeroed_inputs:
+        run.initializers[f"{x}_zero"] = np.zeros((), np.float32)
+        names[x] = f"{x}_zeroed"
+    for node in run.graph.node:
+        for i, x in enumerate(node.input):
+            if x in names:
+                node.input[i] = names[x]
+    for x in zeroed_inputs:
+        mul = wire.NodeProto()
+        mul.op_type = "Mul"
+        mul.input.extend([x, f"{x}_zero"])
+        mul.output.append(f"{x}_zeroed")
+        run.graph.node.insert(0, mul)
+    return run
+
+
+def phase_onnx(device, workdir, project):
+    """Phase 13: the port's ONNX artifacts of phase 4's project on the
+    numpy runtime against K1, K2 and K3 on the card, with planted faults."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from diffsvc_tpu_torch.onnx import svc_export
+    from diffsvc_tpu_torch.onnx.runtime import OnnxRunner
+    from diffsvc_tpu_torch.vocoders import generator
+
+    t_phase = time.time()
+    svc = project["svcs"][""]
+    hp, model, gen = svc.hp, svc.model, svc.vocoder.gen
+    out = os.path.join(workdir, "onnx")
+    res = {"export_s": {}, "bytes": {}, "readings": {}, "faults": {},
+           "launches": {}}
+    with open(os.path.join(ROOT, "configs", "config_44k_fast.yaml")) as f:
+        fast = {k: v for k, v in yaml.safe_load(f).items() if k in FAST_KEYS}
+    traces = {}
+    t0 = time.time()
+    paths = svc_export.export_svc_onnx(hp, model, out, "proj",
+                                       t_ph=ONNX_TRACE, t_mel=ONNX_TRACE,
+                                       traces=traces)
+    res["export_s"]["svc"] = time.time() - t0
+    t0 = time.time()
+    paths.update(svc_export.export_dpmpp_onnx(
+        dict(hp, **fast), out, "proj", speedup=int(fast["pndm_speedup"]),
+        t_mel=ONNX_TRACE))
+    res["export_s"]["dpmpp"] = time.time() - t0
+    t0 = time.time()
+    paths["hifigan"] = svc_export.export_vocoder_onnx(gen, out, "proj",
+                                                      t_mel=ONNX_TRACE)
+    res["export_s"]["hifigan"] = time.time() - t0
+    with open(paths["dpmpp_meta"]) as f:
+        meta = json.load(f)
+
+    # the planted faults' graphs, never the kept ones: the denoise trace
+    # converted again with one layer's conditioner projection zeroed (a
+    # copy of the weights), and second parses of the pred and hifigan
+    # graphs rewired
+    t0 = time.time()
+    n_layers = len(model.denoise_fn.residual_layers)
+    cp = model.denoise_fn.residual_layers[n_layers // 2] \
+        .conditioner_projection
+    name = f"net.residual_layers.{n_layers // 2}.conditioner_projection"
+    with open(os.path.join(out, "fault_denoise.onnx"), "wb") as f:
+        f.write(traces["denoise"].onnx(
+            ["noise_pred"], graph_name="denoise",
+            state={f"{name}.weight": torch.zeros_like(cp.weight, device="cpu"),
+                   f"{name}.bias": torch.zeros_like(cp.bias, device="cpu")}))
+    res["export_s"]["fault_denoise"] = time.time() - t0
+    for k, v in paths.items():
+        res["bytes"][k] = os.path.getsize(v)
+        log(f"[onnx] {k}: {res['bytes'][k]} bytes")
+    log(f"[onnx] export seconds: encoder, denoise, pred and after in one "
+        f"export_svc_onnx call {res['export_s']['svc']:.2f}s, dpmpp "
+        f"{res['export_s']['dpmpp']:.2f}s, hifigan "
+        f"{res['export_s']['hifigan']:.2f}s")
+    log(f"[onnx] the planted fault's denoise graph converted again from "
+        f"the trace in {res['export_s']['fault_denoise']:.2f}s")
+
+    t0 = time.time()
+
+    def load(path):
+        with open(path, "rb") as f:
+            return OnnxRunner(f.read())
+
+    run = {k: load(v) for k, v in paths.items() if v.endswith(".onnx")}
+    fault_run = {"pred_swapped": rewired(load(paths["pred"]), {
+                     "time": "time_prev", "time_prev": "time"}),
+                 "cond_zeroed": load(os.path.join(out, "fault_denoise.onnx")),
+                 "noise_ignored": rewired(load(paths["hifigan"]), {},
+                                          zeroed_inputs=("noise",))}
+    res["load_s"] = time.time() - t0
+    feats = onnx_features()
+    k_step = int(hp.get("K_step", 1000))
+    h1 = gen.cfg.harmonic_num + 1
+    up = int(np.prod(gen.cfg.upsample_rates))
+    readings, fault_rd = res["readings"], res["faults"]
+
+    def rel(a, b):
+        return rel_l2(torch.from_numpy(np.asarray(a)),
+                      torch.from_numpy(np.asarray(b)))
+
+    with counted("phase 13", res["launches"],
+                 moved=("residual_stack", "plms_ladder", "vocoder_tail"),
+                 tag="onnx"):
+        # (b) the chains, PLMS at acc=100 and DPM-Solver++ at the fast
+        # profile, minus their eps = 0 runs; the numpy chains' time and
+        # denoise evaluations apart from the card's ladders
+        chains, evals = {}, [0]
+        t_np = t_card = 0.0
+
+        def den(*args):
+            evals[0] += 1
+            return run["denoise"](*args)
+
+        for sampler, items, speedup in (("plms", {"sampler": "plms",
+                                                  "sampler_clip_x0": 0.0},
+                                         ONNX_ACC),
+                                        ("dpmpp", fast,
+                                         int(fast["pndm_speedup"]))):
+            t0 = time.time()
+            with hp_items(hp, dict(items, diff_compute_dtype="")):
+                card = card_mel(model, feats, device, speedup)
+                with zeroed(*denoiser_head(svc)):
+                    card0 = card_mel(model, feats, device, speedup)
+            t_card += time.time() - t0
+            t0 = time.time()
+            mel, cond = onnx_mel(run, feats, sampler, k_step, meta, den=den)
+            mel0, _ = onnx_mel(run, feats, sampler, k_step, meta,
+                               den=zero_eps)
+            t_np += time.time() - t0
+            chains[sampler] = (card - card0, mel0)
+            readings[f"chain_{sampler}"] = rel(mel - mel0, card - card0)
+            readings[f"chain_{sampler}_whole"] = rel(mel, card)
+        readings.update(chain_numpy_s=t_np, chain_card_s=t_card,
+                        chain_evals=evals[0])
+        mel_fault, _ = onnx_mel(run, feats, "plms", k_step,
+                                pred=fault_run["pred_swapped"])
+        fault_rd["pred_swapped"] = rel(mel_fault - chains["plms"][1],
+                                       chains["plms"][0])
+
+        # (a) one denoiser evaluation on the encoder's condition
+        t0 = time.time()
+        tt = np.asarray([ONNX_STEP], np.int64)
+        with torch.no_grad():
+            want = diffnet_apply_card(model, feats["noise"], tt, cond,
+                                      device)
+        got = run["denoise"](feats["noise"], tt, cond)[0]
+        readings["denoise"] = rel(got, want)
+        fault_rd["cond_zeroed"] = rel(
+            fault_run["cond_zeroed"](feats["noise"], tt, cond)[0], want)
+        readings["denoise_s"] = time.time() - t0
+
+        # (c) the vocoder on the PLMS chain's mel, with unvoiced frames
+        t0 = time.time()
+        rng = np.random.RandomState(1)
+        voc_mel = np.ascontiguousarray(mel[:, :, :ONNX_VOC_T])
+        f0 = (200.0 * 2 ** (0.3 * np.sin(np.arange(ONNX_VOC_T) / 9.0)))[
+            None].astype(np.float32)
+        f0[0, 5:9] = 0.0
+        ri = rng.rand(1, h1).astype(np.float32)
+        nz = rng.randn(1, h1, ONNX_VOC_T * up).astype(np.float32)
+        with torch.no_grad():
+            wav = generator.apply_serving(
+                gen, torch.from_numpy(voc_mel.transpose(0, 2, 1).copy())
+                .to(device), torch.from_numpy(f0).to(device),
+                (torch.from_numpy(ri).to(device),
+                 torch.from_numpy(nz).to(device))).cpu().numpy()
+        readings["hifigan"] = rel(run["hifigan"](voc_mel, f0, ri, nz)[0], wav)
+        fault_rd["noise_ignored"] = rel(
+            fault_run["noise_ignored"](voc_mel, f0, ri, nz)[0], wav)
+        readings["hifigan_s"] = time.time() - t0
+
+    limits = {"denoise": ONNX_TOL["denoise"], "chain_plms": ONNX_TOL["chain"],
+              "chain_dpmpp": ONNX_TOL["chain"],
+              "hifigan": ONNX_TOL["hifigan"]}
+    fault_of = {"cond_zeroed": "denoise", "pred_swapped": "chain_plms",
+                "noise_ignored": "hifigan"}
+    for k, lim in limits.items():
+        log(f"[onnx] ({'a' if k == 'denoise' else 'c' if k == 'hifigan' else 'b'}"
+            f") {k}: rel_l2 {readings[k]:.3e} (tol {lim:g})"
+            + (f"; whole ln-mel {readings[k + '_whole']:.3e}"
+               if k.startswith("chain") else ""))
+    for k, base in fault_of.items():
+        log(f"[onnx] (d) planted fault {k}: rel_l2 {fault_rd[k]:.3e} (must "
+            f"exceed {limits[base]:g})")
+    log(f"[onnx] numpy runtime: load {res['load_s']:.2f}s, chains "
+        f"{readings['chain_numpy_s']:.2f}s for "
+        f"{readings['chain_evals']} denoise evaluations (the card's four "
+        f"K2 ladders {readings['chain_card_s']:.2f}s), (a) "
+        f"{readings['denoise_s']:.2f}s, hifigan "
+        f"{readings['hifigan_s']:.2f}s")
+    res["seconds"] = time.time() - t_phase
+    log(f"[onnx] phase 13 took {res['seconds']:.1f}s")
+    failed = [k for k, lim in limits.items() if not readings[k] <= lim]
+    failed += [k for k, base in fault_of.items()
+               if not fault_rd[k] > limits[base]]
+    if failed:
+        raise SmokeError(f"phase 13 gates failed: {failed} "
+                         f"({readings}, faults {fault_rd})")
+    return res
+
+
+def diffnet_apply_card(model, noise, t, cond, device):
+    """``diffnet.apply`` (K1) on the card from the graph's layouts: noise
+    [1, 1, M, T], t [1], cond [1, H, T] -> [1, 1, M, T], numpy."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.models import diffnet
+
+    spec = torch.from_numpy(np.ascontiguousarray(
+        noise[:, 0].transpose(0, 2, 1))).to(device)
+    c = torch.from_numpy(np.ascontiguousarray(cond.transpose(0, 2, 1))) \
+        .to(device)
+    out = diffnet.apply(model.denoise_fn, spec, torch.from_numpy(t).to(device),
+                        c)
+    return out.float().transpose(1, 2)[:, None].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
 
 def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5575,12 +5910,14 @@ def main(argv=None) -> int:
                 record["voc"] = timed("11 voc", phase_voc, device, tmp,
                                      project)
                 record["seq"] = timed("12 seq", phase_seq, device, tmp)
+                record["onnx"] = timed("13 onnx", phase_onnx, device, tmp,
+                                       project)
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-12: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-13: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -5598,7 +5935,8 @@ def main(argv=None) -> int:
     # phase 10's parts (each rank of the training runs in its own process
     # and counts its own launches); launches_voc: phase 11's routes and GAN
     # training runs; launches_seq: phase 12's parts (in process, and each
-    # rank of the grid)
+    # rank of the grid); launches_onnx: phase 13's card runs (K1, K2, K3
+    # against the exported graphs)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -5641,6 +5979,8 @@ def main(argv=None) -> int:
                         "launches_seq": {
                             part: counts[name] for part, counts in
                             record["seq"]["launches"].items()},
+                        "launches_onnx": record["onnx"]["launches"][
+                            "phase 13"][name],
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -206,7 +206,7 @@ def step_bias(p: dict, step: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
-          train_stream: str | None = None, seq: int = 1):
+          train_stream: str | None = None, seq: int = 1, plain: bool = False):
     """Predict noise.  The compute dtype is ``spec.dtype`` (f32 or bf16).
 
     :param spec: [B, T, M] noisy mel
@@ -222,19 +222,32 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
         (validation's loss)
     :param seq: the seq axis of the training grid (> 1: a seq rank's
         window, always the scan route)
+    :param plain: CPU trace only: the uncached :meth:`DiffNet.weights` and
+        K1's plain version (``residual_stack_plain``), serving's numbers
+        without the kernel.  The ONNX export traces this route
+        (``onnx/svc_export.py``), since a CUDA kernel cannot be traced; on
+        another device it raises, so no caller skips K1 on the card
     :return: [B, T, M] noise prediction in the compute dtype
     """
+    if plain and spec.device.type != "cpu":
+        raise ValueError("plain=True traces on the CPU; on "
+                         f"{spec.device.type} the denoiser runs K1")
     dt = spec.dtype
     grad = train_stream is not None and torch.is_grad_enabled()
-    p = net.weights(dt) if grad else net.stacked(dt)
+    fresh = grad or plain
+    p = net.weights(dt) if fresh else net.stacked(dt)
     c, n_layers = net.residual_channels, net.n_layers
     x = torch.relu(spec.float() @ p["win"].float() + p["bin"].float()).to(dt)
     step = step_embedding(p, diffusion_step, c)
     sb = step_bias(p, step, dt)                                  # [L, B, C]
     if cond_proj is None:
-        cond_proj = prepare_cond(net, cond, p if grad else None)
+        cond_proj = prepare_cond(net, cond, p if fresh else None)
     cond_proj = cond_proj.to(dt).contiguous()
-    if train_stream is None:
+    if plain:
+        skip = diffnet_stack.residual_stack_plain(
+            x, sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"],
+            cycle=net.cycle)
+    elif train_stream is None:
         skip = diffnet_stack.residual_stack(
             x.contiguous(), sb, cond_proj, p["wd"], p["bd"], p["wo"],
             p["bo"], cycle=net.cycle)

@@ -959,3 +959,50 @@ def test_seq_window_sum_on_the_card(cuda):
         assert abs(float(loss - l0)) <= 1e-6 * abs(float(l0))
         for x, y in zip(grads, g0):
             assert _rel(x, y) <= tol or float(y.norm()) == 0.0
+
+
+def test_denoise_graph_matches_k1(cuda, tmp_path):
+    """The exported denoise graph (traced on the CPU through K1's plain
+    version) run by the port's numpy runtime at T = 37 (traced at 10)
+    against ``diffnet.apply`` on the card (K1 at f32, 3xTF32) on the same
+    noise, step and condition, at K1's f32 limit; and a graph exported with
+    one layer's conditioner projection zeroed above it."""
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import GaussianDiffusion
+    from diffsvc_tpu_torch.onnx import runtime, svc_export
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as ds
+    from diffsvc_tpu_torch.utils import synth
+
+    hp = HParams(audio_num_mel_bins=16, hidden_size=24, residual_layers=4,
+                 residual_channels=40, dilation_cycle_length=2, timesteps=20,
+                 K_step=20, spec_min=[-6.0], spec_max=[1.5], no_fs2=True,
+                 use_pitch_embed=True, pitch_norm="log", f0_bin=256,
+                 f0_min=50.0, f0_max=1100.0)
+    model = GaussianDiffusion(hp)
+    synth.randomize(model, 0)
+    net = model.denoise_fn.to(cuda)
+    paths = svc_export.export_svc_onnx(hp, model, str(tmp_path), "p")
+    rng = np.random.RandomState(0)
+    x = rng.randn(1, 1, 16, 37).astype(np.float32)
+    cond = rng.randn(1, 24, 37).astype(np.float32)
+    t = np.asarray([7], np.int64)
+    before = ds.launches
+    with torch.no_grad():
+        want = diffnet.apply(
+            net, torch.from_numpy(x[:, 0].transpose(0, 2, 1).copy()).to(cuda),
+            torch.from_numpy(t).to(cuda),
+            torch.from_numpy(cond.transpose(0, 2, 1).copy()).to(cuda))
+    assert ds.launches == before + 1
+    want = want.cpu().transpose(1, 2)[:, None]
+    with open(paths["denoise"], "rb") as f:
+        got = runtime.OnnxRunner(f.read())(x, t, cond)[0]
+    assert _rel(torch.from_numpy(got), want) <= 1e-5
+    with torch.no_grad():
+        model.denoise_fn.residual_layers[1].conditioner_projection \
+            .weight.zero_()
+    fault = svc_export.export_svc_onnx(hp, model.cpu(), str(tmp_path / "f"),
+                                       "p")
+    with open(fault["denoise"], "rb") as f:
+        bad = runtime.OnnxRunner(f.read())(x, t, cond)[0]
+    assert _rel(torch.from_numpy(bad), want) > 1e-5

@@ -196,8 +196,20 @@ t = task.SVCTask(hp, device="cpu")
 checkpoint.save_checkpoint("work", t.state_dict(), 0, 0)
 run_task(HParams(dict(hp, infer=True)), device="cpu")
 n_mels = len(os.listdir("work/P_mels_npy"))
+# the ONNX export: its modules, the CLI, and the four graphs of the tiny
+# project run through the port's runtime
+import diffsvc_tpu_torch.onnx_export
+from diffsvc_tpu_torch.onnx import (builder, chain, convert, runtime,
+                                    svc_export, wire)
+onnx_paths = svc_export.export_svc_onnx(svc.hp, svc.model, "onnx", "proj")
+onnx_ok = bool(np.isfinite(runtime.OnnxRunner(open(
+    onnx_paths["after"], "rb").read())(np.zeros((1, 1, svc.mel_bins, 5),
+                                                np.float32))[0]).all())
+forbidden = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "onnx", "onnxscript") or m.startswith("google.protobuf"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
 print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
+                  "forbidden": forbidden, "onnx": onnx_ok,
                   "n": int(len(wav)), "finite": bool(np.isfinite(wav).all()
                                                      and np.isfinite(wav1).all()
                                                      and np.isfinite(fwav).all()),
@@ -222,8 +234,11 @@ def test_port_never_imports_jax(tmp_path):
     plus tiny CPU conversions through the port's Svc (CREPE asked for,
     falling back without weights; DDPM at acc=1), one through the fused
     program, a batched binarize (the tiny HuBERT's ``encode_batch``) and
-    ``--infer`` on its test split, in a fresh process: neither jax nor any
-    module of the JAX package ``diffsvc_tpu`` may be in sys.modules."""
+    ``--infer`` on its test split, and the ONNX export (``onnx.*``,
+    ``onnx_export``; the tiny project's four graphs written and one run),
+    in a fresh process: neither jax nor any module of the JAX package
+    ``diffsvc_tpu`` may be in sys.modules, nor ``onnx``, ``onnxscript`` or
+    ``google.protobuf``."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -231,7 +246,8 @@ def test_port_never_imports_jax(tmp_path):
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert res == {"jax": False, "ref_pkg": [], "n": res["n"], "finite": True,
+    assert res == {"jax": False, "ref_pkg": [], "forbidden": [], "onnx": True,
+                   "n": res["n"], "finite": True,
                    "batches": res["batches"], "mels": 5}
     assert res["n"] > 0 and res["batches"] > 0
 

@@ -26,9 +26,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 
 
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "diffsvc_tpu", "onnx",
+             "onnxscript")
+
+
+def _forbidden(mod: str) -> bool:
+    return mod.split(".")[0] in FORBIDDEN or mod.startswith("google.protobuf")
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     """Every import statement of chip_smoke.py, at any depth: no jax, no
-    module of ``diffsvc_tpu``."""
+    module of ``diffsvc_tpu``, no ``onnx``, ``onnxscript`` or
+    ``google.protobuf``."""
     with open(SMOKE) as f:
         tree = ast.parse(f.read())
     mods = set()
@@ -38,9 +47,7 @@ def test_chip_smoke_imports_nothing_of_jax():
         elif isinstance(node, ast.ImportFrom) and node.module:
             mods.add(node.module)
     assert "diffsvc_tpu_torch" in {m.split(".")[0] for m in mods}
-    bad = sorted(m for m in mods if m.split(".")[0] in
-                 ("jax", "jaxlib", "flax", "optax", "diffsvc_tpu"))
-    assert bad == []
+    assert sorted(m for m in mods if _forbidden(m)) == []
 
 
 def _imports(path):
@@ -66,12 +73,12 @@ PORT_SOURCES = sorted(
 def test_port_source_imports_nothing_of_jax(source):
     """Every module of the port, the conversion modules of this slice
     (``ops/crepe.py``, ``models/pe.py``, ``models/contentvec.py``,
-    ``vocoders/hifigan.py``, ``vocoders/vocoder_utils.py``) among them, at
-    any depth of its import statements: no jax, no module of
-    ``diffsvc_tpu`` (relative imports stay inside the port)."""
+    ``vocoders/hifigan.py``, ``vocoders/vocoder_utils.py``) and the ONNX
+    export among them, at any depth of its import statements: no jax, no
+    module of ``diffsvc_tpu``, no ``onnx``, ``onnxscript`` or
+    ``google.protobuf`` (relative imports stay inside the port)."""
     bad = sorted(m for m in _imports(os.path.join(REPO, source))
-                 if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
-                                        "diffsvc_tpu"))
+                 if _forbidden(m))
     assert bad == []
 
 
@@ -86,7 +93,9 @@ def test_port_sources_cover_this_slice():
                 "vocoders/pwg.py", "vocoders/melgan.py",
                 "vocoders/istft_head.py", "vocoders/source.py",
                 "vocoders/pqmf.py", "vocoders/discriminators.py",
-                "training/vocoder_task.py"):
+                "training/vocoder_task.py", "onnx/wire.py",
+                "onnx/builder.py", "onnx/convert.py", "onnx/runtime.py",
+                "onnx/svc_export.py", "onnx/chain.py", "onnx_export.py"):
         assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
 
 
