@@ -299,11 +299,33 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    with one layer's conditioner projection zeroed, a hifigan graph that
    ignores its noise input.  K1, K2 and K3 must move (``launches_onnx``).
 
+14. The compiled programs (``[pt2]`` lines) of phase 4's project at full
+   width, exported on the card by ``infer/export.py`` at t_mel 1024, t_ph
+   512, acc 20: encoder, denoiser, sampler and vocoder at bf16 (the
+   serving dtype), the denoiser and sampler at f32, and ``export_fused``
+   at the bucket of the 6.5 s clip (bf16); each saved, reloaded and run on
+   seeded inputs against its in-process route on the same weights and
+   draws (the denoiser against ``diffnet.apply``, the sampler against
+   ``GaussianDiffusion.infer``'s K2 ladder, the vocoder against
+   ``generator.apply_serving``, the fused program against ``FusedSvc``
+   run eagerly): equal bits, or the kernel's own limit; the bf16 set
+   reloaded again in a child process that imports the op library alone
+   (its ``sys.modules`` checked, its results equal, its counters moving).
+   Over one call of each program the counters must read K1 2 + 3 J (J the
+   ladder's evaluations), K2 3, K3 2; each saved graph must call its
+   kernel ops (``diffsvc_tpu_torch::*``), with their weights read by no
+   other node and fewer products than one plain stack, ladder evaluation
+   or tail would add.  Planted faults: a denoiser exported with one layer's
+   conditioner projection zeroed, a sampler exported at speedup 50, the
+   fused program fed its draws shifted by one frame.  Export seconds and
+   bytes per program, and each program's run time beside its route's, are
+   printed with the card's name and power limit.
+
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
-in each of phase 9's parts, phase 10's, phase 11's, phase 12's and phase
-13's, errors, times, bound);
+in each of phase 9's parts, phase 10's, phase 11's, phase 12's, phase 13's
+and phase 14's, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -5794,6 +5816,356 @@ def phase_onnx(device, workdir, project):
     return res
 
 
+PT2_T_MEL, PT2_T_PH = 1024, 512   # the JAX CLI's defaults (--t_mel, --t_ph)
+PT2_FAULT_SPEEDUP = 50    # the planted fault's sampler: 21 evaluations, not 51
+# each program against its in-process route on the same weights, inputs and
+# draws: equal bits expected (the same kernels on the same packs); where
+# they differ, the kernel's own limit against its plain version
+PT2_TOL = {("denoiser", "bf16"): TOL[("residual_stack", "bf16")],
+           ("denoiser", "f32"): TOL[("residual_stack", "f32")],
+           ("sampler", "bf16"): TOL[("plms_ladder", "bf16")],
+           ("sampler", "f32"): TOL[("plms_ladder", "f32")],
+           ("vocoder", "bf16"): TOL[("vocoder_tail", "f32")],
+           ("fused", "bf16"): TOL[("plms_ladder", "bf16")],
+           # no kernel: the same ATen ops on the same weights
+           ("encoder", "bf16"): 1e-6}
+# phase 14's child: the bf16 programs reloaded in a process that imports the
+# op library alone, run on the parent's inputs with PyTorch's default cuDNN
+# flags (allow_tf32 on: the loaded programs must still convolve in true f32)
+PT2_CHILD = r"""
+import json, os, sys
+import numpy as np
+import torch
+import diffsvc_tpu_torch.ops.hopper as hopper
+from diffsvc_tpu_torch.ops.hopper import diffnet_stack, plms_ladder, vocoder_tail
+d = sys.argv[1]
+ins = np.load(os.path.join(d, "inputs.npz"))
+dev = torch.device("cuda")
+def t(k):
+    return torch.from_numpy(ins[k]).to(dev)
+outs = {}
+with torch.no_grad():
+    outs["denoiser"] = hopper.load_program(os.path.join(d, "denoiser.pt2"))(
+        t("x"), t("t"), t("cond"))
+    outs["sampler"] = hopper.load_program(os.path.join(d, "sampler.pt2"))(
+        t("cond"), t("noise"))
+    outs["vocoder"] = hopper.load_program(os.path.join(d, "vocoder.pt2"))(
+        t("mel"), t("f0"))
+np.savez(os.path.join(d, "child_outs.npz"),
+         **{k: v.float().cpu().numpy() for k, v in outs.items()})
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "diffsvc_tpu")
+             or m.startswith(("diffsvc_tpu_torch.models",
+                              "diffsvc_tpu_torch.infer",
+                              "diffsvc_tpu_torch.vocoders")))
+print(json.dumps({"bad": bad, "launches": [diffnet_stack.launches,
+                                           plms_ladder.launches,
+                                           vocoder_tail.launches],
+                  "cudnn_tf32": torch.backends.cudnn.allow_tf32}))
+"""
+
+
+def pt2_features(hp, device, seed: int = 0) -> dict:
+    """Seeded inputs of the chain at PT2_T_MEL / PT2_T_PH (the features'
+    layouts of ``run_exported``), on ``device``."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    mel2ph = np.clip(np.arange(PT2_T_MEL) * PT2_T_PH // PT2_T_MEL + 1, 1,
+                     PT2_T_PH)
+    mel2ph[-24:] = 0
+    f0 = np.log2(200.0 * 2 ** (0.3 * np.sin(np.arange(PT2_T_MEL) / 40.0)))
+    m, h = int(hp["audio_num_mel_bins"]), int(hp["hidden_size"])
+    arrs = dict(hubert=(rng.randn(1, PT2_T_PH, h) * 0.3).astype(np.float32),
+                mel2ph=mel2ph[None].astype(np.int64),
+                f0=f0[None].astype(np.float32),
+                uv=np.zeros((1, PT2_T_MEL), np.float32),
+                energy=np.zeros((1, PT2_T_MEL), np.float32),
+                noise=rng.randn(1, PT2_T_MEL, m).astype(np.float32),
+                x=rng.randn(1, PT2_T_MEL, m).astype(np.float32),
+                t=np.asarray([500], np.int64))
+    return {k: torch.from_numpy(v).to(device) for k, v in arrs.items()}
+
+
+def pt2_limit(key: str) -> float:
+    """PT2_TOL of a reading's key ("sampler f32", "fused[1] bf16")."""
+    return PT2_TOL[(key.split("[")[0].split()[0], key.split()[-1])]
+
+
+def phase_pt2(device, workdir, project):
+    """Phase 14: the compiled programs of ``infer/export.py`` exported on
+    the card from phase 4's project at full width, saved, reloaded (the
+    bf16 set also in a process that imports the op library alone) and run
+    against the in-process routes, with planted faults."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.infer import export as texport
+    from diffsvc_tpu_torch.infer.fused import FusedSvc
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.ops import mel as mel_ops
+    from diffsvc_tpu_torch.ops.hopper import vocoder_tail
+    from diffsvc_tpu_torch.utils.audio_io import load_wav
+    from diffsvc_tpu_torch.vocoders import generator
+
+    t_phase = time.time()
+    card = card_line()
+    out = os.path.join(workdir, "pt2")
+    res = {"card": card, "export_s": {}, "bytes": {}, "readings": {},
+           "equal": {}, "faults": {}, "ms": {}, "ops": {}, "launches": {}}
+    programs, routes, args = {}, {}, {}
+
+    def export(key, write):
+        """``write()`` exports a program and returns its path: timed, then
+        the file's bytes, its reload (timed) and its graph's ops."""
+        t0 = time.time()
+        path = write()
+        res["export_s"][key] = time.time() - t0
+        res["bytes"][key] = os.path.getsize(path)
+        t0 = time.time()
+        programs[key] = texport.load_exported(path)
+        res["export_s"][key + " load"] = time.time() - t0
+        res["ops"][key] = texport.program_ops(path)
+
+    def save(fn, fn_args, path):
+        torch.export.save(texport.export_program(fn, fn_args), path)
+        return path
+
+    # (1) the stages in bf16 (the config's serving dtype; with the vocoder)
+    # and the denoiser and sampler in f32, t_mel 1024, t_ph 512, acc 20
+    exporters, feats = {}, {}
+    for label, dt in (("bf16", "bfloat16"), ("f32", "")):
+        svc = project["svcs"][dt]
+        exp = exporters[label] = texport.SvcExporter(
+            svc.hp, svc.model, svc.vocoder if label == "bf16" else None,
+            device=device)
+        d = os.path.join(out, label)
+        os.makedirs(d, exist_ok=True)
+        stages = exp.stages(PT2_T_MEL, PT2_T_PH, speedup=ACC)
+        if label == "f32":
+            stages.pop("encoder")
+        for name, (fn, fn_args) in stages.items():
+            export(f"{name} {label}", lambda: save(
+                fn, fn_args, os.path.join(d, f"{name}.pt2")))
+        f = feats[label] = pt2_features(svc.hp, device)
+        model = svc.model
+        with torch.no_grad():
+            enc = model.fs2(f["hubert"], f["mel2ph"], f["f0"], f["uv"],
+                            f["energy"])
+        f["cond"] = enc["decoder_inp"]
+        batch = {k: f[k] for k in ("hubert", "mel2ph", "f0", "uv", "energy")}
+        dtc = torch.bfloat16 if label == "bf16" else torch.float32
+        net = model.denoise_fn
+        args[f"denoiser {label}"] = (f["x"], f["t"], f["cond"])
+        routes[f"denoiser {label}"] = (
+            lambda net=net, dtc=dtc, f=f: diffnet.apply(
+                net, f["x"].to(dtc), f["t"], f["cond"]).float())
+        args[f"sampler {label}"] = (f["cond"], f["noise"])
+        routes[f"sampler {label}"] = (
+            lambda model=model, batch=batch, f=f: model.infer(
+                batch, speedup=ACC, init_noise=f["noise"])["mel_out"])
+        if label == "bf16":
+            args["encoder bf16"] = tuple(batch.values())
+            routes["encoder bf16"] = (
+                lambda model=model, batch=batch: tuple(model.fs2(
+                    *batch.values())[k] for k in ("decoder_inp",
+                                                  "f0_denorm")))
+            gen = svc.vocoder.gen
+            randoms = tuple(r.to(device) for r in generator.draw_randoms(
+                1, PT2_T_MEL * int(np.prod(gen.cfg.upsample_rates)),
+                gen.cfg.harmonic_num, torch.Generator().manual_seed(0)))
+            with torch.no_grad():
+                mel = model.infer(batch, speedup=ACC, init_noise=f["noise"])
+            f["mel"] = (mel["mel_out"] * mel_ops.LN_10).contiguous()
+            f["f0_hz"] = mel["f0_denorm"].contiguous()
+            args["vocoder bf16"] = (f["mel"], f["f0_hz"])
+            routes["vocoder bf16"] = (
+                lambda gen=gen, f=f, randoms=randoms:
+                generator.apply_serving(gen, f["mel"], f["f0_hz"], randoms))
+            n_tail = len(vocoder_tail.flatten_plan(gen.tail_plan(
+                generator.tail_start_stage(gen.cfg)))[0])
+
+    # (2) the fused program at one bucket of the 6.5 s clip (bf16), beside
+    # FusedSvc run eagerly on the card
+    svc = project["svcs"]["bfloat16"]
+    fs = FusedSvc(svc.hp, svc.model, svc.vocoder,
+                  svc.fused_model(ACC).hubert, speedup=ACC, cuda_graphs=False)
+    wav, _ = load_wav(project["wavs"][0], sr=int(svc.hp["audio_sample_rate"]))
+    n44 = fs._padded_length(len(wav))
+    wav44 = np.zeros((n44,), np.float32)
+    wav44[: len(wav)] = wav
+    gen_d = torch.Generator().manual_seed(3)
+    dist = {"normal": torch.randn, "uniform": torch.rand}
+    draws = [dist[d](shape, generator=gen_d).to(device)
+             for _, shape, d in texport.fused_draws(fs, n44)]
+    export("fused bf16", lambda: texport.export_fused(
+        fs, os.path.join(out, "fused"), n44))
+    wav_t = torch.from_numpy(wav44).to(device)
+    args["fused bf16"] = (wav_t, torch.tensor(0.0, device=device),
+                          torch.tensor(0, device=device), *draws)
+    routes["fused bf16"] = (
+        lambda: tuple(o[0] for o in fs.run(wav44[None], [0.0],
+                                           init_noise=draws[0],
+                                           voc_randoms=tuple(draws[1:]))))
+    res["fused"] = {"n44": n44,
+                    "secs": len(wav) / float(svc.hp["audio_sample_rate"])}
+
+    # (3) every program once, counters reset before and read after: K1 once
+    # per denoiser call and once per evaluation of a ladder, K2 once per
+    # sampler or fused call, K3 once per vocoder or fused call
+    model = project["svcs"][""].model
+    n_evals = len(model.ladder_tables(model.K_step, ACC, "plms", False,
+                                      device)["t_eval"])
+    got = {}
+    with counted("phase 14", res["launches"],
+                 moved=("residual_stack", "plms_ladder", "vocoder_tail"),
+                 tag="pt2"):
+        with torch.no_grad():
+            for key, prog in programs.items():
+                got[key] = prog(*args[key])
+    want_counts = {"residual_stack": 2 + 3 * n_evals, "plms_ladder": 3,
+                   "vocoder_tail": 2, "residual_stack_train_batched": 0,
+                   "residual_stack_train": 0, "fused_residual_block": 0}
+    mask = (feats["bf16"]["mel2ph"] > 0).float()[:, :, None]
+    with torch.no_grad():
+        for key, route in routes.items():
+            name, label = key.split()
+            ref, out_k = route(), got[key]
+            if name == "sampler":     # the chain's mask, as infer's
+                out_k = out_k * mask
+            pairs = ({f"{name}[{i}] {label}": ab for i, ab in
+                      enumerate(zip(out_k, ref))}
+                     if name in ("encoder", "fused") else {key: (out_k, ref)})
+            for k, (a, b) in pairs.items():
+                res["equal"][k] = bool(torch.equal(a, b))
+                res["readings"][k] = rel_l2(a.float(), b.float())
+
+    # (4) the planted faults: a denoiser exported with one layer's
+    # conditioner projection zeroed, a sampler exported at another speedup
+    # (f32), the fused program fed draws shifted by one frame
+    svc32 = project["svcs"][""]
+    net32 = svc32.model.denoise_fn
+    cp = net32.residual_layers[L // 2].conditioner_projection
+    t0 = time.time()
+    with zeroed(cp.weight, cp.bias):
+        fn, fn_args = exporters["f32"].stages(PT2_T_MEL, PT2_T_PH,
+                                              speedup=ACC)["denoiser"]
+        fault_den = texport.export_program(fn, fn_args).module()
+    fn, fn_args = exporters["f32"].stages(
+        PT2_T_MEL, PT2_T_PH, speedup=PT2_FAULT_SPEEDUP)["sampler"]
+    fault_samp = texport.export_program(fn, fn_args).module()
+    res["export_s"]["faults"] = time.time() - t0
+    hop_up = int(np.prod(svc.vocoder.gen.cfg.upsample_rates))
+    shifted = (torch.roll(draws[0], 1, dims=1), draws[1],
+               torch.roll(draws[2], hop_up, dims=2))
+    with torch.no_grad():
+        faults = {
+            "denoiser f32": fault_den(*args["denoiser f32"]),
+            "sampler f32": fault_samp(*args["sampler f32"]) * mask,
+            "fused[0] bf16": programs["fused bf16"](*args["fused bf16"][:3],
+                                                    *shifted)[0]}
+        for key, fault in faults.items():
+            ref = routes[key.replace("[0]", "")]()
+            ref = ref[0] if key.startswith("fused") else ref
+            res["faults"][key] = rel_l2(fault.float(), ref.float())
+
+    # (5) the bf16 set reloaded in a process that imports the op library
+    # alone
+    d = os.path.join(out, "bf16")
+    f = feats["bf16"]
+    np.savez(os.path.join(d, "inputs.npz"), x=f["x"].cpu().numpy(),
+             t=f["t"].cpu().numpy(), cond=f["cond"].cpu().numpy(),
+             noise=f["noise"].cpu().numpy(), mel=f["mel"].cpu().numpy(),
+             f0=f["f0_hz"].cpu().numpy())
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-c", PT2_CHILD, d], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=ROOT),
+                          capture_output=True, text=True, timeout=600)
+    res["child_s"] = time.time() - t0
+    if proc.returncode != 0:
+        raise SmokeError(f"phase 14's child failed:\n{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    child_outs = np.load(os.path.join(d, "child_outs.npz"))
+    res["child"] = {"bad_modules": child["bad"],
+                    "cudnn_tf32_default": child["cudnn_tf32"],
+                    "launches": dict(zip(("residual_stack", "plms_ladder",
+                                          "vocoder_tail"),
+                                         child["launches"])),
+                    "equal": {k: bool(np.array_equal(
+                        child_outs[k], got[f"{k} bf16"].float().cpu().numpy()))
+                        for k in ("denoiser", "sampler", "vocoder")}}
+
+    # (6) run time of each program beside its in-process route (CUDA
+    # events over the calls, in turns)
+    reps = {"encoder": 20, "denoiser": 10, "sampler": 2, "vocoder": 5,
+            "fused": 2}
+    with torch.no_grad():
+        for key, prog in programs.items():
+            ms = time_in_turns(lambda: prog(*args[key]), routes[key],
+                               reps[key.split()[0]])
+            res["ms"][key] = {"program": ms[0], "route": ms[1]}
+
+    for key in programs:
+        log(f"[pt2] {key}: exported in {res['export_s'][key]:.2f}s, "
+            f"{res['bytes'][key]} bytes, loaded in "
+            f"{res['export_s'][key + ' load']:.2f}s; ops "
+            f"{res['ops'][key]['ops']}, products {res['ops'][key]['products']}"
+            f", shared {res['ops'][key]['shared']}; program "
+            f"{res['ms'][key]['program']:.3f} ms, in-process route "
+            f"{res['ms'][key]['route']:.3f} ms ({card})")
+    for key in sorted(res["readings"]):
+        log(f"[pt2] {key} against its in-process route: equal bits "
+            f"{res['equal'][key]}, rel_l2 {res['readings'][key]:.3e} (tol "
+            f"{pt2_limit(key):g})")
+    for key, v in res["faults"].items():
+        log(f"[pt2] planted fault {key}: rel_l2 {v:.3e} (must exceed "
+            f"{pt2_limit(key):g})")
+    log(f"[pt2] the faults' programs exported in "
+        f"{res['export_s']['faults']:.2f}s; child process "
+        f"{res['child_s']:.2f}s (cudnn.allow_tf32 "
+        f"{res['child']['cudnn_tf32_default']}): modules "
+        f"{res['child']['bad_modules']}, "
+        f"launches {res['child']['launches']}, equal {res['child']['equal']}")
+    log(f"[pt2] fused bucket {n44} samples ({res['fused']['secs']:.2f} s "
+        f"clip); K1 {n_evals} evaluations a ladder")
+    res["seconds"] = time.time() - t_phase
+    log(f"[pt2] phase 14 took {res['seconds']:.1f}s ({card})")
+
+    failed = []
+    counts = res["launches"]["phase 14"]
+    if counts != want_counts:
+        failed.append(f"counters {counts} != {want_counts}")
+    want_ops = {"encoder": {}, "denoiser": {"residual_stack": 1},
+                "sampler": {"plms_ladder": 1}, "vocoder": {"vocoder_tail": 1},
+                "fused": {"plms_ladder": 1, "vocoder_tail": 1}}
+    for key, rep in res["ops"].items():
+        name = key.split()[0]
+        if rep["ops"] != want_ops[name] or rep["shared"]:
+            failed.append(f"{key} graph {rep}")
+    # no plain route baked in: one plain stack adds 4 L products, one plain
+    # ladder evaluation 3 + 4 L, the plain tail its n_tail convolutions
+    limits = {"denoiser": 4 * L, "sampler": 3 + 4 * L, "vocoder": n_tail}
+    for key, rep in res["ops"].items():
+        name = key.split()[0]
+        if name in limits and rep["products"] >= limits[name]:
+            failed.append(f"{key}: {rep['products']} products")
+    for key, v in res["readings"].items():
+        if not (res["equal"][key] or v <= pt2_limit(key)):
+            failed.append(f"{key} rel_l2 {v:.3e}")
+    for key, v in res["faults"].items():
+        if not v > pt2_limit(key):
+            failed.append(f"fault {key} rel_l2 {v:.3e}")
+    if res["child"]["bad_modules"] or not all(res["child"]["equal"].values()):
+        failed.append(f"child {res['child']}")
+    child_l = res["child"]["launches"]
+    if child_l != {"residual_stack": 1 + n_evals, "plms_ladder": 1,
+                   "vocoder_tail": 1}:
+        failed.append(f"child launches {child_l}")
+    if failed:
+        raise SmokeError(f"phase 14 gates failed: {failed}")
+    return res
+
+
 def diffnet_apply_card(model, noise, t, cond, device):
     """``diffnet.apply`` (K1) on the card from the graph's layouts: noise
     [1, 1, M, T], t [1], cond [1, H, T] -> [1, 1, M, T], numpy."""
@@ -5912,12 +6284,14 @@ def main(argv=None) -> int:
                 record["seq"] = timed("12 seq", phase_seq, device, tmp)
                 record["onnx"] = timed("13 onnx", phase_onnx, device, tmp,
                                        project)
+                record["pt2"] = timed("14 pt2", phase_pt2, device, tmp,
+                                      project)
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-13: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-14: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -5936,7 +6310,8 @@ def main(argv=None) -> int:
     # and counts its own launches); launches_voc: phase 11's routes and GAN
     # training runs; launches_seq: phase 12's parts (in process, and each
     # rank of the grid); launches_onnx: phase 13's card runs (K1, K2, K3
-    # against the exported graphs)
+    # against the exported graphs); launches_pt2: phase 14's programs, one
+    # call each
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -5981,6 +6356,8 @@ def main(argv=None) -> int:
                             record["seq"]["launches"].items()},
                         "launches_onnx": record["onnx"]["launches"][
                             "phase 13"][name],
+                        "launches_pt2": record["pt2"]["launches"][
+                            "phase 14"][name],
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -25,6 +25,11 @@ is ``tc_plan``.
 
 Differences from the TPU kernel: takes [B, T, C] directly (the TPU kernel is
 B=1 and is vmapped), any T and C, and f32 as well as bf16 operands.
+
+:func:`residual_stack` is the registered op ``diffsvc_tpu_torch::
+residual_stack`` (CUDA: the kernels; CPU: :func:`residual_stack_plain`; a
+fake implementation for tracing), so ``torch.export`` records it and an
+exported program calls the kernels.
 """
 
 from __future__ import annotations
@@ -308,17 +313,28 @@ def residual_stack(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
     :param wo/bo:     [L, C, 2C] / [L, 2C] output 1x1
     :returns:         [B, T, C] float32 skip sum (caller scales by 1/sqrt(L))
 
-    All operands share x0's dtype (float32 or bfloat16) and device.  CPU
-    tensors take the plain version; CUDA tensors launch the tensor-core
-    kernels (bf16 operands, or f32 as 3xTF32 split products).
+    All operands share x0's dtype (float32 or bfloat16) and device.  The
+    call goes through the registered op ``diffsvc_tpu_torch::residual_stack``
+    (what ``torch.export`` records): CPU tensors take the plain version,
+    CUDA tensors launch the tensor-core kernels (bf16 operands, or f32 as
+    3xTF32 split products).
     """
+    if x0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"residual_stack: unsupported device {x0.device}")
+    return torch.ops.diffsvc_tpu_torch.residual_stack(
+        x0, sb, cond_proj, wd, bd, wo, bo, cycle)
+
+
+@torch.library.custom_op("diffsvc_tpu_torch::residual_stack", mutates_args=(),
+                         device_types="cuda")
+def _residual_stack_cuda(x0: torch.Tensor, sb: torch.Tensor,
+                         cond_proj: torch.Tensor, wd: torch.Tensor,
+                         bd: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                         cycle: int) -> torch.Tensor:
+    """K1 on the card: one C call over the L layers.  Every implementation
+    checks its operands (a loaded program calls the op directly)."""
     global launches, launches_tc, launches_tf32x3
     _check(x0, sb, cond_proj, wd, bd, wo, bo)
-    if x0.device.type == "cpu":
-        return residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo,
-                                    cycle=cycle)
-    if x0.device.type != "cuda":
-        raise ValueError(f"residual_stack: unsupported device {x0.device}")
     b, t, c = x0.shape
     plan = tc_plan(b, t, c, dtype=x0.dtype)
     x = x0.clone()                                  # running state, in place
@@ -337,3 +353,16 @@ def residual_stack(x0, sb, cond_proj, wd, bd, wo, bo, *, cycle: int):
     launches_tc += x0.dtype == torch.bfloat16
     launches_tf32x3 += x0.dtype == torch.float32
     return skip
+
+
+@_residual_stack_cuda.register_kernel("cpu")
+def _residual_stack_cpu(x0, sb, cond_proj, wd, bd, wo, bo, cycle):
+    _check(x0, sb, cond_proj, wd, bd, wo, bo)
+    return residual_stack_plain(x0, sb, cond_proj, wd, bd, wo, bo,
+                                cycle=cycle)
+
+
+@_residual_stack_cuda.register_fake
+def _residual_stack_fake(x0, sb, cond_proj, wd, bd, wo, bo, cycle):
+    _check(x0, sb, cond_proj, wd, bd, wo, bo)
+    return x0.new_empty(x0.shape, dtype=torch.float32)

@@ -32,6 +32,10 @@ hi and lo planes here, ``diffnet_stack.pack_split``), whose epilogue is two
 kernels, the skip projection and then the output projection with the
 update.  A CUDA graph over the loop (2 + 2L launches per evaluation, 3 + 2L
 at f32) is later work.
+
+:func:`plms_ladder` is the registered op ``diffsvc_tpu_torch::plms_ladder``
+(CUDA: the kernels; CPU: :func:`plms_ladder_plain`; a fake implementation
+for tracing), so an exported sampler program calls the kernels.
 """
 
 from __future__ import annotations
@@ -256,18 +260,34 @@ def plms_ladder(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
     :param clip_v:    sampler_clip_x0 bound (0 = off)
     :returns:         [B, T, M] float32 final sampler state
 
-    CPU tensors take the plain version; CUDA tensors launch the
-    tensor-core kernels (bf16 operands, or f32 as 3xTF32 split products).
+    The call goes through the registered op ``diffsvc_tpu_torch::
+    plms_ladder`` (what ``torch.export`` records): CPU tensors take the
+    plain version; CUDA tensors launch the tensor-core kernels (bf16
+    operands, or f32 as 3xTF32 split products).
     """
+    if x_init.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"plms_ladder: unsupported device {x_init.device}")
+    return torch.ops.diffsvc_tpu_torch.plms_ladder(
+        x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout, bout,
+        wd, bd, wo, bo, cycle, float(clip_v))
+
+
+@torch.library.custom_op("diffsvc_tpu_torch::plms_ladder", mutates_args=(),
+                         device_types="cuda")
+def _plms_ladder_cuda(x_init: torch.Tensor, scal: torch.Tensor,
+                      sb_tab: torch.Tensor, cond_proj: torch.Tensor,
+                      win: torch.Tensor, bin_: torch.Tensor,
+                      wskip: torch.Tensor, bskip: torch.Tensor,
+                      wout: torch.Tensor, bout: torch.Tensor, wd: torch.Tensor,
+                      bd: torch.Tensor, wo: torch.Tensor, bo: torch.Tensor,
+                      cycle: int, clip_v: float) -> torch.Tensor:
+    """K2 on the card: one C call over the J evaluations.  The result is
+    the workspace's state x, allocated anew on every call, so it aliases
+    no input.  Every implementation checks its operands (a loaded program
+    calls the op directly)."""
     global launches, launches_tc, launches_tf32x3
     _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
            bout, wd, bd, wo, bo)
-    if x_init.device.type == "cpu":
-        return plms_ladder_plain(x_init, scal, sb_tab, cond_proj, win, bin_,
-                                 wskip, bskip, wout, bout, wd, bd, wo, bo,
-                                 cycle=cycle, clip_v=clip_v)
-    if x_init.device.type != "cuda":
-        raise ValueError(f"plms_ladder: unsupported device {x_init.device}")
     ds = diffnet_stack
     b, t, m = x_init.shape
     n_layers, c = cond_proj.shape[0], cond_proj.shape[3] // 2
@@ -300,3 +320,21 @@ def plms_ladder(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
     ds.launches_tc += n_evals * tc
     ds.launches_tf32x3 += n_evals * x3
     return ws["x"]
+
+
+@_plms_ladder_cuda.register_kernel("cpu")
+def _plms_ladder_cpu(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip,
+                     wout, bout, wd, bd, wo, bo, cycle, clip_v):
+    _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
+           bout, wd, bd, wo, bo)
+    return plms_ladder_plain(x_init, scal, sb_tab, cond_proj, win, bin_,
+                             wskip, bskip, wout, bout, wd, bd, wo, bo,
+                             cycle=cycle, clip_v=clip_v)
+
+
+@_plms_ladder_cuda.register_fake
+def _plms_ladder_fake(x_init, scal, sb_tab, cond_proj, win, bin_, wskip,
+                      bskip, wout, bout, wd, bd, wo, bo, cycle, clip_v):
+    _check(x_init, scal, sb_tab, cond_proj, win, bin_, wskip, bskip, wout,
+           bout, wd, bd, wo, bo)
+    return torch.empty_like(x_init)

@@ -30,6 +30,13 @@ carry over (227 KB of shared memory): each conv is one launch on the plain
 [B, T, C] layout that reads zeros outside [0, T) of its own input (the TPU
 kernel's per-conv boundary re-zeroing) and fuses its pre-activation, bias,
 residual, branch mean, injection or tanh.
+
+:func:`tail` is the registered op ``diffsvc_tpu_torch::vocoder_tail`` over
+the whole plan (one op, so its counter moves once per tail in an exported
+program as in process): the plan's tensors (torch-layout weights for the
+plain version, biases, the packed hi/lo planes for the kernels) go in as
+tensor lists and its integers as an int list (:func:`flatten_plan`), so a
+program holds the packs as constants and packs nothing per call.
 """
 
 from __future__ import annotations
@@ -447,6 +454,65 @@ def tail_plain(x, injs, plan: TailPlan):
     return _run(plan, x, injs, _conv_plain, _convt_plain)
 
 
+def flatten_plan(plan: TailPlan):
+    """The plan as the op's arguments: (weights, biases, packs, spec).  The
+    tensors of every conv in walk order (each stage's ConvT, then its
+    branches' convs, then ``conv_post``); ``spec`` the integers: s0, the
+    number of stages, per stage (ConvT or not, its stride and pad, NSF
+    injection, resblock kind, branches, per branch its convs, per conv its
+    dilation and pad), then ``conv_post``'s dilation and pad."""
+    weights, biases, packs = [], [], []
+    spec = [plan.s0, len(plan.stages)]
+
+    def add(cp):
+        weights.append(cp.w_t)
+        biases.append(cp.b)
+        packs.append(cp.wp)
+
+    for st in plan.stages:
+        if st.convt is None:
+            spec += [0, 0, 0]
+        else:
+            spec += [1, st.convt.stride, st.convt.pad]
+            add(st.convt)
+        spec += [int(st.inject), int(st.kind), len(st.branches)]
+        for convs in st.branches:
+            spec.append(len(convs))
+            for cp in convs:
+                spec += [cp.dilation, cp.pad]
+                add(cp)
+    spec += [plan.post.dilation, plan.post.pad]
+    add(plan.post)
+    return weights, biases, packs, spec
+
+
+def unflatten_plan(weights, biases, packs, spec) -> TailPlan:
+    """:func:`flatten_plan`'s inverse."""
+    it, tensors = iter(spec), iter(zip(weights, biases, packs))
+    s0, n_stages = next(it), next(it)
+    stages = []
+    for _ in range(n_stages):
+        has_convt, stride, pad = next(it), next(it), next(it)
+        convt = None
+        if has_convt:
+            w_t, b, wp = next(tensors)
+            convt = ConvTPlan(w_t, b, stride, pad, wp)
+        inject, kind, n_branches = next(it), next(it), next(it)
+        branches = []
+        for _ in range(n_branches):
+            convs = []
+            for _ in range(next(it)):
+                dilation, pad = next(it), next(it)
+                w_t, b, wp = next(tensors)
+                convs.append(ConvPlan(w_t, b, dilation, pad, wp))
+            branches.append(tuple(convs))
+        stages.append(StagePlan(convt, bool(inject), str(kind),
+                                tuple(branches)))
+    dilation, pad = next(it), next(it)
+    w_t, b, wp = next(tensors)
+    return TailPlan(s0, tuple(stages), ConvPlan(w_t, b, dilation, pad, wp))
+
+
 def tail(x, injs, plan: TailPlan):
     """Run the generator tail.
 
@@ -455,17 +521,51 @@ def tail(x, injs, plan: TailPlan):
     :param injs: NSF injections [B, T_i, C_i] for the later stages, in
         order (T_i >= the stage length; the excess is ignored), or None
     :returns: [B, T_out] f32 waveform (tanh applied)
+
+    The call goes through the registered op ``diffsvc_tpu_torch::
+    vocoder_tail`` (what ``torch.export`` records), the plan flattened
+    into its arguments (:func:`flatten_plan`): CPU tensors take the plain
+    version, CUDA tensors launch the kernels.
     """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tail: unsupported device {x.device}")
+    return torch.ops.diffsvc_tpu_torch.vocoder_tail(
+        x, list(injs or ()), *flatten_plan(plan))
+
+
+@torch.library.custom_op("diffsvc_tpu_torch::vocoder_tail", mutates_args=(),
+                         device_types="cuda")
+def _tail_cuda(x: torch.Tensor, injs: list[torch.Tensor],
+               weights: list[torch.Tensor], biases: list[torch.Tensor],
+               packs: list[torch.Tensor], spec: list[int]) -> torch.Tensor:
+    """K3 on the card: the plan's convs, one kernel launch each (a
+    ResBlock1 pair of the narrow stages in one).  Every implementation
+    checks its operands (a loaded program calls the op directly)."""
     global launches
     _check(x, injs)
-    if x.device.type == "cpu":
-        return _run(plan, x, injs, _conv_plain, _convt_plain)
-    if x.device.type != "cuda":
-        raise ValueError(f"tail: unsupported device {x.device}")
-    convs = [plan.post] + [cp for st in plan.stages
-                           for cp in (st.convt,) + sum(st.branches, ())]
-    if any(cp is not None and cp.wp.device != x.device for cp in convs):
+    if any(t.device != x.device for t in (*weights, *biases, *packs)):
         raise ValueError("tail: plan weights are not on x's device")
-    y = _run(plan, x, injs, _conv_kernel, _convt_kernel, _pair_kernel)
+    plan = unflatten_plan(weights, biases, packs, spec)
+    y = _run(plan, x, injs or None, _conv_kernel, _convt_kernel,
+             _pair_kernel)
     launches += 1
     return y
+
+
+@_tail_cuda.register_kernel("cpu")
+def _tail_cpu(x, injs, weights, biases, packs, spec):
+    _check(x, injs)
+    return _run(unflatten_plan(weights, biases, packs, spec), x,
+                injs or None, _conv_plain, _convt_plain)
+
+
+@_tail_cuda.register_fake
+def _tail_fake(x, injs, weights, biases, packs, spec):
+    _check(x, injs)
+    plan = unflatten_plan(weights, biases, packs, spec)
+    t = x.shape[1]
+    for st in plan.stages:
+        if st.convt is not None:
+            t = ((t - 1) * st.convt.stride - 2 * st.convt.pad
+                 + st.convt.w_t.shape[-1])
+    return x.new_empty((x.shape[0], t))

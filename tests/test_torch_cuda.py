@@ -1006,3 +1006,94 @@ def test_denoise_graph_matches_k1(cuda, tmp_path):
     with open(fault["denoise"], "rb") as f:
         bad = runtime.OnnxRunner(f.read())(x, t, cond)[0]
     assert _rel(torch.from_numpy(bad), want) > 1e-5
+
+
+def test_registered_ops_count_and_refuse_other_devices(cuda, tmp_path):
+    """K1, K2 and K3 called as the registered ops that a loaded program
+    calls (``torch.ops.diffsvc_tpu_torch.*``) on CUDA tensors launch their
+    kernels: each moves its counter (K2 also K1's, once per evaluation) and
+    agrees with its plain version; an operand on another device raises
+    before any launch; and a ``.pt2`` denoiser exported on the card calls
+    K1 when it runs."""
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.infer import export
+    from diffsvc_tpu_torch.models import diffnet
+    from diffsvc_tpu_torch.models.diffusion import (GaussianDiffusion,
+                                                    make_tables)
+    from diffsvc_tpu_torch.ops.hopper import (diffnet_stack as ds,
+                                              plms_ladder as pl,
+                                              vocoder_tail as vt)
+    from diffsvc_tpu_torch.utils.synth import randomize, stack_inputs
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    ops = torch.ops.diffsvc_tpu_torch
+    a = stack_inputs(torch.float32, cuda, b=2, t=70, c=40, layers=4)
+    k1 = [a[k] for k in ("x0", "sb", "cond_proj", "wd", "bd", "wo", "bo")]
+    before = ds.launches
+    got = ops.residual_stack(*k1, 2)
+    assert ds.launches == before + 1
+    assert _rel(got, ds.residual_stack_plain(*k1, cycle=2)) <= 1e-5
+    with pytest.raises(ValueError):
+        ops.residual_stack(*k1[:3], k1[3].cpu(), *k1[4:], 2)
+    assert ds.launches == before + 1
+
+    net = diffnet.DiffNet(20, 24, 4, 40, 2)
+    randomize(net, 0)
+    net = net.to(cuda)
+    p = net.stacked(torch.float32)
+    t_eval, scal = pl.plms_eval_tables(
+        make_tables(100, "linear", 0.02)["alphas_cumprod"], 100, 9)
+    step = diffnet.step_embedding(p, torch.from_numpy(t_eval).to(cuda), 40)
+    sb = diffnet.step_bias(p, step, torch.float32).transpose(0, 1)
+    cp = diffnet.prepare_cond(net, torch.randn(2, 70, 24, device=cuda))
+    k2 = [torch.randn(2, 70, 20, device=cuda),
+          torch.from_numpy(scal).to(cuda), sb.contiguous(), cp.contiguous(),
+          *(p[k] for k in ("win", "bin", "wskip", "bskip", "wout", "bout",
+                           "wd", "bd", "wo", "bo"))]
+    before = (pl.launches, ds.launches)
+    got = ops.plms_ladder(*k2, 2, 0.0)
+    assert (pl.launches, ds.launches) == (before[0] + 1,
+                                          before[1] + len(t_eval))
+    assert _rel(got, pl.plms_ladder_plain(*k2, cycle=2)) <= 1e-4
+    with pytest.raises(ValueError):
+        ops.plms_ladder(k2[0].cpu(), *k2[1:], 2, 0.0)
+    assert pl.launches == before[0] + 1
+
+    gen, mel, f0, randoms, _ = _vocoder(cuda, "ragged")
+    s0 = gen_mod.tail_start_stage(gen.cfg)
+    with torch.no_grad():
+        har = gen_mod.harmonic_source(gen, f0, randoms)
+        x = gen_mod.tail_prologue(gen, mel, har, s0)
+        injs = [gen.noise_convs[i](har).transpose(1, 2).contiguous()
+                for i in range(s0 + 1, len(gen.cfg.upsample_rates))]
+    plan = gen.tail_plan(s0)
+    before = vt.launches
+    got = ops.vocoder_tail(x, injs, *vt.flatten_plan(plan))
+    assert vt.launches == before + 1
+    assert _rel(got, vt.tail_plain(x, injs, plan)) <= 1e-4
+    with pytest.raises(ValueError):
+        ops.vocoder_tail(x.cpu(), injs, *vt.flatten_plan(plan))
+    assert vt.launches == before + 1
+
+    hp = HParams(audio_num_mel_bins=16, hidden_size=24, residual_layers=4,
+                 residual_channels=40, dilation_cycle_length=2, timesteps=20,
+                 K_step=20, spec_min=[-6.0], spec_max=[1.5], no_fs2=True,
+                 use_pitch_embed=True, pitch_norm="log", f0_bin=256,
+                 f0_min=50.0, f0_max=1100.0, pndm_speedup=5,
+                 audio_sample_rate=8000)
+    model = GaussianDiffusion(hp)
+    randomize(model, 0)
+    paths = export.SvcExporter(hp, model).export(str(tmp_path), t_mel=37,
+                                                 t_ph=20)
+    assert export.program_ops(paths["denoiser"])["ops"] == {
+        "residual_stack": 1}
+    den = export.load_exported(paths["denoiser"])
+    args = (torch.randn(1, 37, 16, device=cuda),
+            torch.tensor([7], device=cuda), torch.randn(1, 37, 24,
+                                                        device=cuda))
+    before = ds.launches
+    got = den(*args)
+    assert ds.launches == before + 1
+    with torch.no_grad():
+        want = diffnet.apply(model.denoise_fn, *args)
+    assert torch.equal(got, want)

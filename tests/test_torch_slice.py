@@ -205,11 +205,25 @@ onnx_paths = svc_export.export_svc_onnx(svc.hp, svc.model, "onnx", "proj")
 onnx_ok = bool(np.isfinite(runtime.OnnxRunner(open(
     onnx_paths["after"], "rb").read())(np.zeros((1, 1, svc.mel_bins, 5),
                                                 np.float32))[0]).all())
+# the compiled-program export: the op library (K1-K3 registered), the
+# consumer and simplify CLIs, the tiny project's pt2 set written and its
+# denoiser reloaded and run
+import torch
+import diffsvc_tpu_torch.run_exported, diffsvc_tpu_torch.simplify
+import diffsvc_tpu_torch.ops.hopper as hopper
+from diffsvc_tpu_torch.infer import export as pt2
+pt2_paths = pt2.SvcExporter(svc.hp, svc.model, device="cpu").export(
+    "pt2", t_mel=16, t_ph=8)
+den = hopper.load_program(pt2_paths["denoiser"])
+pt2_ok = all(hasattr(torch.ops.diffsvc_tpu_torch, op) for op in (
+    "residual_stack", "plms_ladder", "vocoder_tail")) and bool(torch.isfinite(
+    den(torch.zeros(1, 16, svc.mel_bins), torch.tensor([3]),
+        torch.zeros(1, 16, svc.hp["hidden_size"]))).all())
 forbidden = sorted(m for m in sys.modules if m.split(".")[0] in (
     "onnx", "onnxscript") or m.startswith("google.protobuf"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
 print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
-                  "forbidden": forbidden, "onnx": onnx_ok,
+                  "forbidden": forbidden, "onnx": onnx_ok, "pt2": pt2_ok,
                   "n": int(len(wav)), "finite": bool(np.isfinite(wav).all()
                                                      and np.isfinite(wav1).all()
                                                      and np.isfinite(fwav).all()),
@@ -236,7 +250,10 @@ def test_port_never_imports_jax(tmp_path):
     program, a batched binarize (the tiny HuBERT's ``encode_batch``) and
     ``--infer`` on its test split, and the ONNX export (``onnx.*``,
     ``onnx_export``; the tiny project's four graphs written and one run),
-    in a fresh process: neither jax nor any module of the JAX package
+    and the compiled-program export (``infer.export``, ``run_exported``,
+    ``simplify``, the op library's registered K1-K3; the tiny project's
+    ``.pt2`` set written and its denoiser reloaded and run), in a fresh
+    process: neither jax nor any module of the JAX package
     ``diffsvc_tpu`` may be in sys.modules, nor ``onnx``, ``onnxscript`` or
     ``google.protobuf``."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -247,7 +264,7 @@ def test_port_never_imports_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"jax": False, "ref_pkg": [], "forbidden": [], "onnx": True,
-                   "n": res["n"], "finite": True,
+                   "pt2": True, "n": res["n"], "finite": True,
                    "batches": res["batches"], "mels": 5}
     assert res["n"] > 0 and res["batches"] > 0
 
