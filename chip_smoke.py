@@ -320,12 +320,28 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    fused program fed its draws shifted by one frame.  Export seconds and
    bytes per program, and each program's run time beside its route's, are
    printed with the card's name and power limit.
+15. The learned-score evidence (``[learn]`` lines): ``tools/train_demo``
+   at production width (16 synthetic clips binarized, B=8 on K4's batched
+   route, the openvpi NSF-HiFiGAN vocoding each validation sample) for 200
+   steps and a fresh ``Trainer`` resuming to 300, then
+   ``tools/sampler_quality``'s grid (12 rows and two fine-grid references,
+   403 and 501 evaluations, from one x_T, K2 each) over its checkpoint at f32 and at
+   bf16.  Gates, each with a planted fault that must fail it: the resume
+   restored step 200 and trained 100 steps (a Trainer that finds no
+   checkpoint starts at 0); the validation loss fell (the initial weights'
+   loss as the last reading); every row finite and of the batch's shape (a
+   NaN in x_T); every clipped DPM-Solver++ row inside [-8, 3] (dpmpp100
+   with its clamp dropped); dpmpp100_clip through K2 against its plain
+   version on the same weights and x_T, on the denoiser's part of the mel,
+   at phase 4's limits (K2 with its history not pushed); K4 one backward a
+   step and K5 none, K2 14 launches a grid (the row through the plain
+   version: K2 0).
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
-in each of phase 9's parts, phase 10's, phase 11's, phase 12's, phase 13's
-and phase 14's, errors, times, bound);
+in each of phase 9's parts, phase 10's, phase 11's, phase 12's, phase 13's,
+phase 14's and phase 15's, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -6166,6 +6182,247 @@ def phase_pt2(device, workdir, project):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the learned-score evidence (tools/train_demo, tools/sampler_quality)
+
+LEARN_STEPS, LEARN_RESUME = 200, 100     # the demo's fit and its resume
+# the clipped DPM-Solver++ rows' range (ordering 3 of
+# tests/test_sampler_quality_artifacts.py)
+LEARN_RANGE = (-8.0, 3.0)
+# dpmpp100_clip through K2 against its plain version on the same weights
+# and x_T: relative L2 of the denoiser's part of the mel (the row minus the
+# same ladder run with eps = 0), at phase 4's conversion limits
+LEARN_TOL = {"f32": SLICE_TOL, "bf16": SLICE_TOL_BF16}
+LEARN_ROW = ("dpmpp", 100, "lambda", 1.0)
+LEARN_STEP_REPS = 10     # timed steps of the demo's batch
+
+
+def resume_failures(from_step: int, to_step: int, k4: int) -> list:
+    """The fresh Trainer restored the fit's last step and trained the rest
+    (one K4 backward a step)."""
+    want = (LEARN_STEPS, LEARN_STEPS + LEARN_RESUME, LEARN_RESUME)
+    got = (from_step, to_step, k4)
+    return [] if got == want else [f"resume (from, to, K4) {got}, want "
+                                   f"{want}"]
+
+
+def loss_failures(first: float, last: float) -> list:
+    return [] if last < first else [f"validation loss {first:.4f} -> "
+                                    f"{last:.4f} did not fall"]
+
+
+def row_failures(mels: dict, shape) -> list:
+    import numpy as np
+
+    return [f"row {n}: shape {m.shape}, finite {bool(np.isfinite(m).all())}"
+            for n, m in mels.items()
+            if m.shape != tuple(shape) or not np.isfinite(m).all()]
+
+
+def range_failures(mels: dict) -> list:
+    lo, hi = LEARN_RANGE
+    return [f"{n} range [{m.min():.2f}, {m.max():.2f}] outside [{lo}, {hi}]"
+            for n, m in mels.items()
+            if n.startswith("dpmpp") and n.endswith("_clip")
+            and not lo <= m.min() <= m.max() <= hi]
+
+
+def count_failures(label: str, got: dict, want: dict) -> list:
+    got = {k: got[k] for k in want}
+    return [] if got == want else [f"{label} launches {got}, want {want}"]
+
+
+def ladder_swapped(fn):
+    """GaussianDiffusion's K2 call replaced by ``fn`` (same arguments)."""
+    from diffsvc_tpu_torch.models import diffusion as tdiff
+
+    return swapped(tdiff._pl, plms_ladder=fn)
+
+
+def ladder_variant(plain: bool, zero_out: bool = False, push: bool = True):
+    """K2 (or its plain version) with the output projection zeroed (eps =
+    0) or its history never pushed (the planted fault: DPM-Solver++(2M)
+    without its multistep term)."""
+    import torch
+
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as k2
+
+    run = k2.plms_ladder
+
+    def fn(x, scal, sb, cp, win, bin_, wskip, bskip, wout, bout, *rest,
+           **kw):
+        if zero_out:
+            wout, bout = torch.zeros_like(wout), torch.zeros_like(bout)
+        if not push:
+            scal = scal.clone()
+            scal[:, k2.NS - 1] = 0.0
+        f = k2.plms_ladder_plain if plain else run
+        return f(x, scal, sb, cp, win, bin_, wskip, bskip, wout, bout, *rest,
+                 **kw)
+    return fn
+
+
+def denoiser_part_rel(model, hp, jb, x_T, kern_fn) -> float:
+    """rel-L2 of the denoiser's part of ``LEARN_ROW``'s mel: ``kern_fn``'s
+    run against the plain version's, both minus the plain eps = 0 run."""
+    import torch
+
+    from diffsvc_tpu_torch.tools import sampler_quality as sq
+
+    def row(fn):
+        with ladder_swapped(fn):
+            return torch.from_numpy(sq.sample(model, hp, jb, x_T,
+                                              *LEARN_ROW))
+
+    zero = row(ladder_variant(True, zero_out=True))
+    return rel_l2(row(kern_fn) - zero, row(ladder_variant(True)) - zero)
+
+
+def phase_learn(device, workdir):
+    """Phase 15 (``[learn]`` lines): ``tools/train_demo`` at production
+    width and reduced depth, then ``tools/sampler_quality``'s grid over its
+    checkpoint at f32 and at bf16, each gate with a planted fault that must
+    fail it."""
+    import numpy as np
+
+    from diffsvc_tpu_torch.data.dataset import (BatchIterator,
+                                                FastSpeechDataset,
+                                                build_batches)
+    from diffsvc_tpu_torch.tools import sampler_quality as sq
+    from diffsvc_tpu_torch.tools import train_demo as td
+    from diffsvc_tpu_torch.training.trainer import Trainer
+
+    t0 = time.time()
+    res = {"launches": {}, "seconds": {}, "faults": {}}
+    failed, faults_missed = [], []
+    scratch = os.path.join(workdir, "learn")
+    os.makedirs(scratch)
+    args = td.parse_args(["--steps", str(LEARN_STEPS), "--resume-steps",
+                          str(LEARN_RESUME), "--val-interval", "100",
+                          "--out", os.path.join(scratch, "out")])
+    with counted("train_demo", res["launches"],
+                 moved=("plms_ladder", "vocoder_tail",
+                        "residual_stack_train_batched"),
+                 still=("residual_stack_train",), tag="learn"):
+        demo = td.run(args, scratch)
+    hp = demo.pop("hp")
+    res["demo"] = demo
+    res["seconds"]["demo"] = time.time() - t0
+    first, last = td.loss_ends(demo)
+    log(f"[learn] train_demo {LEARN_STEPS} + {LEARN_RESUME} steps "
+        f"({demo['batch']}, route {demo['train_route']}): fit "
+        f"{demo['phase1']['wall_s']}s, resume {demo['resume']['wall_s']}s "
+        f"({demo['resume']['steps_per_s']} steps/s); validation loss "
+        f"{[round(v, 4) for _, v in demo['val_loss_curve']]}; launches fit "
+        f"{demo['phase1']['launches']}, resume {demo['resume']['launches']};"
+        f" validation wav {demo['validation_wav']}")
+    failed += resume_failures(demo["resume"]["from_step"],
+                              demo["resume"]["to_step"],
+                              demo["resume"]["launches"]["K4"])
+    failed += loss_failures(first, last)
+    failed += count_failures("fit", demo["phase1"]["launches"],
+                             {"K4": LEARN_STEPS, "K5": 0})
+    failed += count_failures("resume", demo["resume"]["launches"],
+                             {"K4": LEARN_RESUME, "K5": 0})
+
+    # faults of the resume and loss gates: a Trainer that finds no
+    # checkpoint starts at step 0 with the initial weights
+    fresh = Trainer(dict(hp, work_dir=os.path.join(scratch, "no_ckpt")),
+                    log_writer=False, device=device)
+    fresh.restore()
+    res["faults"]["resume"] = resume_failures(
+        fresh.global_step, demo["resume"]["to_step"],
+        demo["resume"]["launches"]["K4"])
+    res["faults"]["loss"] = loss_failures(first, fresh.validate(
+        FastSpeechDataset("valid", hp, shuffle=False)))
+    # where a demo step's time goes: the fit's batch of 8 on the fresh task
+    ds = FastSpeechDataset("train", hp, shuffle=False)
+    full = [b for b in build_batches(ds, hp, rng=np.random.RandomState(0))
+            if len(b) == int(hp["max_sentences"])][0]
+    batch = next(iter(BatchIterator(ds, [full], pad_multiple=int(
+        hp.get("frames_multiple", 128)))))
+    res["step"] = time_steps(fresh.task, batch, LEARN_STEP_REPS)
+    log_steps("learn", f"demo step ({demo['train_route']} route)", batch,
+              res["step"])
+    res["step"]["profile"] = profile_run(
+        "phase 15's demo step", lambda: fresh.task.train_step(batch))
+    res["step"]["profile"].pop("names")
+    del fresh
+
+    t1 = time.time()
+    grids = res["grids"] = {}
+    for dt in ("f32", "bf16"):
+        ghp = dict(hp, diff_compute_dtype=sq.DTYPES[dt])
+        model, step = sq.restore_model(ghp, device)
+        jb, mask, gt = sq.held_out(ghp, device)
+        b, t_mel = jb["mel2ph"].shape
+        x_T = sq.shared_x_T(b, t_mel, int(hp["audio_num_mel_bins"]))
+        with counted(f"grid {dt}", res["launches"], moved=("plms_ladder",),
+                     still=("vocoder_tail", "residual_stack_train_batched",
+                            "residual_stack_train"), tag="learn"):
+            grid = sq.run_grid(model, ghp, jb, x_T, mask, gt)
+        mels = grid.pop("mels")
+        grids[dt] = dict(grid, step=step)
+        log(f"[learn] grid {dt} (step {step}, B={b}, T={t_mel}): cross-"
+            f"reference L1 {grid['cross_reference_l1']}, K2 "
+            f"{grid['k2_launches']}, ladder s {grid['row_wall_s']}")
+        for name, r in grid["samplers"].items():
+            log(f"[learn] {dt} {name}: NFE {r['nfe']} solver L1 "
+                f"{r['solver_err_l1']} gt L1 {r['gt_err_l1']} range "
+                f"{r['mel_range']}")
+        failed += row_failures(mels, (b, t_mel, int(hp["audio_num_mel_bins"])))
+        failed += range_failures(mels)
+        failed += count_failures(f"grid {dt}", {"K2": grid["k2_launches"]},
+                                 {"K2": len(sq.ROWS) + 2})
+        rel = denoiser_part_rel(model, ghp, jb, x_T, ladder_variant(False))
+        with counted(f"plain {dt}", res["faults"], moved=(), tag="learn"):
+            with ladder_swapped(ladder_variant(True)):
+                plain_row = sq.sample(model, ghp, jb, x_T, *LEARN_ROW)
+        fault_rel = denoiser_part_rel(model, ghp, jb, x_T,
+                                      ladder_variant(False, push=False))
+        nan_x = x_T.clone()
+        nan_x[0, 0, 0] = float("nan")
+        nan_row = sq.sample(model, ghp, jb, nan_x, "dpmpp", 100)
+        grids[dt]["k2_vs_plain"] = {"rel_l2": rel, "tol": LEARN_TOL[dt],
+                                    "fault_history_not_pushed": fault_rel}
+        log(f"[learn] {dt} dpmpp100_clip K2 vs plain: denoiser part rel_l2 "
+            f"{rel:.3e} (tol {LEARN_TOL[dt]:g}; history not pushed "
+            f"{fault_rel:.3e}); plain row range [{plain_row.min():.2f}, "
+            f"{plain_row.max():.2f}]")
+        if not rel <= LEARN_TOL[dt]:
+            failed.append(f"{dt} dpmpp100_clip K2 vs plain {rel:.3e}")
+        faults = {
+            "k2_vs_plain": [f"rel_l2 {fault_rel:.3e}"]
+            if fault_rel > LEARN_TOL[dt] else [],
+            "rows": row_failures({"dpmpp100 from a NaN x_T": nan_row},
+                                 (b, t_mel, int(hp["audio_num_mel_bins"]))),
+            # dpmpp100_clip's ladder with its clamp dropped: dpmpp100's
+            "range": range_failures({"dpmpp100_clip": mels["dpmpp100"]}),
+            "counts": count_failures(
+                "plain row", {"K2": res["faults"][f"plain {dt}"][
+                    "plms_ladder"]}, {"K2": 1})}
+        res["faults"][dt] = faults
+        for gate, msgs in faults.items():
+            log(f"[learn] {dt} fault for the {gate} gate: {msgs or 'PASSED'}")
+            if not msgs:
+                faults_missed.append(f"{dt} {gate}")
+        del model
+    for gate in ("resume", "loss"):
+        log(f"[learn] fault for the {gate} gate: "
+            f"{res['faults'][gate] or 'PASSED'}")
+        if not res["faults"][gate]:
+            faults_missed.append(gate)
+    res["seconds"]["grids"] = time.time() - t1
+    res["seconds"]["total"] = time.time() - t0
+    log(f"[learn] phase 15 took {res['seconds']}s")
+    if faults_missed:
+        raise SmokeError(f"phase 15 planted faults not caught: "
+                         f"{faults_missed}")
+    if failed:
+        raise SmokeError(f"phase 15 gates failed: {failed}")
+    return res
+
+
 def diffnet_apply_card(model, noise, t, cond, device):
     """``diffnet.apply`` (K1) on the card from the graph's layouts: noise
     [1, 1, M, T], t [1], cond [1, H, T] -> [1, 1, M, T], numpy."""
@@ -6286,12 +6543,13 @@ def main(argv=None) -> int:
                                        project)
                 record["pt2"] = timed("14 pt2", phase_pt2, device, tmp,
                                       project)
+                record["learn"] = timed("15 learn", phase_learn, device, tmp)
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-14: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-15: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -6311,7 +6569,8 @@ def main(argv=None) -> int:
     # training runs; launches_seq: phase 12's parts (in process, and each
     # rank of the grid); launches_onnx: phase 13's card runs (K1, K2, K3
     # against the exported graphs); launches_pt2: phase 14's programs, one
-    # call each
+    # call each; launches_learn: phase 15's training demo and its sampler
+    # grid at f32 and bf16
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -6358,6 +6617,9 @@ def main(argv=None) -> int:
                             "phase 13"][name],
                         "launches_pt2": record["pt2"]["launches"][
                             "phase 14"][name],
+                        "launches_learn": {
+                            part: counts[name] for part, counts in
+                            record["learn"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -246,16 +246,21 @@ class Trainer:
     def _plot_validation(self, batch, idx: int) -> None:
         """Full sampling, then the mel (and the vocoded audio when vocoder
         weights exist) to TensorBoard.  Skipped without a writer: the
-        sampling would only be thrown away."""
+        sampling would only be thrown away.  Without matplotlib only the
+        figure is skipped (JAX's line is printed); an error of the sampling
+        or the vocoder raises."""
         if self.writer is None:
             return
         from ..utils.plot import spec_to_figure
 
         out = self.task.sample(batch)
         mel_pred = out["mel_out"][0].float().cpu().numpy()
-        self.writer.add_figure(f"mel_{idx}",
-                               spec_to_figure(mel_pred, batch["mels"][0]),
-                               self.global_step)
+        try:
+            fig = spec_to_figure(mel_pred, batch["mels"][0])
+        except ImportError as e:
+            print(f"| plot_validation skipped: {e}")
+        else:
+            self.writer.add_figure(f"mel_{idx}", fig, self.global_step)
         if self.vocoder is not None:
             f0 = out["f0_denorm"][0].float().cpu().numpy()
             wav = self.vocoder.spec2wav(mel_pred, f0=f0)

@@ -294,6 +294,80 @@ def voiced_wav(secs: float, sr: int, f0: float = 220.0, gaps=(),
     return wav.astype(np.float32)
 
 
+def _sidecar_units(wav: np.ndarray, sr: int, proj: np.ndarray) -> np.ndarray:
+    """Units on the 16 kHz / 320 HuBERT grid: the framed 16 kHz audio times
+    a fixed projection (content-correlated, no HuBERT weights needed)."""
+    t = np.arange(len(wav)) / sr
+    n16 = int(len(wav) * 16000 / sr)
+    wav16 = np.interp(np.arange(n16) / 16000, t, wav).astype(np.float32)
+    n_units = max((n16 + 2 * 40) // 320, 1)
+    frames = np.zeros((n_units, 320), np.float32)
+    for j in range(n_units):
+        seg = wav16[j * 320: j * 320 + 320]
+        frames[j, : len(seg)] = seg
+    return frames @ proj
+
+
+def make_dataset(raw_dir: str, sr: int = 44100, n_clips: int = 16,
+                 dur: float = 2.0, hidden: int = 256) -> None:
+    """Synthetic singing: ``clipNN.wav`` (three harmonics with vibrato,
+    phrase envelopes and a little noise, one note per clip) and its
+    ``clipNN.npy`` sidecar units, the files ``tools/train_demo_tpu.py``'s
+    ``make_dataset`` writes, byte for byte (same ``RandomState(0)`` draws in
+    the same order)."""
+    from .audio_io import save_wav
+
+    os.makedirs(raw_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    proj = (rng.randn(320, hidden) / np.sqrt(320)).astype(np.float32)
+    notes = [196.0, 220.0, 247.0, 262.0, 294.0, 330.0, 349.0, 392.0]
+    for i in range(n_clips):
+        t = np.arange(int(sr * dur)) / sr
+        f0c = notes[i % len(notes)] * 2 ** (
+            0.04 * np.sin(2 * np.pi * (4.5 + 0.3 * i) * t)
+            + 0.2 * np.sin(2 * np.pi * 0.4 * t + i))
+        ph = np.cumsum(2 * np.pi * f0c / sr)
+        wav = (0.35 * np.sin(ph) + 0.2 * np.sin(2 * ph)
+               + 0.1 * np.sin(3 * ph) + 0.01 * rng.randn(len(t)))
+        env = 0.5 + 0.5 * np.sin(2 * np.pi * 0.8 * t + i)  # phrasing
+        wav = (wav * env).astype(np.float32)
+        save_wav(wav, f"{raw_dir}/clip{i:02d}.wav", sr)
+        np.save(f"{raw_dir}/clip{i:02d}.npy", _sidecar_units(wav, sr, proj))
+
+
+def make_real_dataset(raw_dir: str, wav_path: str, sr: int = 44100,
+                      n_clips: int = 0, dur: float = 2.0,
+                      hidden: int = 256) -> int:
+    """A vocal recording in :func:`make_dataset`'s layout: non-overlapping
+    ``dur``-second windows as ``clipNN.wav`` with sidecar units from the
+    same projection.  ``n_clips`` <= 0 keeps every full window.  Returns
+    the number of clips written."""
+    from scipy.io import wavfile
+
+    from .audio_io import resample, save_wav
+
+    os.makedirs(raw_dir, exist_ok=True)
+    rng = np.random.RandomState(0)
+    proj = (rng.randn(320, hidden) / np.sqrt(320)).astype(np.float32)
+    sr0, w = wavfile.read(wav_path)
+    if w.ndim > 1:
+        w = w.mean(-1)
+    if np.issubdtype(w.dtype, np.integer):
+        w = w.astype(np.float32) / float(np.iinfo(w.dtype).max)
+    w = w.astype(np.float32)
+    if sr0 != sr:
+        w = resample(w, sr0, sr)
+    n = int(sr * dur)
+    starts = list(range(0, len(w) - n + 1, n))
+    if n_clips and n_clips > 0:
+        starts = starts[:n_clips]
+    for i, s in enumerate(starts):
+        wav = np.asarray(w[s:s + n], np.float32)
+        save_wav(wav, f"{raw_dir}/clip{i:02d}.wav", sr)
+        np.save(f"{raw_dir}/clip{i:02d}.npy", _sidecar_units(wav, sr, proj))
+    return len(starts)
+
+
 def stack_inputs(dtype, device, b: int, t: int, c: int, layers: int) -> dict:
     """Operands of K1 (``ops/hopper/diffnet_stack.residual_stack``) with O(1)
     activations: x0 [B,T,C], sb [L,B,C], cond_proj [L,B,T,2C],

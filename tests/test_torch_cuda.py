@@ -1097,3 +1097,49 @@ def test_registered_ops_count_and_refuse_other_devices(cuda, tmp_path):
     with torch.no_grad():
         want = diffnet.apply(model.denoise_fn, *args)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,tol", [("f32", 1e-4), ("bf16", 2e-2)])
+def test_sampler_grid_row_card_matches_cpu(cuda, dtype, tol):
+    """One row of ``tools/sampler_quality``'s grid (dpmpp100_clip) through
+    K2 on the card against the CPU's plain ladder, from the same weights,
+    batch and shared x_T, at the tool's tiny widths: one K2 launch, the
+    clamp's range, relative L2 within the ladder's limit (f32: 3xTF32
+    against true f32; bf16: rounding flips over 11 evaluations)."""
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.models.diffusion import GaussianDiffusion
+    from diffsvc_tpu_torch.ops.hopper import plms_ladder as k2
+    from diffsvc_tpu_torch.tools import sampler_quality as sq
+    from diffsvc_tpu_torch.tools.train_demo import profile, tool_hp
+    from diffsvc_tpu_torch.utils.synth import randomize
+
+    hp = HParams(dict(tool_hp("unused", profile(True)),
+                      diff_compute_dtype=sq.DTYPES[dtype]))
+    model = GaussianDiffusion(hp)
+    randomize(model, 0)          # torch's init: a nonzero output head
+    b, t = 2, 120
+    rng = np.random.RandomState(0)
+    mel2ph = np.repeat(np.arange(1, t // 2 + 1), 2)[None].repeat(b, 0)
+    mel2ph[1, -20:] = 0
+    batch = {"hubert": (rng.randn(b, t // 2, 256) * 0.3).astype(np.float32),
+             "mel2ph": mel2ph.astype(np.int64),
+             "f0": np.full((b, t), 220.0, np.float32),
+             "uv": np.zeros((b, t), np.float32),
+             "energy": np.zeros((b, t), np.float32)}
+    x_T = sq.shared_x_T(b, t, int(hp["audio_num_mel_bins"]))
+    row = ("dpmpp", 100, "lambda", 1.0)
+
+    def run(device):
+        m = GaussianDiffusion(hp)
+        m.load_state_dict(model.state_dict())
+        jb = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        return torch.from_numpy(sq.sample(m.to(device).eval(), hp, jb, x_T,
+                                          *row))
+
+    before = k2.launches
+    got = run(cuda)
+    assert k2.launches - before == 1
+    ref = run("cpu")
+    assert torch.isfinite(got).all() and float(got.min()) >= -8.0
+    assert float(got.max()) <= 3.0
+    assert _rel(got, ref) <= tol

@@ -219,6 +219,10 @@ pt2_ok = all(hasattr(torch.ops.diffsvc_tpu_torch, op) for op in (
     "residual_stack", "plms_ladder", "vocoder_tail")) and bool(torch.isfinite(
     den(torch.zeros(1, 16, svc.mel_bins), torch.tensor([3]),
         torch.zeros(1, 16, svc.hp["hidden_size"]))).all())
+# the learned-score tools and their data recipe
+from diffsvc_tpu_torch.tools import sampler_quality, train_demo
+from diffsvc_tpu_torch.utils.synth import make_dataset
+make_dataset("learn_raw", sr=8000, n_clips=1, dur=0.2)
 forbidden = sorted(m for m in sys.modules if m.split(".")[0] in (
     "onnx", "onnxscript") or m.startswith("google.protobuf"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
@@ -252,10 +256,11 @@ def test_port_never_imports_jax(tmp_path):
     ``onnx_export``; the tiny project's four graphs written and one run),
     and the compiled-program export (``infer.export``, ``run_exported``,
     ``simplify``, the op library's registered K1-K3; the tiny project's
-    ``.pt2`` set written and its denoiser reloaded and run), in a fresh
-    process: neither jax nor any module of the JAX package
-    ``diffsvc_tpu`` may be in sys.modules, nor ``onnx``, ``onnxscript`` or
-    ``google.protobuf``."""
+    ``.pt2`` set written and its denoiser reloaded and run), and the
+    learned-score tools (``tools.train_demo``, ``tools.sampler_quality``,
+    ``synth.make_dataset``'s clips written), in a fresh process: neither
+    jax nor any module of the JAX package ``diffsvc_tpu`` may be in
+    sys.modules, nor ``onnx``, ``onnxscript`` or ``google.protobuf``."""
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run(
         [sys.executable, "-c",
@@ -345,8 +350,8 @@ def test_crepe_and_pe_requests_raise(in_root, tmp_path):
 def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     """Without a card, ``default_device`` and every entry point that runs
     on it by default raise (among them the server's and the folder
-    batch's ``main``, the pe task and ``--infer``); ``device="cpu"``
-    (``--device cpu``) runs."""
+    batch's ``main``, the pe task, ``--infer`` and the learned-score
+    tools); ``device="cpu"`` (``--device cpu``) runs."""
     from _torch_fixtures import TINY_HP
     from diffsvc_tpu_torch import batch as tbatch
     from diffsvc_tpu_torch import flask_api
@@ -354,6 +359,7 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     from diffsvc_tpu_torch.data.binarizer import binarize
     from diffsvc_tpu_torch.infer.svc import default_device
     from diffsvc_tpu_torch.run import device_arg, run_task
+    from diffsvc_tpu_torch.tools import sampler_quality, train_demo
     from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
     from diffsvc_tpu_torch.training.task import SVCTask
 
@@ -378,11 +384,14 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
                  lambda: flask_api.main(["--project", "proj", "--model", ckpt,
                                          "--config", cfg_fn, "--fused"]),
                  lambda: tbatch.main(["--project", "proj", "--model", ckpt,
-                                      "--config", cfg_fn])):
+                                      "--config", cfg_fn]),
+                 lambda: train_demo.main(["--tiny", "--out", "demo_out"]),
+                 lambda: sampler_quality.main(["--tiny", "--out", "sq_out"])):
         with pytest.raises(RuntimeError, match="--device cpu"):
             call()
     assert default_device("cpu") == torch.device("cpu")
     assert SVCTask(hp, device="cpu").device.type == "cpu"
     assert TSvc("proj", cfg_fn, False, ckpt, device="cpu").device.type == "cpu"
+    assert not os.path.exists("demo_out") and not os.path.exists("sq_out")
     assert device_arg(["--config", "c.yaml"]) == "cuda"
     assert device_arg(["--config", "c.yaml", "--device", "cpu"]) == "cpu"
