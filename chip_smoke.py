@@ -127,8 +127,8 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    each of these, must move in each.
 8. The rest of conversion (``[rest]`` lines; every counter reset before
    each route and read after it):
-   (a) DDPM (``acc=1``, 1000 steps) on phase 4's project: a 3 s voiced
-   clip through ``run_clip``, modular and fused graph, in bf16 and f32 (the
+   (a) DDPM (``acc=1``, 1000 steps) on phase 4's project: a 2.5 s voiced
+   clip (one fused bucket) through ``run_clip``, modular and fused graph, in bf16 and f32 (the
    output's length, finite, non-silent; K1's counter a whole number of
    1000-step trajectories, at least one per chunk, and K2's 0), the fused
    route again warm; the sampler alone timed and profiled over a 100-step
@@ -141,13 +141,13 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    (b) CREPE (random weights in torchcrepe's ``full.pth`` layout): the 14 s
    clip through ``get_pitch`` on the card (tracker ``crepe``), the network
    and the Viterbi timed apart; its posteriors card vs CPU on a block of
-   128 frames (rel-L2 <= 1e-4, both true f32) and the share of frames
+   64 frames (rel-L2 <= 1e-4, both true f32) and the share of frames
    whose decoded f0 agrees; the binarizer on config_44k as shipped
    (``use_crepe: true``) on 6 clips, every item tracked by CREPE with
    weights and by the AC tracker without.
    (c) A config_24k project at full width (DiffNet 256 x 20, 80 mel,
    HuBERT-soft 768 x 12, pe, HiFi-GAN V1 512 / rates 8, 8, 2, ContentVec
-   768 x 12): the 14 s clip at 24 kHz through the modular and batched
+   768 x 12): the 6.5 s clip at 24 kHz through the modular and batched
    routes (with pe) and the fused graph, bf16 and f32, K2 and K3 moving on
    each; wall, RTF and busy share per route; card vs CPU at phase 4's
    limits with the fault; pe's time and its card-vs-CPU agreement
@@ -192,8 +192,9 @@ Phases, in order; any failure exits non-zero and no result line is printed:
 10. Several ranks, sharded serving, FS2-full and the FFT denoiser
    (``[multi]`` and ``[fs2]`` lines; each rank is a process of its own,
    ``chip_smoke.py --dist-job JOB BUNDLE`` with torchrun's environment, and
-   reports its own K1-K6 counts), on phase 6's data and phase 4's project:
-   (a) nccl at world 1: three steps at B=24 (K4) under a process group
+   reports its own K1-K6 counts), on phase 6's data and phase 4's project,
+   (a) started beside (b) and (c), three processes on the card at once (so
+   their ms per step are read side by side): (a) nccl at world 1: three steps at B=24 (K4) under a process group
    against the same steps with none, params and optimizer state bit for
    bit; (b) two gloo ranks sharing this card (nccl takes one card per
    rank): three steps at 24 per rank (K4; the third on a ragged batch of
@@ -212,7 +213,7 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    ``BATCHED_TOL`` of ``batched``'s on the same draws, K2 and K3 moving on
    both replicas, its wall beside ``batched``'s; (e) FS2-full
    (``no_fs2: false``) and (f) the FFT denoiser (``diff_decoder_type:
-   fft``) at config_44k: the 14 s clip through the modular route and the
+   fft``) at config_44k: the 6.5 s clip through the modular route and the
    fused graph in bf16 and f32 (the FFT denoiser in f32; RTF, busy share;
    K2 and K3 moving; the FFT denoiser's K1, K2, K4 and K5 at 0 and K3
    moving; the encoder, or the
@@ -226,7 +227,7 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    counter reset before each route or run and read after it):
    (a) the iSTFT head at config_44k's geometry (dim 512, 8 layers, n_fft
    2048, hop 512, the f0 embedding; its weights written by the port's
-   ``save_params``): phase 4's 14 s clip through ``Svc.infer`` and the
+   ``save_params``): phase 4's 6.5 s clip through ``Svc.infer`` and the
    fused graph in bf16 and f32 diffusion, and once with
    ``voc_compute_dtype: bfloat16`` (K2 moving, K3 at 0; RTF, busy share),
    phase 7's 17 s clip through ``FusedSvc.batched`` (B=3) and
@@ -236,7 +237,7 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    above both, and ``Svc.infer_batched`` refused; (b) PWG at config_24k's
    geometry (30 layers, 3 stacks, 64 / 128 / 64 channels, scales 4, 4, 4,
    2, aux window 2) from an official-layout directory (weight-norm keys,
-   ``stats.npy``) with ``loud_norm: true``: the 14 s clip at 24 kHz through
+   ``stats.npy``) with ``loud_norm: true``: the 6.5 s clip at 24 kHz through
    the modular route and ``--batch_chunks`` (K2 moving, K3 at 0),
    ``spec2wav`` card vs CPU on one mel and seed (its last residual layer
    dropped above the limit), ``wav2spec`` with loud_norm card vs CPU, a
@@ -245,11 +246,13 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    cyclic-noise source, each card vs CPU; (d) ``run_task`` with a vocoder
    ``task_cls`` for the hifigan (openvpi NSF-HiFiGAN width, MPD + MSD),
    istft (512 x 8) and pwg families on phase 5's 32 clips binarized with
-   their waveforms: 3 steps of B=8 crops of 32 frames each (finite losses,
-   ms per step, peak memory, K1-K6 at 0), a resume from the step-2
-   checkpoint equal to the uninterrupted step 3 bit for bit (in a child
-   process, ``chip_smoke.py --vocoder-resume BUNDLE``, under deterministic
-   algorithms with ``CUBLAS_WORKSPACE_CONFIG`` set), and one hifigan step
+   their waveforms: 2 steps of B=8 crops of 32 frames each (finite losses,
+   ms per step, peak memory, K1-K6 at 0), a resume from the step-1
+   checkpoint equal to the uninterrupted step 2 bit for bit (in a child
+   process per family, ``chip_smoke.py --vocoder-resume BUNDLE``, under
+   deterministic algorithms with ``CUBLAS_WORKSPACE_CONFIG`` set, started
+   before (a) and run beside (a)-(d), whose times are read beside them),
+   and one hifigan step
    card vs CPU at B=2 (losses, D and G grads; the card's updated params
    against the first AdamW update on its own grads), G's grads against the
    old D as the planted fault, and G's grads at the init with every leaky
@@ -336,12 +339,35 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    at phase 4's limits (K2 with its history not pushed); K4 one backward a
    step and K5 none, K2 14 launches a grid (the row through the plain
    version: K2 0).
+16. The vocoder's learned quality and the train-stream A/B
+   (``[voclearn]`` lines), at full width and reduced depth
+   (``VOCLEARN_STEPS``, ``STREAM_STEPS``): ``tools/train_istft`` (the iSTFT
+   head 512 x 8 on 8 synthetic 2 s clips at B=8 x 32 frames; no kernel
+   runs the head: K1-K5 at 0) with its checkpoint read back through the
+   ``IstftVocoder`` wrapper; ``tools/ab_vocoder`` (NSF-HiFiGAN at the
+   openvpi widths and the iSTFT head on the same clips, seeds and crops;
+   the NSF renders through K3, one tail each); the trained NSF
+   generator's render of the held-out clip (B=1, 173 frames) through K3
+   against its plain ``apply`` at K3's f32 limit; ``tools/ab_train_stream``
+   at B=24 x T=1024, C=384, L=20: the bf16 leg on K4 at the bf16 stream,
+   the f32 leg on K5, the scan leg (``diffnet_pallas_train: off``) on K4
+   at the f32 stream, one backward a step each on its counter
+   (``diffnet_stack_train.bwd_launches_f32`` tells K4's streams apart),
+   and the JAX tool's two asserts.  Gates, each with a planted fault that
+   must fail it: the held-out mel-L1 fell for the head and both A/B
+   families (the untrained generator's render as "after"); the reload
+   exact (a wrapper without the checkpoint); K3 vs plain (its last NSF
+   injection dropped); the legs' launches (the scan leg on the route rule
+   before the repair: K4 at the bf16 stream); the A/B's asserts (the bf16
+   leg with K4's backward dropped, Queue 3 #1's fault).  The scan leg on
+   the old route leaves the gap at 0 (it is the bf16 leg's computation):
+   printed, not a fault of that gate.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
 in each of phase 9's parts, phase 10's, phase 11's, phase 12's, phase 13's,
-phase 14's and phase 15's, errors, times, bound);
+phase 14's, phase 15's and phase 16's, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -1498,7 +1524,7 @@ CPU_SVCS = {}   # (config, checkpoint) -> the CPU Svc of cpu_agreement
 
 def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
                   same_f0=False, head=denoiser_head, fault=skip_bias_dropped,
-                  fault_name="bskip dropped", **infer_kw):
+                  fault_name="bskip dropped", secs=0.5, **infer_kw):
     """The same short conversion on the card and on the CPU (plain
     versions), at ``svc_dev``'s diff_compute_dtype and ``acc`` (at acc=1
     DDPM, its per-step noise shared too; ``infer_kw``: e.g. use_gt_mel),
@@ -1513,7 +1539,8 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
     and the vocoder) or SLICE_TOL_BF16 in bf16, and the card's conversion
     with the planted ``fault`` (a context manager on the card's Svc; by
     default the denoiser's skip-projection bias dropped) must not.
-    ``head(svc)``: the parameters zeroed for eps = 0."""
+    ``head(svc)``: the parameters zeroed for eps = 0.  ``secs``: the clip's
+    first seconds converted."""
     import numpy as np
     import torch
 
@@ -1521,7 +1548,6 @@ def cpu_agreement(svc_dev, cfg_fn, ckpt, wav_fn, acc=ACC, tag="slice",
     from diffsvc_tpu_torch.utils.audio_io import load_wav, save_wav
     from diffsvc_tpu_torch.vocoders.generator import draw_randoms
 
-    secs = 0.5
     wav, sr = load_wav(wav_fn)
     short = wav_fn[:-4] + "_short.wav"
     save_wav(wav[: int(secs * sr)], short, sr)
@@ -2233,7 +2259,8 @@ def batch_route(hp, b: int, t: int) -> str:
     return train_route(int(hp["residual_layers"]),
                        int(hp["dilation_cycle_length"]), t,
                        int(hp["residual_channels"]), b,
-                       str(hp["diffnet_train_stream_dtype"]))
+                       str(hp["diffnet_train_stream_dtype"]),
+                       pallas=str(hp.get("diffnet_pallas_train", "auto")))
 
 
 def time_train_steps(hp, device, batch, reps: int = 3):
@@ -2588,8 +2615,13 @@ def phase_train_own_batch(device, workdir, hubert_path, vocoder_ckpt):
 # Phase 8: the rest of conversion (DDPM, CREPE, the 24 kHz profile)
 # ---------------------------------------------------------------------------
 
-# a voiced clip of 3 s with no silence: one chunk (two fused buckets)
-DDPM_CLIP = (3.0, 262.0, [])
+# The FFT denoiser's card-vs-CPU check (phase 10) converts 0.25 s (its
+# planted fault reads ~0.46 against a limit of 1e-2); FS2-full's, whose
+# fault reads ~3.0e-2 against 2e-2, converts 0.5 s
+CPU_SECS_CUT = 0.25
+# a voiced clip of 2.5 s with no silence: one chunk, one fused bucket (215
+# frames of the bucket's 256, so one capture a dtype)
+DDPM_CLIP = (2.5, 262.0, [])
 # the card-vs-CPU DDPM check: use_gt_mel from the input's mel q-sampled to
 # step 49, then 50 DDPM steps, on 0.5 s
 DDPM_CPU_STEPS = 50
@@ -2598,11 +2630,11 @@ DDPM_CPU_STEPS = 50
 DDPM_PROF_STEPS = 100
 # CREPE's card-vs-CPU check: its posteriors on this block of frames of the
 # 14 s clip (the CPU's network costs ~2.8 GFLOP a frame)
-CREPE_BLOCK = (1000, 1128)
+CREPE_BLOCK = (1000, 1064)
 # the network's posteriors, card against CPU, both true f32 (cuDNN's
 # convolutions against MKL-DNN's, 6 layers, f32 sums in other orders)
 CREPE_TOL = 1e-4
-# pe on the 14 s clip's mel, card against CPU, both true f32
+# pe on the 6.5 s clip's mel, card against CPU, both true f32
 PE_TOL = 1e-4
 BINARIZE_CLIPS = 6     # the binarizer keeps 1 as train, 5 as valid = test
 
@@ -2905,7 +2937,7 @@ def phase_crepe(device, project, workdir):
 
 def phase_24k(device, workdir, launches):
     """(c) A config_24k project at full width (DiffNet 256 x 20, 80 mel,
-    HuBERT-soft 768 x 12, pe, HiFi-GAN V1, ContentVec 768 x 12): the 14 s
+    HuBERT-soft 768 x 12, pe, HiFi-GAN V1, ContentVec 768 x 12): the 6.5 s
     clip through the modular (pe), batched (pe) and fused-graph routes in
     bf16 and f32 (K2 and K3 moving on each), card vs CPU at phase 4's limits
     with a planted fault, pe's time and card-vs-CPU agreement, ContentVec's
@@ -2929,7 +2961,7 @@ def phase_24k(device, workdir, launches):
         VOC24_H, hubert_cfg=HubertConfig(), pe=True,
         vec_cfg=HubertConfig())
     log(f"[rest] wrote the config_24k project in {time.time() - t0:.2f}s")
-    secs, f0, gaps = CLIPS[SERVE_CLIP]
+    secs, f0, gaps = CLIPS[0]
     wav_fn = os.path.join(workdir, "clip24.wav")
     save_wav(synth.voiced_wav(secs, sr, f0, gaps, seed=2), wav_fn, sr)
     short = os.path.join(workdir, "clip24_short.wav")
@@ -3693,50 +3725,56 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_ranks(job: str, world: int, bundle: str) -> list:
-    """``chip_smoke.py --dist-job JOB BUNDLE`` as ``world`` processes on
-    this card (RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set as torchrun
-    sets them; cuBLAS's workspace fixed so a step repeats bit for bit);
-    every process is waited for or killed.  Returns each rank's record."""
-    port = str(free_port())
-    procs, logs = [], []
+def run_jobs(jobs) -> list:
+    """Each (job, world, bundle) of ``jobs`` as ``world`` processes of
+    ``chip_smoke.py --dist-job JOB BUNDLE`` on this card, every job started
+    at once (RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT set as torchrun
+    sets them, a port per job; cuBLAS's workspace fixed so a step repeats
+    bit for bit); every process is waited for or killed.  Returns each
+    job's list of its ranks' records."""
+    started = []    # (job, process, (out, err))
     try:
-        for r in range(world):
-            env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
-                       LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
-                       MASTER_PORT=port, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-            # files, not pipes: a rank blocked on a full pipe would stall
-            # the other in a collective
-            logs.append((open(f"{bundle}.rank{r}.out", "w+"),
-                         open(f"{bundle}.rank{r}.err", "w+")))
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-                 "--dist-job", job, bundle], env=env, stdout=logs[-1][0],
-                stderr=logs[-1][1], text=True))
+        for job, world, bundle in jobs:
+            port = str(free_port())
+            for r in range(world):
+                env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                           LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                           MASTER_PORT=port,
+                           CUBLAS_WORKSPACE_CONFIG=":4096:8")
+                # files, not pipes: a rank blocked on a full pipe would
+                # stall the other in a collective
+                logs = (open(f"{bundle}.rank{r}.out", "w+"),
+                        open(f"{bundle}.rank{r}.err", "w+"))
+                started.append((job, subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                     "--dist-job", job, bundle], env=env, stdout=logs[0],
+                    stderr=logs[1], text=True), logs))
         deadline = time.time() + DIST_TIMEOUT
-        for p in procs:
+        for _, p, _ in started:
             p.wait(timeout=max(deadline - time.time(), 1))
     finally:
-        for p in procs:
+        for _, p, _ in started:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    outs, failed = [], []
-    for r, (p, (out_f, err_f)) in enumerate(zip(procs, logs)):
+    outs, failed = {job: [] for job, _, _ in jobs}, []
+    for job, p, (out_f, err_f) in started:
         out_f.seek(0)
         err_f.seek(0)
-        outs.append(out_f.read())
+        outs[job].append(out_f.read())
         if p.returncode != 0:
-            failed.append(f"rank {r}: exit {p.returncode}\n"
-                          f"{err_f.read()[-3000:]}")
+            failed.append(f"{job} rank {len(outs[job]) - 1}: exit "
+                          f"{p.returncode}\n{err_f.read()[-3000:]}")
         out_f.close()
         err_f.close()
-    for out in outs:
-        for line in out.splitlines()[:-1]:
-            log(line)
+    for job, _, _ in jobs:
+        for out in outs[job]:
+            for line in out.splitlines()[:-1]:
+                log(line)
     if failed:
-        raise SmokeError(f"{job}: " + "\n".join(failed))
-    return [json.loads(out.strip().splitlines()[-1]) for out in outs]
+        raise SmokeError("\n".join(failed))
+    return [[json.loads(out.strip().splitlines()[-1]) for out in outs[job]]
+            for job, _, _ in jobs]
 
 
 def dist_batches(hp, groups, world: int) -> list:
@@ -3823,7 +3861,7 @@ def optimizer_tensors(task) -> list:
 
 
 def dist_job(job: str, bundle_fn: str) -> int:
-    """A rank of phase 10 (its parent runs it through :func:`run_ranks`);
+    """A rank of phase 10 (its parent runs it through :func:`run_jobs`);
     prints its record as its last line."""
     import torch
 
@@ -3997,7 +4035,14 @@ def phase_multi_train(device, workdir):
     torch.save({"hp": dict(hp, max_sentences=DIST_B), "device": str(device),
                 "k4_groups": [items[0:DIST_B], items[24:48], items[48:71]],
                 }, bundle + ".w1")
-    w1 = run_ranks("world1", 1, bundle + ".w1")[0]
+    dirs = [os.path.join(workdir, f"multi_ckpt{r}") for r in range(2)]
+    torch.save({"hp": dict(hp), "device": str(device), "k4_groups": k4,
+                "k5_groups": [items + items] * DIST_K5_STEPS,
+                "ckpt_dirs": dirs}, bundle)
+    # (a) beside (b) and (c): three processes on the card at once
+    w1, ranks = run_jobs([("world1", 1, bundle + ".w1"),
+                          ("world2", 2, bundle)])
+    w1 = w1[0]
     res["world1"] = w1
     for mode in ("single", "nccl"):
         ms = w1[mode]["ms_per_step"]
@@ -4012,11 +4057,6 @@ def phase_multi_train(device, workdir):
             or w1["nccl"]["launches"]["residual_stack_train_batched"] <= 0:
         raise SmokeError(f"world 1 under nccl: {w1}")
 
-    dirs = [os.path.join(workdir, f"multi_ckpt{r}") for r in range(2)]
-    torch.save({"hp": dict(hp), "device": str(device), "k4_groups": k4,
-                "k5_groups": [items + items] * DIST_K5_STEPS,
-                "ckpt_dirs": dirs}, bundle)
-    ranks = run_ranks("world2", 2, bundle)
     res["k4"] = check_ranks("(b) K4, gloo, 2 ranks", ranks, "k4",
                             "residual_stack_train_batched")
     res["k5"] = check_ranks("(b) K5, gloo, 2 ranks", ranks, "k5",
@@ -4190,7 +4230,7 @@ def variant_train_step(hp, device, part: str, launches, label, still=()):
 def phase_variants(device, workdir, project, launches):
     """(e) FS2-full (``no_fs2: false``: base.yaml's encoder, 4 layers, 2
     heads, FFN kernel 9 at hidden 256) and (f) the FFT denoiser
-    (``diff_decoder_type: fft``) on config_44k: the 14 s clip through the
+    (``diff_decoder_type: fft``) on config_44k: the 6.5 s clip through the
     modular route and the fused graph in bf16 and f32 (the FFT denoiser in
     f32, config_44k's own dtype; RTF, busy share; K2 and K3 moving, and for
     the FFT denoiser K1, K2, K4 and K5 at 0), a
@@ -4203,8 +4243,9 @@ def phase_variants(device, workdir, project, launches):
     from diffsvc_tpu_torch.config import HParams, set_hparams
     from diffsvc_tpu_torch.infer.svc import Svc
 
-    wav_fn = project["wavs"][SERVE_CLIP]
-    secs = CLIPS[SERVE_CLIP][0]
+    wav_fn = project["wavs"][0]
+    secs = CLIPS[0][0]
+    n_chunks = len(voiced_chunks(wav_fn))
     hub = os.path.join(os.path.dirname(project["cfg_fn"]), "hubert",
                        "hubert_soft.pt")
     own = set_hparams(config=os.path.join(workdir, "own.yaml"),
@@ -4254,14 +4295,16 @@ def phase_variants(device, workdir, project, launches):
                                      f"{'encoder' if name == 'fs2' else 'denoiser'}"
                                      f" ran {len(calls)} times")
                 routes[route] = dict(route_run(
-                    f"{name} {route} {dname}", secs, 3, lambda kw=kw: clip(
+                    f"{name} {route} {dname}", secs, n_chunks,
+                    lambda kw=kw: clip(
                         **kw)), module_calls_first_run=len(calls))
             hook.remove()
             t_cpu = time.time()
             out["cpu_agreement"][dname] = cpu_agreement(
                 svc, cfg_fn, ckpt, project["wavs"][0], tag=name, head=head,
                 fault=lambda s: last_layer_dropped(blocks(s)),
-                fault_name=fault_name)
+                fault_name=fault_name,
+                secs=0.5 if name == "fs2" else CPU_SECS_CUT)
             log(f"[fs2] {name} {dname}: card vs CPU took "
                 f"{time.time() - t_cpu:.1f}s")
             del svc
@@ -4320,8 +4363,8 @@ PWG_PARAMS = dict(layers=30, stacks=3, residual_channels=64,
                   aux_context_window=2,
                   upsample_params={"upsample_scales": [4, 4, 4, 2]})
 # GAN training: crops of 32 frames, B=8 (base.yaml's max_sentences is 88:
-# cut for time), 3 steps a family with a checkpoint after step 2
-VOC_SEG, VOC_B, VOC_STEPS = 32, 8, 3
+# cut for time), 2 steps a family with a checkpoint after step 1
+VOC_SEG, VOC_B, VOC_STEPS = 32, 8, 2
 # One hifigan GAN step card vs CPU at B=2 from the same init, crops and
 # draws, TF32 off: the losses (relative), the D and the G grads (relative L2
 # over all of each), and each param the card updated against optax's first
@@ -4449,7 +4492,7 @@ def voc_routes(label, svc, wav_fn, secs, launches, routes):
 
 def phase_voc_istft(device, workdir, inputs, launches):
     """(a) The iSTFT head at config_44k's geometry (weights written by the
-    port's save_params): the 14 s clip through Svc.infer and the fused
+    port's save_params): the 6.5 s clip through Svc.infer and the fused
     graph in bf16 and f32 diffusion and once with voc_compute_dtype
     bfloat16; the 17 s clip through FusedSvc.batched (B=3) and
     batched_sharded over two replicas on the card; K2 moving, K3 at 0 on
@@ -4473,7 +4516,7 @@ def phase_voc_istft(device, workdir, inputs, launches):
         print_hparams=False))
     synth.write_istft(npz, cfg, seed=7)
     with_vocoder_ckpt(cfg_fn, npz)
-    secs = CLIPS[-1][0]
+    secs = CLIPS[0][0]
     for dt in ("bfloat16", ""):
         svc = Svc("istft_proj", cfg_fn, True, ckpt, device=device)
         if not isinstance(svc.vocoder, ih.IstftVocoder) or cfg != \
@@ -4558,7 +4601,7 @@ def phase_voc_istft(device, workdir, inputs, launches):
 def phase_voc_pwg(device, workdir, inputs, launches):
     """(b) PWG at config_24k's geometry from an official-layout directory
     (config.yaml, checkpoint-400000steps.pkl with weight-norm keys,
-    stats.npy), ``loud_norm: true``: the 14 s clip at 24 kHz through the
+    stats.npy), ``loud_norm: true``: the 6.5 s clip at 24 kHz through the
     modular route and --batch_chunks (K2 moving, K3 at 0); spec2wav card vs
     CPU on one mel and seed, the last residual layer dropped above the
     limit; wav2spec with loud_norm card vs CPU; a fused route refused."""
@@ -4583,7 +4626,7 @@ def phase_voc_pwg(device, workdir, inputs, launches):
     pwg_dir = os.path.join(root, "pwg")
     synth.write_pwg(pwg_dir, PWG_PARAMS, hop_size=128, seed=8)
     with_vocoder_ckpt(cfg_fn, pwg_dir)
-    secs, f0, gaps = CLIPS[-1]
+    secs, f0, gaps = CLIPS[0]
     wav_fn = os.path.join(workdir, "clip24_pwg.wav")
     save_wav(synth.voiced_wav(secs, 24000, f0, gaps, seed=2), wav_fn, 24000)
     svc = Svc("pwg_proj", cfg_fn, True, ckpt, device=device)
@@ -4717,7 +4760,7 @@ def voc_family_config(workdir, family) -> dict:
                                          "hubert_soft.pt"),
                 task_cls="training.task.vocoder.HifiGanTask",
                 max_sentences=VOC_B, vocoder_segment_frames=VOC_SEG,
-                max_updates=VOC_STEPS, val_check_interval=2, log_interval=1)
+                max_updates=VOC_STEPS, val_check_interval=1, log_interval=1)
 
 
 VOC_FAMILIES = ("hifigan", "istft", "pwg")
@@ -4725,8 +4768,8 @@ VOC_FAMILIES = ("hifigan", "istft", "pwg")
 
 def voc_resume(bundle_fn: str) -> int:
     """Phase 11's child: for each family of the bundle (the phase starts one
-    child per family, side by side), 3 steps from a fresh work_dir (a
-    checkpoint after step 2), then a run resumed from that step-2
+    child per family, side by side), 2 steps from a fresh work_dir (a
+    checkpoint after step 1), then a run resumed from that step-1
     checkpoint alone, under ``torch.use_deterministic_algorithms`` (its
     parent sets ``CUBLAS_WORKSPACE_CONFIG``); prints, per family, whether
     the two step-3 checkpoints are equal bit for bit."""
@@ -4745,7 +4788,7 @@ def voc_resume(bundle_fn: str) -> int:
         a, b = cfg["work_dir"] + "_det", cfg["work_dir"] + "_resumed"
         ta = run_task(HParams(dict(cfg, work_dir=a)), device=bundle["device"])
         os.makedirs(b)
-        shutil.copy(os.path.join(a, "model_ckpt_steps_2.ckpt"), b)
+        shutil.copy(os.path.join(a, "model_ckpt_steps_1.ckpt"), b)
         tb = run_task(HParams(dict(cfg, work_dir=b)), device=bundle["device"])
         sa, sb = ta.state_dict(), tb.state_dict()
         same = all(torch.equal(sb["state_dict"][k], v)
@@ -4940,25 +4983,16 @@ def gan_step_vs_cpu(device, hp) -> dict:
     return res
 
 
-def phase_voc_train(device, workdir, inputs, launches):
-    """(d) ``train_vocoder`` through ``run_task`` with a vocoder task_cls,
-    for the hifigan (openvpi NSF-HiFiGAN width, MPD + MSD), istft (512 x 8,
-    MPD + MSD) and pwg (its discriminator) families, on phase 5's clips
-    binarized with their waveforms: 3 steps at B=8 of 32-frame crops, the
-    losses finite, ms per step and peak memory, K1-K6 at 0; in a child
-    process under deterministic algorithms, a resume from the step-2
-    checkpoint equal to the uninterrupted step 3 bit for bit; one hifigan
-    step card vs CPU."""
+def voc_train_setup(device, workdir, inputs) -> dict:
+    """(d)'s configs, one per family, on phase 5's clips binarized with
+    their waveforms (the binarize timed into the returned ``res``)."""
     import numpy as np
-    import torch
     import yaml
 
     from diffsvc_tpu_torch.config import HParams, set_hparams
     from diffsvc_tpu_torch.data.binarizer import binarize
-    from diffsvc_tpu_torch.run import run_task
 
-    res = {}
-    cfgs = {}
+    res, cfgs = {}, {}
     for fam in VOC_FAMILIES:
         cfg = voc_family_config(workdir, fam)
         cfg["raw_data_dir"] = inputs["raw"]
@@ -4974,49 +5008,12 @@ def phase_voc_train(device, workdir, inputs, launches):
                                    "train_lengths.npy"))
     log(f"[voc] binarized {TRAIN_CLIPS} clips with their waveforms in "
         f"{res['binarize_s']:.2f}s ({len(lengths)} train items)")
-    for fam, cfg in cfgs.items():
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        label = f"train_vocoder {fam}"
-        with counted(label, launches, moved=(), still=ALL_KERNELS,
-                     tag="voc"):
-            t0 = time.time()
-            task = run_task(HParams(cfg), device=device)
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        hist = task.history
-        log(f"[voc] {label}: run_task took {wall:.1f}s")
-        rec = {"steps": task.step, "wall_s": wall,
-               "ms_per_step": [h["seconds_per_step"] * 1e3 for h in hist],
-               "losses": [{k: v for k, v in h.items()
-                           if k not in ("step", "seconds_per_step")}
-                          for h in hist],
-               # the run's own peak, above what earlier phases still hold
-               "peak_gb": (torch.cuda.max_memory_allocated() - held) / 2 ** 30,
-               "gen_params_m": sum(p.numel() for p in task.gen.parameters())
-               / 1e6,
-               "disc_params_m": sum(p.numel() for p in task.disc.parameters())
-               / 1e6,
-               "checkpoints": sorted(os.listdir(cfg["work_dir"]))}
-        res[fam] = rec
-        finite = all(np.isfinite(v) for h in rec["losses"]
-                     for v in h.values())
-        log(f"[voc] {label}: {rec['steps']} steps at B={VOC_B} x "
-            f"{VOC_SEG} frames, ms/step "
-            f"{[round(v, 1) for v in rec['ms_per_step']]}, peak "
-            f"{rec['peak_gb']:.2f} GB, G {rec['gen_params_m']:.1f}M / D "
-            f"{rec['disc_params_m']:.1f}M params, last losses "
-            f"{ {k: round(v, 4) for k, v in rec['losses'][-1].items()} }, "
-            f"checkpoints {rec['checkpoints']}")
-        if not finite or rec["steps"] != VOC_STEPS or rec["checkpoints"] != [
-                "model_ckpt_steps_2.ckpt", "model_ckpt_steps_3.ckpt"]:
-            raise SmokeError(f"{label}: {rec}")
-        del task
-    # the resume, bit for bit: one child per family under deterministic
-    # algorithms, side by side, while this process holds a step card vs
-    # CPU (nothing timed runs meanwhile but the CPU's step, printed only)
-    t0 = time.time()
+    return {"res": res, "cfgs": cfgs}
+
+
+def start_voc_resume(device, workdir, cfgs) -> dict:
+    """(d)'s resume checks: one ``chip_smoke.py --vocoder-resume`` child per
+    family, started side by side; {family: (process, (out, err))}."""
     procs = {}
     try:
         for fam, cfg in cfgs.items():
@@ -5030,6 +5027,83 @@ def phase_voc_train(device, workdir, inputs, launches):
                 stderr=logs[1], text=True,
                 env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")),
                 logs)
+    except BaseException:
+        stop_children(procs)
+        raise
+    return procs
+
+
+def stop_children(procs: dict) -> None:
+    for proc, logs in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        for f in logs:
+            f.close()
+
+
+def phase_voc_train(device, workdir, setup, procs, launches):
+    """(d) ``train_vocoder`` through ``run_task`` with a vocoder task_cls,
+    for the hifigan (openvpi NSF-HiFiGAN width, MPD + MSD), istft (512 x 8,
+    MPD + MSD) and pwg (its discriminator) families, on phase 5's clips
+    binarized with their waveforms (``setup``, :func:`voc_train_setup`):
+    2 steps at B=8 of 32-frame crops, the losses finite, ms per step and
+    peak memory, K1-K6 at 0; one hifigan step card vs CPU; then the resume
+    children's records (``procs``, :func:`start_voc_resume`: in a child
+    process per family under deterministic algorithms, a resume from the
+    step-1 checkpoint equal to the uninterrupted step 2 bit for bit)."""
+    import numpy as np
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.run import run_task
+
+    res, cfgs = dict(setup["res"]), setup["cfgs"]
+    t0 = time.time()
+    try:
+        for fam, cfg in cfgs.items():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            label = f"train_vocoder {fam}"
+            with counted(label, launches, moved=(), still=ALL_KERNELS,
+                         tag="voc"):
+                t1 = time.time()
+                task = run_task(HParams(cfg), device=device)
+                torch.cuda.synchronize()
+                wall = time.time() - t1
+            hist = task.history
+            log(f"[voc] {label}: run_task took {wall:.1f}s")
+            rec = {"steps": task.step, "wall_s": wall,
+                   "ms_per_step": [h["seconds_per_step"] * 1e3
+                                   for h in hist],
+                   "losses": [{k: v for k, v in h.items()
+                               if k not in ("step", "seconds_per_step")}
+                              for h in hist],
+                   # the run's own peak, above what earlier phases still
+                   # hold
+                   "peak_gb": (torch.cuda.max_memory_allocated() - held)
+                   / 2 ** 30,
+                   "gen_params_m": sum(p.numel() for p in
+                                       task.gen.parameters()) / 1e6,
+                   "disc_params_m": sum(p.numel() for p in
+                                        task.disc.parameters()) / 1e6,
+                   "checkpoints": sorted(os.listdir(cfg["work_dir"]))}
+            res[fam] = rec
+            finite = all(np.isfinite(v) for h in rec["losses"]
+                         for v in h.values())
+            log(f"[voc] {label}: {rec['steps']} steps at B={VOC_B} x "
+                f"{VOC_SEG} frames, ms/step "
+                f"{[round(v, 1) for v in rec['ms_per_step']]}, peak "
+                f"{rec['peak_gb']:.2f} GB, G {rec['gen_params_m']:.1f}M / D "
+                f"{rec['disc_params_m']:.1f}M params, last losses "
+                f"{ {k: round(v, 4) for k, v in rec['losses'][-1].items()} }"
+                f", checkpoints {rec['checkpoints']}")
+            if not finite or rec["steps"] != VOC_STEPS \
+                    or rec["checkpoints"] != ["model_ckpt_steps_1.ckpt",
+                                              "model_ckpt_steps_2.ckpt"]:
+                raise SmokeError(f"{label}: {rec}")
+            del task
         res["step_vs_cpu"] = gan_step_vs_cpu(device, cfgs["hifigan"])
         res["step_vs_cpu_s"] = time.time() - t0
         res["resume"] = {}
@@ -5043,18 +5117,13 @@ def phase_voc_train(device, workdir, inputs, launches):
             res["resume"].update(json.loads(out.read().strip()
                                             .splitlines()[-1]))
     finally:
-        for proc, logs in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            for f in logs:
-                f.close()
+        stop_children(procs)
     res["resume_s"] = time.time() - t0
-    log(f"[voc] resume from step 2 vs the uninterrupted step 3 (a child "
-        f"process per family, deterministic algorithms, side by side, "
-        f"{res['resume_s']:.1f}s with the step card vs CPU): "
-        f"{res['resume']}")
-    if not all(r["identical"] and r["resumed_steps"] == [3]
+    log(f"[voc] resume from step 1 vs the uninterrupted step 2 (a child "
+        f"process per family, deterministic algorithms, side by side with "
+        f"phase 11's routes and runs; {res['resume_s']:.1f}s from the "
+        f"first run_task here): {res['resume']}")
+    if not all(r["identical"] and r["resumed_steps"] == [VOC_STEPS]
                for r in res["resume"].values()):
         raise SmokeError(f"vocoder resume not bit exact: {res['resume']}")
     return res
@@ -5062,26 +5131,35 @@ def phase_voc_train(device, workdir, inputs, launches):
 
 def phase_voc(device, workdir, project):
     """Phase 11: the other vocoders and GAN vocoder training (``[voc]``
-    lines), on earlier phases' inputs: phase 4's HuBERT-soft file and 14 s
+    lines), on earlier phases' inputs: phase 4's HuBERT-soft file and 6.5 s
     clip, phase 7's 17 s clip, phase 5's raw clips."""
     t0 = time.time()
     launches, seconds = {}, {}
     inputs = {"hubert": os.path.join(os.path.dirname(project["cfg_fn"]),
                                      "hubert", "hubert_soft.pt"),
-              "clip": project["wavs"][SERVE_CLIP],
+              "clip": project["wavs"][0],
               "batch_clip": os.path.join(workdir, "batch_clip.wav"),
               "raw": train_config(workdir)["raw_data_dir"]}
     res = {"launches": launches, "seconds": seconds}
-    for part, fn in (("istft", lambda: phase_voc_istft(device, workdir,
+    # (d)'s resume children start first and run beside (a)-(d): the
+    # routes' RTF and busy share and the GAN steps' ms are read beside them
+    t = time.time()
+    setup = voc_train_setup(device, workdir, inputs)
+    procs = start_voc_resume(device, workdir, setup["cfgs"])
+    seconds["setup"] = time.time() - t
+    try:
+        for part, fn in (("istft", lambda: phase_voc_istft(
+                              device, workdir, inputs, launches)),
+                         ("pwg", lambda: phase_voc_pwg(device, workdir,
                                                        inputs, launches)),
-                     ("pwg", lambda: phase_voc_pwg(device, workdir, inputs,
-                                                   launches)),
-                     ("inventory", lambda: phase_voc_inventory(device)),
-                     ("train", lambda: phase_voc_train(device, workdir,
-                                                       inputs, launches))):
-        t = time.time()
-        res[part] = fn()
-        seconds[part] = time.time() - t
+                         ("inventory", lambda: phase_voc_inventory(device)),
+                         ("train", lambda: phase_voc_train(
+                             device, workdir, setup, procs, launches))):
+            t = time.time()
+            res[part] = fn()
+            seconds[part] = time.time() - t
+    finally:
+        stop_children(procs)
     seconds["total"] = time.time() - t0
     log(f"[voc] phase 11 took { {k: round(v, 1) for k, v in seconds.items()} }s")
     return res
@@ -5475,7 +5553,7 @@ def phase_seq(device, workdir):
                 "batches": [batch, seq_batch(hp, real=SEQ_B - 1)],
                 "work_dirs": [os.path.join(workdir, f"seq_work{r}")
                               for r in range(4)]}, bundle)
-    ranks = run_ranks("seq", 4, bundle)
+    ranks = run_jobs([("seq", 4, bundle)])[0]
     res["seconds"]["ranks"] = time.time() - t0 - res["seconds"]["a"]
     r0 = ranks[0]["b"]
     for i, st in enumerate(r0["steps"]):
@@ -6423,6 +6501,257 @@ def phase_learn(device, workdir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the vocoder's learned-quality evidence and the train-stream A/B
+# ---------------------------------------------------------------------------
+
+# Depth of the phase (the tools' own defaults: 400 steps on 8 clips for
+# train_istft, 1,500 steps on 16 clips for ab_vocoder, 200 steps for
+# ab_train_stream): full width, fewer steps
+VOCLEARN_STEPS = 40
+VOCLEARN_CLIPS = 8
+STREAM_STEPS = 20
+# the trained NSF generator through K3 against its plain apply: K3's f32
+# limit (phase 3's vocoder_tail check)
+VOCLEARN_K3_TOL = TOL[("vocoder_tail", "f32")]
+# each leg's launches over the A/B: {counter: launches per step}
+STREAM_LAUNCHES = {
+    "batched_bf16": {"K4_bwd": 1, "K4_bwd_f32": 0, "K5": 0},
+    "kernel_f32": {"K4_bwd": 0, "K4_bwd_f32": 0, "K5": 1},
+    "scan": {"K4_bwd": 1, "K4_bwd_f32": 1, "K5": 0}}
+TRAIN_KERNELS = ("residual_stack_train_batched", "residual_stack_train")
+
+
+def falls_failures(label: str, before: float, after: float) -> list:
+    return [] if after < before else [f"{label}: held-out mel-L1 {before:.4f}"
+                                      f" -> {after:.4f} did not fall"]
+
+
+def leg_count_failures(name: str, launches: dict, steps: int) -> list:
+    want = {k: v * steps for k, v in STREAM_LAUNCHES[name].items()}
+    got = {k: launches[k] for k in want}
+    return [] if got == want else [f"{name} launches {got}, want {want}"]
+
+
+def unrepaired_route():
+    """``diffnet.train_route`` without its ``diffnet_pallas_train`` (the
+    route rule before the repair: "off" streams as configured)."""
+    from diffsvc_tpu_torch.models import diffnet
+
+    route = diffnet.train_route
+
+    def old(n_layers, cycle, t, c, b, stream="bf16", seq=1, pallas="auto"):
+        return route(n_layers, cycle, t, c, b, stream, seq)
+    return swapped(diffnet, train_route=old)
+
+
+def k4_backward_dropped():
+    """K4's training call with its output detached: no gradient reaches
+    the residual stack's weights, the conditioner or the step MLP (the
+    fault of Queue 3 #1, ``DiffNet.stacked()``'s detached weights)."""
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+
+    run = k4.residual_stack_train_batched
+
+    def fn(*args, **kw):
+        return run(*args, **kw).detach()
+    return swapped(k4, residual_stack_train_batched=fn)
+
+
+def nsf_render_rel(task, held, randoms, drop_last=False) -> float:
+    """rel-L2 of the NSF render through K3 (``apply_serving``; its last
+    NSF injection zeroed with ``drop_last``) against the plain ``apply``."""
+    import torch
+
+    from diffsvc_tpu_torch.ops.hopper import vocoder_tail as vt
+    from diffsvc_tpu_torch.tools import train_istft as ti
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    tail = vt.tail
+
+    def dropped(x, injs, plan):
+        return tail(x, injs[:-1] + [torch.zeros_like(injs[-1])], plan)
+
+    with swapped(vt, tail=dropped) if drop_last else contextlib.nullcontext():
+        _, _, kern = ti.render(task, held, randoms, stft=False,
+                               serving=gen_mod.apply_serving)
+    _, _, plain = ti.render(task, held, randoms, stft=False,
+                            serving=gen_mod.apply)
+    return rel_l2(kern, plain)
+
+
+def voclearn_held(device):
+    """The tools' held-out clip (clip 0 of ``make_clips`` at the production
+    profile)."""
+    from diffsvc_tpu_torch.tools import ab_vocoder as av
+    from diffsvc_tpu_torch.tools import train_istft as ti
+
+    p = av.profile(False)
+    return ti.make_clips(p["sr"], 1, p["dur"], p["hop"], p["nmel"],
+                         p["nfft"], p["win"], 40.0, ti.fmax_of(p["sr"]),
+                         device)[0]
+
+
+def phase_voclearn(device, workdir):
+    """Phase 16 (``[voclearn]`` lines): ``tools/train_istft`` and
+    ``tools/ab_vocoder`` at full width and reduced depth, the trained NSF
+    generator's K3 render against its plain version, and
+    ``tools/ab_train_stream`` at B=24 x T=1024, each gate with a planted
+    fault that must fail it."""
+    import torch
+
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.tools import ab_train_stream as ts
+    from diffsvc_tpu_torch.tools import ab_vocoder as av
+    from diffsvc_tpu_torch.tools import train_istft as ti
+    from diffsvc_tpu_torch.training.vocoder_task import VocoderTask
+    from diffsvc_tpu_torch.vocoders import istft_head
+
+    t0 = time.time()
+    res = {"launches": {}, "seconds": {}, "faults": {}}
+    failed, faults = [], {}
+    scratch = os.path.join(workdir, "voclearn")
+    # (a) the iSTFT head's demo: no kernel runs the head
+    args = ti.parse_args(["--steps", str(VOCLEARN_STEPS), "--out",
+                          os.path.join(scratch, "istft")])
+    with counted("train_istft", res["launches"], moved=(),
+                 still=ALL_KERNELS, tag="voclearn"):
+        demo = ti.run(args)
+    res["train_istft"] = demo
+    l1 = demo["held_out_mel_l1"]
+    rl = demo["wrapper_reload"]
+    log(f"[voclearn] train_istft {VOCLEARN_STEPS} steps at "
+        f"{demo['dims']['dim']} x {demo['dims']['layers']}: "
+        f"{demo['ms_per_step']} ms/step (first {demo['compile_s']}s); "
+        f"held-out mel-L1 {l1['before']} -> {l1['after']}; wrapper reload "
+        f"{rl}")
+    failed += falls_failures("train_istft", l1["before"], l1["after"])
+    if not rl["ok"]:
+        failed.append(f"train_istft wrapper reload {rl}")
+    hp = av.family_hp(av.profile(False), "istft")
+    fresh = VocoderTask(hp, device=device)
+    held = voclearn_held(device)
+    faults["train_istft falls"] = falls_failures(
+        "untrained head as after", l1["before"],
+        round(ti.render(fresh, held, stft=False)[0], 4))
+    # a wrapper that missed the checkpoint holds the seed-0 init
+    wrong = istft_head.IstftVocoder(HParams(dict(
+        hp, vocoder_ckpt=os.path.join(scratch, "no_such.npz"))),
+        device=device).gen.state_dict()
+    trained = istft_head.load_params(demo["ckpt"], fresh.icfg,
+                                     device).state_dict()
+    faults["train_istft reload"] = [] if all(
+        torch.equal(v, trained[k]) for k, v in wrong.items()) \
+        else ["a wrapper without the checkpoint: params differ"]
+    del fresh, wrong, trained
+    res["seconds"]["train_istft"] = time.time() - t0
+
+    # (b) the A/B: both families, the NSF renders through K3
+    t1 = time.time()
+    args = av.parse_args(["--steps", str(VOCLEARN_STEPS), "--n-clips",
+                          str(VOCLEARN_CLIPS), "--out",
+                          os.path.join(scratch, "ab")])
+    with counted("ab_vocoder", res["launches"], moved=("vocoder_tail",),
+                 still=TRAIN_KERNELS + ("residual_stack", "plms_ladder"),
+                 tag="voclearn"):
+        summary, tasks = av.run(args)
+    res["ab_vocoder"] = summary
+    for name, r in summary["results"].items():
+        h = r["held_out"]
+        log(f"[voclearn] ab_vocoder {name} {VOCLEARN_STEPS} steps: "
+            f"{r['steps_per_s']} steps/s; mel-L1 {h['mel_l1_before']} -> "
+            f"{h['mel_l1_after']}, mr-stft {h['mr_stft_before']} -> "
+            f"{h['mr_stft_after']}; render launches {r['render_launches']}")
+        failed += falls_failures(f"ab_vocoder {name}", h["mel_l1_before"],
+                                 h["mel_l1_after"])
+    k3 = summary["results"]["nsf"]["render_launches"]
+    failed += count_failures("NSF renders", {"K3": k3["before"]["K3"]
+                                             + k3["after"]["K3"]},
+                             {"K3": 2})
+    nsf = tasks["nsf"]
+    untrained = VocoderTask(av.family_hp(av.profile(False), "nsf"),
+                            device=device)
+    randoms = ti.nsf_randoms(nsf, held["mel"].shape[0])
+    faults["ab_vocoder falls"] = falls_failures(
+        "untrained NSF as after",
+        summary["results"]["nsf"]["held_out"]["mel_l1_before"],
+        round(ti.render(untrained, held, randoms, stft=False)[0], 4))
+    del untrained
+    with counted("K3 render vs plain", res["launches"],
+                 moved=("vocoder_tail",), tag="voclearn"):
+        rel = nsf_render_rel(nsf, held, randoms)
+    fault_rel = nsf_render_rel(nsf, held, randoms, drop_last=True)
+    res["k3_render"] = {"rel_l2": rel, "tol": VOCLEARN_K3_TOL,
+                        "fault_last_injection_dropped": fault_rel,
+                        "frames": int(held["mel"].shape[0])}
+    log(f"[voclearn] trained NSF render (B=1, {held['mel'].shape[0]} "
+        f"frames) K3 vs plain apply: rel_l2 {rel:.3e} (tol "
+        f"{VOCLEARN_K3_TOL:g}; last NSF injection dropped {fault_rel:.3e})")
+    if not rel <= VOCLEARN_K3_TOL:
+        failed.append(f"trained NSF render K3 vs plain {rel:.3e}")
+    faults["k3_render"] = [f"rel_l2 {fault_rel:.3e}"] \
+        if fault_rel > VOCLEARN_K3_TOL else []
+    del tasks, nsf
+    res["seconds"]["ab_vocoder"] = time.time() - t1
+
+    # (c) the train-stream A/B at B=24 x T=1024, C=384, L=20
+    t2 = time.time()
+    d = ts.dims(ts.parse_args(["--steps", str(STREAM_STEPS)]))
+    with counted("ab_train_stream", res["launches"], moved=TRAIN_KERNELS,
+                 still=("residual_stack", "plms_ladder", "vocoder_tail"),
+                 tag="voclearn"):
+        legs = ts.train_legs(d, device)
+    curves = {name: rec.pop("curve") for name, rec in legs.items()}
+    cmp_ = ts.compare(curves, STREAM_STEPS)
+    res["ab_train_stream"] = dict(cmp_, legs=legs, curves=curves, dims=d)
+    for name, rec in legs.items():
+        log(f"[voclearn] ab_train_stream {name}: route {rec['route']}, "
+            f"launches {rec['launches']}, "
+            f"{rec['wall_s'] / STREAM_STEPS * 1e3:.1f} ms/step incl host; "
+            f"loss {curves[name][0]:.5f} -> {curves[name][-1]:.5f}")
+        failed += leg_count_failures(name, rec["launches"], STREAM_STEPS)
+    log(f"[voclearn] ab_train_stream B={d['B']} T={d['T']} C={d['C']} "
+        f"L={d['L']} {STREAM_STEPS} steps: tail means "
+        f"{cmp_['tail_mean_loss']}, gaps {cmp_['gap_vs_scan']}, bf16 rel "
+        f"gap {cmp_['bf16_rel_gap']:.3e}")
+    failed += ts.failures(curves, STREAM_STEPS)
+    # the planted faults: the scan leg on the route rule before the repair
+    # (the bf16 stream through K4), which the launches must see (its gap is
+    # the bf16 leg's own: printed), and the bf16 leg with K4's backward
+    # dropped, which the asserts must see
+    with unrepaired_route():
+        old = ts.train_legs(d, device, legs=ts.LEGS[2:])["scan"]
+    faults["stream launches"] = leg_count_failures("scan", old["launches"],
+                                                   STREAM_STEPS)
+    with k4_backward_dropped():
+        leg = ts.train_legs(d, device, legs=ts.LEGS[:1])["batched_bf16"]
+    res["faults"]["stream"] = {}
+    for label, cv in (("scan at the bf16 stream",
+                       dict(curves, scan=old["curve"])),
+                      ("bf16 leg, K4's backward dropped",
+                       dict(curves, batched_bf16=leg["curve"]))):
+        r = ts.compare(cv, STREAM_STEPS)
+        msgs = ts.failures(cv, STREAM_STEPS)
+        res["faults"]["stream"][label] = dict(r, failures=msgs)
+        log(f"[voclearn] stream fault [{label}]: gaps {r['gap_vs_scan']}, "
+            f"tail means {r['tail_mean_loss']}: {msgs or 'PASSED'}")
+    faults["stream asserts"] = res["faults"]["stream"][
+        "bf16 leg, K4's backward dropped"]["failures"]
+    res["seconds"]["ab_train_stream"] = time.time() - t2
+
+    res["faults"].update(faults)
+    missed = [gate for gate, msgs in faults.items() if not msgs]
+    for gate, msgs in faults.items():
+        log(f"[voclearn] fault for the {gate} gate: {msgs or 'PASSED'}")
+    res["seconds"]["total"] = time.time() - t0
+    log(f"[voclearn] phase 16 took {res['seconds']}s")
+    if missed:
+        raise SmokeError(f"phase 16 planted faults not caught: {missed}")
+    if failed:
+        raise SmokeError(f"phase 16 gates failed: {failed}")
+    return res
+
+
 def diffnet_apply_card(model, noise, t, cond, device):
     """``diffnet.apply`` (K1) on the card from the graph's layouts: noise
     [1, 1, M, T], t [1], cond [1, H, T] -> [1, 1, M, T], numpy."""
@@ -6544,12 +6873,14 @@ def main(argv=None) -> int:
                 record["pt2"] = timed("14 pt2", phase_pt2, device, tmp,
                                       project)
                 record["learn"] = timed("15 learn", phase_learn, device, tmp)
+                record["voclearn"] = timed("16 voclearn", phase_voclearn,
+                                           device, tmp)
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-15: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-16: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -6570,7 +6901,9 @@ def main(argv=None) -> int:
     # rank of the grid); launches_onnx: phase 13's card runs (K1, K2, K3
     # against the exported graphs); launches_pt2: phase 14's programs, one
     # call each; launches_learn: phase 15's training demo and its sampler
-    # grid at f32 and bf16
+    # grid at f32 and bf16; launches_voclearn: phase 16's tools
+    # (train_istft, ab_vocoder, the trained NSF generator's K3 render
+    # against its plain version, ab_train_stream's three legs)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -6620,6 +6953,9 @@ def main(argv=None) -> int:
                         "launches_learn": {
                             part: counts[name] for part, counts in
                             record["learn"]["launches"].items()},
+                        "launches_voclearn": {
+                            part: counts[name] for part, counts in
+                            record["voclearn"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

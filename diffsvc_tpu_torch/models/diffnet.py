@@ -33,7 +33,8 @@ _MIB = 2 ** 20
 
 
 def train_route(n_layers: int, cycle: int, t: int, c: int, b: int,
-                stream: str = "bf16", seq: int = 1) -> str:
+                stream: str = "bf16", seq: int = 1,
+                pallas: str = "auto") -> str:
     """The training route of ``diffsvc_tpu/models/diffnet.py:219-295`` for
     a batch of ``b`` samples of ``t`` frames: the port's own copy of the
     shape arithmetic of ``supported_train_batched`` and ``supported_train``
@@ -48,8 +49,11 @@ def train_route(n_layers: int, cycle: int, t: int, c: int, b: int,
     grid with a seq axis of ``seq`` > 1 every batch takes the scan,
     whatever its shape and stream: JAX's ``_shardable_data_mesh``
     (``diffnet.py:123-135``) refuses such a mesh, so ``want`` is False
-    (``:230-235``)."""
-    if seq > 1:
+    (``:230-235``).  ``pallas`` is ``diffnet_pallas_train``: "off" takes
+    the scan for every batch and stream, as JAX trains through its f32
+    scan then (``diffnet.py:219-220``); "auto", "on" and "interpret" leave
+    the choice to the shape."""
+    if seq > 1 or pallas == "off":
         return "scan"
     if not (c % 128 == 0 and t % 128 == 0 and cycle >= 1
             and n_layers % cycle == 0 and 2 ** (cycle - 1) < t):
@@ -206,7 +210,8 @@ def step_bias(p: dict, step: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
-          train_stream: str | None = None, seq: int = 1, plain: bool = False):
+          train_stream: str | None = None, seq: int = 1,
+          pallas_train: str = "auto", plain: bool = False):
     """Predict noise.  The compute dtype is ``spec.dtype`` (f32 or bf16).
 
     :param spec: [B, T, M] noisy mel
@@ -222,6 +227,8 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
         (validation's loss)
     :param seq: the seq axis of the training grid (> 1: a seq rank's
         window, always the scan route)
+    :param pallas_train: ``diffnet_pallas_train`` ("off": always the scan
+        route)
     :param plain: CPU trace only: the uncached :meth:`DiffNet.weights` and
         K1's plain version (``residual_stack_plain``), serving's numbers
         without the kernel.  The ONNX export traces this route
@@ -254,7 +261,7 @@ def apply(net: DiffNet, spec, diffusion_step, cond=None, cond_proj=None, *,
     else:
         b, t = spec.shape[:2]
         route = train_route(n_layers, net.cycle, t, c, b, train_stream,
-                            seq)
+                            seq, pallas_train)
         ops = (x, sb, cond_proj, p["wd"], p["bd"], p["wo"], p["bo"])
         if route == "per_sample":
             skip = diffnet_stack_per_sample.residual_stack_train(

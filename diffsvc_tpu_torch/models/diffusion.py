@@ -405,8 +405,10 @@ class GaussianDiffusion(nn.Module):
         ``generator`` after t and the noise (JAX: ``train_fs2``, only when
         ``dropout > 0``); ``train=False`` is validation's deterministic
         conditioner.  The wavenet denoiser takes the training route of
-        :func:`diffnet.apply` with ``diffnet_train_stream_dtype``; with grad
-        enabled that is K4 or K5 and its backward (``diffnet.train_route``).
+        :func:`diffnet.apply` with ``diffnet_train_stream_dtype`` and
+        ``diffnet_pallas_train``; with grad enabled that is K4 or K5 and its
+        backward (``diffnet.train_route``; "off" is the scan, K4 at the f32
+        stream).
         ``count``, ``own`` and ``frames``: see :func:`p_losses`; a seq
         rank passes its window of every time axis with ``own`` and the
         grid's ``seq``, which takes the wavenet's scan route (K4 at the f32
@@ -427,13 +429,15 @@ class GaussianDiffusion(nn.Module):
         cond = ret["decoder_inp"]
         dt = compute_dtype(self.hp)
         stream = str(self.hp.get("diffnet_train_stream_dtype", "bf16"))
+        pallas = str(self.hp.get("diffnet_pallas_train", "auto"))
         cond_c = cond.to(dt)
 
         def denoise_fn(x, tt):
             if self.decoder_type == "fft":
                 return self.denoise_fn(x.to(dt), tt, cond_c, wdt=dt).float()
             return diffnet.apply(self.denoise_fn, x.to(dt), tt, cond_c,
-                                 train_stream=stream, seq=seq).float()
+                                 train_stream=stream, seq=seq,
+                                 pallas_train=pallas).float()
 
         nonpadding = (batch["mel2ph"] > 0).to(x_start.dtype)
         loss = p_losses(self.tables(dev), denoise_fn, x_start, t.to(dev),

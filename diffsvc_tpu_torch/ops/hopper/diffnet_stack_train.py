@@ -51,6 +51,7 @@ from .diffnet_stack import (_DTYPES, TC_ALIGN, TC_BK, TC_BN, TC_STAGES,
 
 launches = 0       # kernel launches (forward and backward calls on CUDA tensors)
 bwd_launches = 0   # of which batch-fused backward calls
+bwd_launches_f32 = 0   # of which at the f32 stream (3xTF32 products)
 
 RCH = 2048     # rows per partial sum of the weight-grad contractions
 CCH = 128      # rows per partial sum of the bias / step-bias column sums
@@ -416,7 +417,7 @@ def residual_stack_train_batched_bwd(xsave, sb, cond_proj, wd, bd, wo, dout,
     """Batch-fused backward: (dx0, dsb, dcp, dwd, dbd, dwo, dbo) as
     :func:`residual_stack_train_batched_bwd_plain` returns them.  ``xsave``,
     ``cond_proj``, ``wd``, ``wo`` and ``dout`` in the stream dtype."""
-    global launches, bwd_launches
+    global launches, bwd_launches, bwd_launches_f32
     n_layers, b, t, c = xsave.shape
     check_bwd(xsave, sb, cond_proj, wd, bd, wo, dout, wd.dtype,
               "residual_stack_train_batched_bwd")
@@ -437,6 +438,8 @@ def residual_stack_train_batched_bwd(xsave, sb, cond_proj, wd, bd, wo, dout,
     _build.check(err, "dsvc_stack_train_bwd")
     launches += 1
     bwd_launches += 1
+    if sd == torch.float32:
+        bwd_launches_f32 += 1
     return out
 
 

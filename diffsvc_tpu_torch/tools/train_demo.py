@@ -206,7 +206,8 @@ def train_route(hp) -> dict:
     return {"batch": f"{b} x {frames} frames (padded to {t_pad})",
             "route": diffnet.train_route(
                 int(hp["residual_layers"]), int(hp["dilation_cycle_length"]),
-                t_pad, int(hp["residual_channels"]), b, stream),
+                t_pad, int(hp["residual_channels"]), b, stream,
+                pallas=str(hp.get("diffnet_pallas_train", "auto"))),
             "stream": stream}
 
 

@@ -223,6 +223,10 @@ pt2_ok = all(hasattr(torch.ops.diffsvc_tpu_torch, op) for op in (
 from diffsvc_tpu_torch.tools import sampler_quality, train_demo
 from diffsvc_tpu_torch.utils.synth import make_dataset
 make_dataset("learn_raw", sr=8000, n_clips=1, dur=0.2)
+# the vocoder's learned-quality tools and the train-stream A/B, their data
+from diffsvc_tpu_torch.tools import ab_train_stream, ab_vocoder, train_istft
+train_istft.make_clips(8000, 1, 0.2, 64, 16, 256, 256, 40.0, 3500.0)
+ab_train_stream.make_batch(dict(B=1, T=128, n_mel=16, H=256), 0)
 forbidden = sorted(m for m in sys.modules if m.split(".")[0] in (
     "onnx", "onnxscript") or m.startswith("google.protobuf"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
@@ -258,7 +262,10 @@ def test_port_never_imports_jax(tmp_path):
     ``simplify``, the op library's registered K1-K3; the tiny project's
     ``.pt2`` set written and its denoiser reloaded and run), and the
     learned-score tools (``tools.train_demo``, ``tools.sampler_quality``,
-    ``synth.make_dataset``'s clips written), in a fresh process: neither
+    ``synth.make_dataset``'s clips written), and the vocoder's
+    learned-quality tools and the train-stream A/B (``tools.train_istft``,
+    ``ab_vocoder``, ``ab_train_stream``; a clip and a batch made), in a
+    fresh process: neither
     jax nor any module of the JAX package ``diffsvc_tpu`` may be in
     sys.modules, nor ``onnx``, ``onnxscript`` or ``google.protobuf``."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -359,7 +366,9 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     from diffsvc_tpu_torch.data.binarizer import binarize
     from diffsvc_tpu_torch.infer.svc import default_device
     from diffsvc_tpu_torch.run import device_arg, run_task
-    from diffsvc_tpu_torch.tools import sampler_quality, train_demo
+    from diffsvc_tpu_torch.tools import (ab_train_stream, ab_vocoder,
+                                         sampler_quality, train_demo,
+                                         train_istft)
     from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
     from diffsvc_tpu_torch.training.task import SVCTask
 
@@ -386,12 +395,18 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
                  lambda: tbatch.main(["--project", "proj", "--model", ckpt,
                                       "--config", cfg_fn]),
                  lambda: train_demo.main(["--tiny", "--out", "demo_out"]),
-                 lambda: sampler_quality.main(["--tiny", "--out", "sq_out"])):
+                 lambda: sampler_quality.main(["--tiny", "--out", "sq_out"]),
+                 lambda: train_istft.main(["--tiny", "--out", "ti_out"]),
+                 lambda: ab_vocoder.main(["--tiny", "--out", "ab_out"]),
+                 lambda: ab_train_stream.main(["--tiny", "--out",
+                                               "ts_out"])):
         with pytest.raises(RuntimeError, match="--device cpu"):
             call()
     assert default_device("cpu") == torch.device("cpu")
     assert SVCTask(hp, device="cpu").device.type == "cpu"
     assert TSvc("proj", cfg_fn, False, ckpt, device="cpu").device.type == "cpu"
     assert not os.path.exists("demo_out") and not os.path.exists("sq_out")
+    for out in ("ti_out", "ab_out", "ts_out"):
+        assert not os.path.exists(out), out
     assert device_arg(["--config", "c.yaml"]) == "cuda"
     assert device_arg(["--config", "c.yaml", "--device", "cpu"]) == "cpu"

@@ -96,7 +96,9 @@ def test_port_sources_cover_this_slice():
                 "training/vocoder_task.py", "onnx/wire.py",
                 "onnx/builder.py", "onnx/convert.py", "onnx/runtime.py",
                 "onnx/svc_export.py", "onnx/chain.py", "onnx_export.py",
-                "tools/train_demo.py", "tools/sampler_quality.py"):
+                "tools/train_demo.py", "tools/sampler_quality.py",
+                "tools/train_istft.py", "tools/ab_vocoder.py",
+                "tools/ab_train_stream.py"):
         assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
 
 
