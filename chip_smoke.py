@@ -362,12 +362,28 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    leg with K4's backward dropped, Queue 3 #1's fault).  The scan leg on
    the old route leaves the gap at 0 (it is the bf16 leg's computation):
    printed, not a fault of that gate.
+17. The one-command drive and the mel-MCD metric (``[drive]`` lines):
+   ``python -m diffsvc_tpu_torch.tools.verify_drive --full`` as a child
+   process on the card, started before phase 16 and running beside it
+   (its seconds are read beside phase 16's) (config_44k's widths:
+   binarize, 4 training steps,
+   ``infer_cli`` on a 1.6 s song with a silence at ``--key 2 --acc 20``,
+   and the warm start: two fresh processes against one fresh kernel build
+   root); its summary read: K4 or K5 launched by the training, K2 and K3 by
+   the conversion, K6 by nothing, the output as long as the song, the
+   first process built the library and the second reused it (the first
+   process read as the second, the planted fault of the reuse gate).  The
+   song is converted again with the drive's trained checkpoint on the CPU
+   from the card's draws (``card_draws``), and ``python -m
+   diffsvc_tpu_torch.tools.compare_mel`` reads card against CPU: mel-MCD
+   below 0.5 dB, ``BASELINE.md``'s limit, exit 0; the CPU side converted
+   at key 0 (the planted fault) must read above it.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
 in each of phase 9's parts, phase 10's, phase 11's, phase 12's, phase 13's,
-phase 14's, phase 15's and phase 16's, errors, times, bound);
+phase 14's, phase 15's, phase 16's and phase 17's, errors, times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -2418,10 +2434,14 @@ def phase_train(device, workdir):
     res["step_deterministic"] = det
     log(f"[train] one step twice from the same state, batch, t, noise (child "
         f"process, deterministic algorithms): bit-identical params "
-        f"{det['identical']}, K4 launches {det['launches']}")
+        f"{det['identical']}, K4 launches {det['launches']}; planted fault "
+        f"[the step on the next step's draws]: identical "
+        f"{det['fault_identical']}")
     if not det["identical"] or det["launches"] <= 0:
         raise SmokeError(f"the same step twice gave different params, or "
                          f"did not run K4: {det}")
+    if det["fault_identical"]:
+        raise SmokeError(f"the planted fault passes the repeat check: {det}")
 
     task.load_state_dict(snap)
     if batch_route(hp, *batch["mels"].shape[:2]) != "batched":
@@ -3692,8 +3712,17 @@ def deterministic_step(bundle_fn: str) -> int:
         task.load_state_dict(b["snap"])
         task.train_step(b["batch"], t=b["t"], noise=b["noise"])
         params.append([p.detach().clone() for p in task.params])
+    # the planted fault: the same step on the next step's draws
+    task.load_state_dict(b["snap"])
+    task.step += 1
+    t, noise = task.draws(b["batch"])
+    task.step -= 1
+    task.train_step(b["batch"], t=t, noise=noise)
     print(json.dumps({"identical": all(torch.equal(x, y)
                                        for x, y in zip(*params)),
+                      "fault_identical": all(
+                          torch.equal(x, p) for x, p in
+                          zip(params[0], task.params)),
                       "launches": k4.launches}))
     return 0
 
@@ -6752,6 +6781,198 @@ def phase_voclearn(device, workdir):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the one-command drive and the mel-MCD metric
+# ---------------------------------------------------------------------------
+
+DRIVE_TIMEOUT = 600
+# BASELINE.md's mel-MCD limit, the JAX tool's own (compare_mel.MCD_LIMIT_DB)
+DRIVE_MCD_DB = 0.5
+# the planted fault: the CPU side converts at this key, the drive at 2
+DRIVE_FAULT_KEY = 0
+# the drive's counters (K1-K6) by the kernels line's names
+DRIVE_KERNELS = {"K1": "residual_stack", "K2": "plms_ladder",
+                 "K3": "vocoder_tail", "K4": "residual_stack_train_batched",
+                 "K5": "residual_stack_train", "K6": "fused_residual_block"}
+
+
+def reuse_failures(rec: dict, before: list) -> list:
+    """The warm start's reuse gate on one child's record: it built nothing
+    and the build root holds the files it held before the child ran."""
+    out = []
+    if rec["build_seconds"] is not None:
+        out.append(f"built the library ({rec['build_seconds']:.1f}s)")
+    if rec["files"] != before:
+        out.append(f"the build root went from {len(before)} to "
+                   f"{len(rec['files'])} files")
+    return out
+
+
+@contextlib.contextmanager
+def card_draws(device):
+    """A CPU conversion with the draws the card's made: ``run_clip`` seeds
+    each chunk's sampler and NSF source with 0 on the converting device
+    (``Svc.infer``: x_T first from one generator; the vocoder's
+    ``draw_randoms`` from another), so both are drawn here from generators
+    on the card seeded alike and moved to the CPU."""
+    import torch
+
+    from diffsvc_tpu_torch.models import diffusion
+    from diffsvc_tpu_torch.vocoders import generator as gen_mod
+
+    infer0, draw0 = diffusion.GaussianDiffusion.infer, gen_mod.draw_randoms
+
+    def infer(self, batch, **kw):
+        if kw.get("init_noise") is None and not kw.get("use_gt_mel"):
+            g = torch.Generator(device=device).manual_seed(0)
+            kw["init_noise"] = torch.randn(
+                (*batch["mel2ph"].shape, self.mel_bins), generator=g,
+                device=device).cpu()
+        return infer0(self, batch, **kw)
+
+    def draw(batch, length, harmonic_num, generator=None, device_=None):
+        g = torch.Generator(device=device).manual_seed(0)
+        return tuple(r.cpu() for r in draw0(batch, length, harmonic_num, g,
+                                            device))
+
+    with swapped(diffusion.GaussianDiffusion, infer=infer), \
+            swapped(gen_mod, draw_randoms=draw):
+        yield
+
+
+def start_drive(workdir):
+    """Phase 17's child, ``python -m diffsvc_tpu_torch.tools.verify_drive
+    --full``, started on the card (its output to files under ``workdir``);
+    main starts it before phase 16 and phase 16 runs beside it."""
+    out = os.path.join(workdir, "verify_drive")
+    with open(out + ".out", "w") as so, open(out + ".err", "w") as se:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "diffsvc_tpu_torch.tools.verify_drive",
+             "--full"], cwd=workdir,
+            env=dict(os.environ, PYTHONPATH=ROOT, TMPDIR=workdir),
+            stdout=so, stderr=se)
+    return {"proc": proc, "out": out, "t0": time.time()}
+
+
+def phase_drive(device, workdir, drive):
+    """Phase 17 (``[drive]`` lines): the ``verify_drive --full`` child
+    (``drive``, from :func:`start_drive`) read, its song converted again
+    with its trained checkpoint on the CPU, and the two outputs read by
+    ``python -m diffsvc_tpu_torch.tools.compare_mel``."""
+    import shutil
+
+    from diffsvc_tpu_torch.tools import compare_mel
+    from diffsvc_tpu_torch.tools import verify_drive as vd
+
+    t0 = time.time()
+    res = {"launches": {}, "seconds": {}, "faults": {}}
+    failed, faults = [], {}
+    rc = drive["proc"].wait(timeout=max(DRIVE_TIMEOUT - (t0 - drive["t0"]),
+                                        1))
+    with open(drive["out"] + ".out") as f:
+        stdout = f.read()
+    with open(drive["out"] + ".err") as f:
+        stderr = f.read()
+    lines = stdout.strip().splitlines()
+    if rc != 0 or not lines or lines[-1] != "ALL VERIFY STEPS PASSED":
+        raise SmokeError(f"verify_drive --full: exit {rc}\n"
+                         f"{stdout[-2000:]}\n{stderr[-3000:]}")
+    s = res["summary"] = json.loads(lines[-2])
+    res["seconds"]["drive"] = time.time() - drive["t0"]
+    res["seconds"]["drive_after_phase_16"] = time.time() - t0
+    for name, rec in s["steps"].items():
+        res["launches"][name] = {DRIVE_KERNELS[k]: v
+                                 for k, v in rec["launches"].items()}
+        log(f"[drive] {name}: {rec['seconds']:.2f}s, kernel launches "
+            f"{rec['launches']}")
+    # (1) the drive's own gates, read again: the training stack on the
+    # trainer's route, K2 and K3 in the conversion, the warm start
+    run, conv = s["steps"]["run"]["launches"], s["steps"]["infer_cli"]
+    if run["K4"] + run["K5"] <= 0:
+        failed.append(f"run launched neither K4 nor K5: {run}")
+    if conv["launches"]["K2"] <= 0 or conv["launches"]["K3"] <= 0:
+        failed.append(f"infer_cli launched K2 {conv['launches']['K2']}, K3 "
+                      f"{conv['launches']['K3']}")
+    k6 = {name: rec["launches"]["K6"] for name, rec in s["steps"].items()}
+    if any(k6.values()):
+        failed.append(f"K6, on no path, was launched: {k6}")
+    if conv["samples"] != conv["input_samples"]:
+        failed.append(f"infer_cli: {conv['samples']} samples against "
+                      f"{conv['input_samples']}")
+    cold, warm = (s["steps"]["warm_start"][k] for k in ("cold", "warm"))
+    if cold["build_seconds"] is None or not any(
+            f.endswith("libdsvc_hopper.so") for f in cold["files"]):
+        failed.append(f"the cold process did not build the library: {cold}")
+    failed += reuse_failures(warm, cold["files"])
+    # the planted fault for the reuse gate: the cold process
+    faults["warm start reuse"] = reuse_failures(cold, [])
+    log(f"[drive] warm start: the cold process built in "
+        f"{cold['build_seconds']}s ({len(cold['files'])} files under the "
+        f"fresh build root), the warm one loaded in {warm['load_s']:.2f}s "
+        f"(build_seconds {warm['build_seconds']}, "
+        f"{len(warm['files'])} files); the reuse gate on the cold process: "
+        f"{faults['warm start reuse'] or 'PASSED'}")
+    # (2) the drive's song with its trained checkpoint again on the CPU,
+    # from the card's draws; (3) compare_mel card vs CPU through its command
+    # line, beside (2) at another key, the planted fault
+    t1 = time.time()
+    paths = {"config": s["config"], "song": s["song"]}
+    card_wav = conv["output"]
+    outs, cwd = {}, os.getcwd()
+    try:
+        for key in (2, DRIVE_FAULT_KEY):
+            d = os.path.join(s["scratch"], f"cpu_key{key}")
+            os.makedirs(d)
+            os.chdir(d)
+            with card_draws(device):
+                outs[key] = os.path.abspath(vd.convert(
+                    paths, s["trained_ckpt"], True, "cpu", key=key))
+            if key == 2:
+                compare = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "diffsvc_tpu_torch.tools.compare_mel", card_wav,
+                     outs[2], "--config", s["config"]], cwd=workdir,
+                    env=dict(os.environ, PYTHONPATH=ROOT),
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                    text=True)
+    finally:
+        os.chdir(cwd)
+    out, err = compare.communicate(timeout=300)
+    res["seconds"]["cpu_and_compare"] = time.time() - t1
+    stats = dict(line.split(": ", 1) for line in out.splitlines()
+                 if ": " in line)
+    if "mcd_db" not in stats:
+        raise SmokeError(f"compare_mel: exit {compare.returncode}\n"
+                         f"{err[-2000:]}")
+    mcd = float(stats["mcd_db"])
+    fault = compare_mel.compare_mels(*compare_mel.wav_mels(
+        card_wav, outs[DRIVE_FAULT_KEY], s["config"], "cuda"))
+    res["mcd"] = {"card_vs_cpu": {k: float(v) for k, v in stats.items()},
+                  "exit": compare.returncode, "limit_db": DRIVE_MCD_DB,
+                  f"fault_cpu_key{DRIVE_FAULT_KEY}": fault}
+    log(f"[drive] compare_mel card vs CPU ({s['song']}, key 2, acc 20, the "
+        f"card's draws): mcd {mcd:.4f} dB (limit {DRIVE_MCD_DB}), l1 "
+        f"{float(stats['l1']):.3e}, rmse {float(stats['rmse']):.3e}, "
+        f"{stats['frames']} frames, exit {compare.returncode}; planted fault "
+        f"[the CPU side at key {DRIVE_FAULT_KEY}]: mcd {fault['mcd_db']:.4f} "
+        f"dB")
+    if not (mcd < DRIVE_MCD_DB and compare.returncode == 0):
+        failed.append(f"card vs CPU mel-MCD {mcd:.4f} dB (exit "
+                      f"{compare.returncode})")
+    faults["mel-MCD"] = [f"mcd {fault['mcd_db']:.4f} dB"] \
+        if fault["mcd_db"] > DRIVE_MCD_DB else []
+    shutil.rmtree(s["scratch"], ignore_errors=True)
+    res["faults"].update(faults)
+    missed = [gate for gate, msgs in faults.items() if not msgs]
+    res["seconds"]["total"] = time.time() - t0
+    log(f"[drive] phase 17 took {res['seconds']}s")
+    if missed:
+        raise SmokeError(f"phase 17 planted faults not caught: {missed}")
+    if failed:
+        raise SmokeError(f"phase 17 gates failed: {failed}")
+    return res
+
+
 def diffnet_apply_card(model, noise, t, cond, device):
     """``diffnet.apply`` (K1) on the card from the graph's layouts: noise
     [1, 1, M, T], t [1], cond [1, H, T] -> [1, 1, M, T], numpy."""
@@ -6873,14 +7094,22 @@ def main(argv=None) -> int:
                 record["pt2"] = timed("14 pt2", phase_pt2, device, tmp,
                                       project)
                 record["learn"] = timed("15 learn", phase_learn, device, tmp)
-                record["voclearn"] = timed("16 voclearn", phase_voclearn,
-                                           device, tmp)
+                drive = start_drive(tmp)
+                try:
+                    record["voclearn"] = timed("16 voclearn", phase_voclearn,
+                                               device, tmp)
+                    record["drive"] = timed("17 drive", phase_drive, device,
+                                            tmp, drive)
+                finally:
+                    if drive["proc"].poll() is None:
+                        drive["proc"].kill()
+                        drive["proc"].wait()
             finally:
                 os.chdir(cwd)
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-16: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-17: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -6903,7 +7132,8 @@ def main(argv=None) -> int:
     # call each; launches_learn: phase 15's training demo and its sampler
     # grid at f32 and bf16; launches_voclearn: phase 16's tools
     # (train_istft, ab_vocoder, the trained NSF generator's K3 render
-    # against its plain version, ab_train_stream's three legs)
+    # against its plain version, ab_train_stream's three legs);
+    # launches_drive: phase 17's drive, by step (its child process counts)
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -6956,6 +7186,9 @@ def main(argv=None) -> int:
                         "launches_voclearn": {
                             part: counts[name] for part, counts in
                             record["voclearn"]["launches"].items()},
+                        "launches_drive": {
+                            step: counts[name] for step, counts in
+                            record["drive"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

@@ -14,7 +14,8 @@ With ``no_fs2: false`` the units first run through an FFT-block
 positions`` with the all-zero unit rows as padding, and ``skip_decoder=False``
 adds the ``decoder`` stack's auxiliary ``mel_out``.  Parameter names follow
 the reference (``pitch_embed.weight``, ``mel_out.*``,
-``encoder.layers.{i}.op.*`` ...).
+``encoder.layers.{i}.op.*`` ...).  The embeddings are looked up through
+``nn.embed``, whose backward repeats bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from torch import nn
 
 from ..ops.pitch import denorm_f0, energy_to_coarse, f0_to_coarse
+from . import nn as fnn
 from . import tts_modules
 
 
@@ -105,11 +107,13 @@ class FastSpeech2(nn.Module):
             # as in the reference; the nonpadding multiply zeroes them
             pitch = f0_to_coarse(f0_denorm, self.f0_bin, self.f0_min,
                                  self.f0_max)
-            decoder_inp = decoder_inp + self.pitch_embed(pitch)
+            decoder_inp = decoder_inp + fnn.embed(self.pitch_embed, pitch)
         if self.use_energy_embed and energy is not None:
-            decoder_inp = decoder_inp + self.energy_embed(energy_to_coarse(energy))
+            decoder_inp = decoder_inp + fnn.embed(self.energy_embed,
+                                                  energy_to_coarse(energy))
         if self.use_spk_id and spk_embed is not None:
-            decoder_inp = decoder_inp + self.spk_embed_proj(spk_embed)[:, None, :]
+            decoder_inp = decoder_inp + fnn.embed(self.spk_embed_proj,
+                                                  spk_embed)[:, None, :]
         elif self.use_spk_embed and spk_embed is not None:
             decoder_inp = decoder_inp + self.spk_embed_proj(spk_embed)[:, None, :]
         ret["decoder_inp"] = decoder_inp = decoder_inp * tgt_nonpadding

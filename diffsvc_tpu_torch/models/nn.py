@@ -35,6 +35,41 @@ def true_f32_convs():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+class _Lookup(torch.autograd.Function):
+    """Rows of an embedding table whose weight gradient is one product (see
+    :func:`embed`)."""
+
+    @staticmethod
+    def forward(ctx, weight, idx, padding_idx):
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.padding_idx = weight.shape[0], padding_idx
+        return F.embedding(idx, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        rows = torch.arange(ctx.rows, device=idx.device)
+        onehot = (idx.reshape(-1, 1) == rows).to(grad.dtype)
+        dw = onehot.t() @ grad.reshape(-1, grad.shape[-1])
+        if ctx.padding_idx is not None:
+            dw[ctx.padding_idx] = 0
+        return dw, None, None
+
+
+def embed(table: nn.Embedding, idx: torch.Tensor) -> torch.Tensor:
+    """``table(idx)`` whose backward gives the same bits on every run.
+
+    ``nn.Embedding``'s CUDA backward adds the gradients of the looked-up
+    rows into their table rows in no fixed order: at B=24 x T=1024 (24,576
+    rows into 300 pitch bins) the same step gave ``pitch_embed`` gradients
+    that differ in their last bits from run to run, and a run of steps
+    grows that into another loss curve.  Here the weight gradient is one
+    product, onehot(idx)^T @ grad, whose sum order is fixed; the forward is
+    the lookup itself, and the padding row's gradient is zero, as
+    ``nn.Embedding``'s."""
+    return _Lookup.apply(table.weight, idx, table.padding_idx)
+
+
 def linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None):
     """y = x @ w.T + b (torch Linear weight [out, in])."""
     return F.linear(x, w, b)

@@ -1143,3 +1143,38 @@ def test_sampler_grid_row_card_matches_cpu(cuda, dtype, tol):
     assert torch.isfinite(got).all() and float(got.min()) >= -8.0
     assert float(got.max()) <= 3.0
     assert _rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize("leg", ["batched_bf16", "kernel_f32", "scan"])
+def test_train_step_repeats_bit_for_bit(cuda, leg):
+    """The train-stream A/B's legs at B=8 x T=512 (4,096 pitch lookups,
+    past nn.Embedding's small-batch path): after two steps (the output
+    head no longer zero), the next step taken twice from one state gives
+    the same loss, gradients (the conditioner's embeddings among them: the
+    port's lookup, ``models.nn.embed``, sums its weight gradient in a fixed
+    order), stack-boundary gradients and updated parameters, bit for bit;
+    the same step on the next step's draws does not."""
+    from diffsvc_tpu_torch.config import HParams
+    from diffsvc_tpu_torch.tools import ab_train_stream as ts
+    from diffsvc_tpu_torch.tools import step_repeat
+    from diffsvc_tpu_torch.training.task import SVCTask
+
+    d = dict(B=8, T=512, C=128, L=4, CYC=2, H=256, n_mel=16, steps=3)
+    task = SVCTask(HParams(dict(ts.base_hp(d), **dict(ts.LEGS)[leg])),
+                   device=cuda)
+    batches = [ts.make_batch(d, i) for i in range(3)]
+    k = task.model.K_step
+    for s in range(2):
+        t, noise = ts.step_draws(s, d, k, cuda)
+        task.train_step(batches[s], t=t, noise=noise)
+    snap = task.state_dict()
+    snap["global_step"] = task.step
+    recs = []
+    for s in (2, 2, 3):
+        task.load_state_dict(snap)
+        t, noise = ts.step_draws(s, d, k, cuda)
+        recs.append(step_repeat.step_record(task, batches[2], t, noise))
+    assert recs[0]["grad:fs2.pitch_embed.weight"].abs().max() > 0
+    assert any(key.startswith("k:") for key in recs[0])
+    assert step_repeat.differ(recs[0], recs[1]) == []
+    assert step_repeat.differ(recs[0], recs[2])

@@ -227,6 +227,10 @@ make_dataset("learn_raw", sr=8000, n_clips=1, dur=0.2)
 from diffsvc_tpu_torch.tools import ab_train_stream, ab_vocoder, train_istft
 train_istft.make_clips(8000, 1, 0.2, 64, 16, 256, 256, 40.0, 3500.0)
 ab_train_stream.make_batch(dict(B=1, T=128, n_mel=16, H=256), 0)
+# the one-command drive and the mel-MCD metric, the train step's repeat check
+from diffsvc_tpu_torch.tools import compare_mel, step_repeat, verify_drive
+verify_drive.write_songs("drive_raw")
+mcd = compare_mel.mel_mcd(np.zeros((4, 16)), np.zeros((4, 16)))
 forbidden = sorted(m for m in sys.modules if m.split(".")[0] in (
     "onnx", "onnxscript") or m.startswith("google.protobuf"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
@@ -235,7 +239,7 @@ print(json.dumps({{"jax": "jax" in sys.modules, "ref_pkg": ref_pkg,
                   "n": int(len(wav)), "finite": bool(np.isfinite(wav).all()
                                                      and np.isfinite(wav1).all()
                                                      and np.isfinite(fwav).all()),
-                  "batches": len(n_batches), "mels": n_mels}}))
+                  "batches": len(n_batches), "mels": n_mels, "mcd": mcd}}))
 """
 
 
@@ -264,8 +268,10 @@ def test_port_never_imports_jax(tmp_path):
     learned-score tools (``tools.train_demo``, ``tools.sampler_quality``,
     ``synth.make_dataset``'s clips written), and the vocoder's
     learned-quality tools and the train-stream A/B (``tools.train_istft``,
-    ``ab_vocoder``, ``ab_train_stream``; a clip and a batch made), in a
-    fresh process: neither
+    ``ab_vocoder``, ``ab_train_stream``; a clip and a batch made), and the
+    one-command drive, the mel-MCD metric and the step's repeat check
+    (``tools.verify_drive``, ``compare_mel``, ``step_repeat``; the drive's
+    songs written, an MCD read), in a fresh process: neither
     jax nor any module of the JAX package ``diffsvc_tpu`` may be in
     sys.modules, nor ``onnx``, ``onnxscript`` or ``google.protobuf``."""
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -277,7 +283,7 @@ def test_port_never_imports_jax(tmp_path):
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res == {"jax": False, "ref_pkg": [], "forbidden": [], "onnx": True,
                    "pt2": True, "n": res["n"], "finite": True,
-                   "batches": res["batches"], "mels": 5}
+                   "batches": res["batches"], "mels": 5, "mcd": 0.0}
     assert res["n"] > 0 and res["batches"] > 0
 
 
@@ -357,8 +363,9 @@ def test_crepe_and_pe_requests_raise(in_root, tmp_path):
 def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     """Without a card, ``default_device`` and every entry point that runs
     on it by default raise (among them the server's and the folder
-    batch's ``main``, the pe task, ``--infer`` and the learned-score
-    tools); ``device="cpu"`` (``--device cpu``) runs."""
+    batch's ``main``, the pe task, ``--infer``, the learned-score tools,
+    the one-command drive and the mel-MCD metric's wav path);
+    ``device="cpu"`` (``--device cpu``) runs."""
     from _torch_fixtures import TINY_HP
     from diffsvc_tpu_torch import batch as tbatch
     from diffsvc_tpu_torch import flask_api
@@ -367,8 +374,9 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
     from diffsvc_tpu_torch.infer.svc import default_device
     from diffsvc_tpu_torch.run import device_arg, run_task
     from diffsvc_tpu_torch.tools import (ab_train_stream, ab_vocoder,
-                                         sampler_quality, train_demo,
-                                         train_istft)
+                                         compare_mel, sampler_quality,
+                                         step_repeat, train_demo,
+                                         train_istft, verify_drive)
     from diffsvc_tpu_torch.training.pe_task import PitchExtractionTask
     from diffsvc_tpu_torch.training.task import SVCTask
 
@@ -399,14 +407,19 @@ def test_entry_points_never_fall_back_to_the_cpu(in_root, monkeypatch):
                  lambda: train_istft.main(["--tiny", "--out", "ti_out"]),
                  lambda: ab_vocoder.main(["--tiny", "--out", "ab_out"]),
                  lambda: ab_train_stream.main(["--tiny", "--out",
-                                               "ts_out"])):
+                                               "ts_out"]),
+                 lambda: step_repeat.main(["--tiny", "--out", "sr_out"]),
+                 lambda: verify_drive.main([]),
+                 lambda: verify_drive.main(["--full"]),
+                 lambda: compare_mel.main([wav_fn, wav_fn, "--config",
+                                           cfg_fn])):
         with pytest.raises(RuntimeError, match="--device cpu"):
             call()
     assert default_device("cpu") == torch.device("cpu")
     assert SVCTask(hp, device="cpu").device.type == "cpu"
     assert TSvc("proj", cfg_fn, False, ckpt, device="cpu").device.type == "cpu"
     assert not os.path.exists("demo_out") and not os.path.exists("sq_out")
-    for out in ("ti_out", "ab_out", "ts_out"):
+    for out in ("ti_out", "ab_out", "ts_out", "sr_out"):
         assert not os.path.exists(out), out
     assert device_arg(["--config", "c.yaml"]) == "cuda"
     assert device_arg(["--config", "c.yaml", "--device", "cpu"]) == "cpu"

@@ -98,7 +98,8 @@ def test_port_sources_cover_this_slice():
                 "onnx/svc_export.py", "onnx/chain.py", "onnx_export.py",
                 "tools/train_demo.py", "tools/sampler_quality.py",
                 "tools/train_istft.py", "tools/ab_vocoder.py",
-                "tools/ab_train_stream.py"):
+                "tools/ab_train_stream.py", "tools/verify_drive.py",
+                "tools/compare_mel.py", "tools/step_repeat.py"):
         assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
 
 

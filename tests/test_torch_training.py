@@ -242,6 +242,56 @@ def test_train_step_matches_jax(binarized, stream, tol_loss, tol_grad):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("precision", ["", "highest"],
+                         ids=["default", "highest"])
+def test_train_matmul_precision_changes_no_step(binarized, precision):
+    """``train_matmul_precision``, which the port does not read: one JAX
+    step under ``jax.default_matmul_precision`` of the key ('' is JAX's
+    "default") equals the port's step, loss to 1e-5 and grad norm to 1e-3
+    (``test_train_step_matches_jax``'s tolerances).  The key sets the TPU's
+    number of bf16 passes per f32 product; the port computes every product
+    of the step in true f32, as JAX does at "highest"."""
+    _, hps = binarized
+    hp = HParams(dict(hps["jax"], train_matmul_precision=precision))
+    jt, state, tt = _tasks(hp, head_seed=3)
+    ds = JDataset("train", hp, shuffle=False)
+    batch = ds.collater([ds[i] for i in range(len(ds))], pad_multiple=32)
+    _, t, noise = _jax_draws(jt, batch, 0)
+    _, mj = jt.train_step(state, batch, jax.random.PRNGKey(0))
+    mt = tt.train_step(batch, t=t, noise=noise)
+    np.testing.assert_allclose(float(mt["loss"]), float(mj["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(mt["grad_norm"]), float(mj["grad_norm"]),
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("padding_idx", [0, None], ids=["padding", "none"])
+def test_embed_lookup_matches_nn_embedding(padding_idx):
+    """``models.nn.embed``, the conditioner's lookups: the forward equals
+    ``nn.Embedding``'s bit for bit and the weight gradient (one product,
+    whose sum order is fixed) its within f32 rounding, the padding row's
+    zero; the lookup repeats bit for bit."""
+    from diffsvc_tpu_torch.models import nn as fnn
+
+    g = torch.Generator().manual_seed(0)
+    table = torch.nn.Embedding(300, 16, padding_idx=padding_idx)
+    with torch.no_grad():
+        table.weight.copy_(torch.randn(300, 16, generator=g))
+    idx = torch.randint(0, 300, (4, 777), generator=g)
+    idx[0, :5] = 0
+    cot = torch.randn(4, 777, 16, generator=g)
+    want = table(idx)
+    (dwant,) = torch.autograd.grad(want, table.weight, cot)
+    got = fnn.embed(table, idx)
+    assert torch.equal(got, want)
+    (dgot,) = torch.autograd.grad(got, table.weight, cot)
+    np.testing.assert_allclose(dgot.numpy(), dwant.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    assert (dgot[0] == 0).all() == (padding_idx == 0)
+    (again,) = torch.autograd.grad(fnn.embed(table, idx), table.weight, cot)
+    assert torch.equal(again, dgot)
+
+
 def test_schedulers_match_jax():
     for s_t, s_j in ((scheduler.step_lr_schedule(1e-3, 10),
                       jsched.step_lr_schedule(1e-3, 10)),
