@@ -135,7 +135,7 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    use_gt_mel trajectory (ms, launches and device ms per step), a fused
    chunk's replay timed and profiled (ms and device events per
    step), the acc=1 bucket's warm-up, capture and pool; a 0.5 s conversion
-   card vs CPU with ``use_gt_mel`` at 50 steps and the
+   card vs CPU with ``use_gt_mel`` at 35 steps and the
    per-step noise shared, at phase 4's limits, the skip-bias fault above
    them, in each dtype.
    (b) CREPE (random weights in torchcrepe's ``full.pth`` layout): the 14 s
@@ -277,7 +277,7 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    0's one-process share sum (``DIST_TOL``, ``DIST_LOSS_TOL``), the four
    ranks' params bit for bit, each rank's K4 moving and K5 at 0, ms per
    step and peak memory per rank; (c) ``run_task`` on the same ranks with
-   ``mesh_axes: data,seq``, ``mesh_shape: [2, 2]`` for 3 steps at 8 per
+   ``mesh_axes: data,seq``, ``mesh_shape: [2, 2]`` for 2 steps at 8 per
    data block (finite losses; the first batch's items those of a
    data-only d = 2 run on every rank), then one FS2-full step with
    dropout 0.1 whose encoder output is bit-equal on the two seq ranks of
@@ -325,12 +325,12 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    printed with the card's name and power limit.
 15. The learned-score evidence (``[learn]`` lines): ``tools/train_demo``
    at production width (16 synthetic clips binarized, B=8 on K4's batched
-   route, the openvpi NSF-HiFiGAN vocoding each validation sample) for 200
-   steps and a fresh ``Trainer`` resuming to 300, then
+   route, the openvpi NSF-HiFiGAN vocoding each validation sample) for 100
+   steps and a fresh ``Trainer`` resuming to 150, then
    ``tools/sampler_quality``'s grid (12 rows and two fine-grid references,
    403 and 501 evaluations, from one x_T, K2 each) over its checkpoint at f32 and at
    bf16.  Gates, each with a planted fault that must fail it: the resume
-   restored step 200 and trained 100 steps (a Trainer that finds no
+   restored step 100 and trained 50 steps (a Trainer that finds no
    checkpoint starts at 0); the validation loss fell (the initial weights'
    loss as the last reading); every row finite and of the batch's shape (a
    NaN in x_T); every clipped DPM-Solver++ row inside [-8, 3] (dpmpp100
@@ -378,12 +378,27 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    diffsvc_tpu_torch.tools.compare_mel`` reads card against CPU: mel-MCD
    below 0.5 dB, ``BASELINE.md``'s limit, exit 0; the CPU side converted
    at key 0 (the planted fault) must read above it.
+18. The device-time and serving-soak tools (``[decompose]`` lines), in
+   this process on ``utils/devtime``'s timers: ``tools/mfu_decompose`` at
+   production width (T=896, K1, one evaluation, the step-by-step PLMS loop
+   and K2 in bf16 and f32, two rounds), ``tools/train_decompose`` at B=24 x
+   1024 (one round of its eleven legs, K1, K4, K5 and the two steps),
+   ``tools/bench_pipe_stages`` once, ``tools/bench_realtime`` (prod, 5 runs
+   per buffer length) and ``tools/soak_serving`` (10 s per leg over the HTTP
+   server).  Gates, each with a planted fault that must fail it: every
+   share of the peak in (0, 100%] (K1 timed through a window whose end is
+   recorded before its launches); the train parity, the bf16 stream's
+   grads against the scan's, below 2e-2 (the last sample's cotangent
+   dropped at the bf16 stream); the soak's 0 errors and 0 programs built
+   after warm-up (a warm-up to 0.2 s for a mix of 0.2 and 0.5 s buffers);
+   K1-K5 moving over the phase.
 
 The line before the last is the card's ``nvidia-smi`` name and power limit,
 preceded by one JSON line describing every kernel (K1-K6: its launches on
 the path that runs it, on each serving route, on each of phase 8's routes,
 in each of phase 9's parts, phase 10's, phase 11's, phase 12's, phase 13's,
-phase 14's, phase 15's, phase 16's and phase 17's, errors, times, bound);
+phase 14's, phase 15's, phase 16's, phase 17's and phase 18's, errors,
+times, bound);
 the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -401,6 +416,14 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+if os.path.isdir(os.path.join(ROOT, "diffsvc_tpu_torch")):
+    # the timers, peaks, bounds and FLOP counts live in the port, beside the
+    # tools that read them (alone, main() refuses before it needs them)
+    sys.path.insert(0, ROOT)
+    from diffsvc_tpu_torch.utils.devtime import (  # noqa: E402,F401
+        PEAK_BYTES, PEAK_FLOPS, bound, cuda_time_ms, device_events,
+        kernel_breakdown, nbytes, profile_run, stack_flops, tc_bound,
+        time_in_turns)
 
 # Relative-L2 tolerances and why.  Each sits between the sound reading on the
 # H100 and the reading of the planted faults (both printed each run).
@@ -478,12 +501,6 @@ KERNELS = {
     "fused_residual_block": ("diffsvc_tpu_torch/csrc/diffnet_block.cu",
                              "diffsvc_tpu/ops/pallas/diffnet_block.py:93"),
 }
-# Published dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by
-# operand type (f32 outside the tensor cores) and device-memory bytes/s.
-# "tf32x3": f32 products as three TF32 passes on the tensor cores (495
-# TFLOP/s dense TF32 over 3), the rate K1's and K2's f32 kernels run at.
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12, "tf32x3": 495e12 / 3}
-PEAK_BYTES = 3.35e12
 # main-path shapes at config_44k: frames, residual channels, layers, mel
 # bins, conditioner width
 T, C, L, M, H = 1024, 384, 20, 128, 256
@@ -530,59 +547,10 @@ def rel_l2(a, b) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
-def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` back-to-back runs (CUDA
-    events around the whole run; one warm-up run first)."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def time_in_turns(kern, plain, reps: int):
-    """(kernel ms, plain ms), each the mean of two measurements taken in
-    the order plain, kernel, kernel, plain, so drift on the card (clocks,
-    power) falls on both sides alike."""
-    p1 = cuda_time_ms(plain, reps)
-    k1 = cuda_time_ms(kern, reps)
-    k2 = cuda_time_ms(kern, reps)
-    p2 = cuda_time_ms(plain, reps)
-    return (k1 + k2) / 2, (p1 + p2) / 2
-
-
 def _dtype(name):
     import torch
 
     return torch.bfloat16 if name == "bf16" else torch.float32
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(flops: float, moved: int, rate: str) -> dict:
-    """The least time the card could take: the larger of the operations
-    over the peak rate ``PEAK_FLOPS[rate]`` and the bytes (each input read
-    once, each output written once) over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[rate], moved / PEAK_BYTES
-    return {"flops": flops, "bytes": moved, "bound_ms": max(t_ops, t_bytes)
-            * 1e3, "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-
-
-def tc_bound(flops: float, moved: int, dtype_name: str) -> dict:
-    """The tensor-core kernels' bound at the rate they run (bf16 or 3xTF32
-    tensor cores), with the CUDA cores' f32 bound beside it at f32."""
-    res = bound(flops, moved, "tf32x3" if dtype_name == "f32" else "bf16")
-    if dtype_name == "f32":
-        res["cuda_core_bound_ms"] = bound(flops, moved, "f32")["bound_ms"]
-    return res
 
 
 @contextlib.contextmanager
@@ -616,13 +584,6 @@ def plan_ctas(dtype_name: str, m: int = 0, c: int = C) -> dict:
             out[t]["ctas_epi"] = p.grid_m * (
                 1 if dtype_name == "bf16" else p.mp // p.bn)
     return out
-
-
-def stack_flops(rows: int, layers: int, per_row: int, c: int = C) -> float:
-    """``per_row`` c^2 FLOPs per row and layer: 16 for a forward layer
-    (gate 12 + output 4), 60 for forward and backward (the backward's
-    recomputed gate 12, dh 4, dy 12, dWo 4, dW_j 12)."""
-    return float(per_row) * rows * c * c * layers
 
 
 # ---------------------------------------------------------------------------
@@ -676,36 +637,6 @@ def check_residual_stack(device, dtype_name, geo="44k"):
     if dtype_name == "bf16" and geo == "44k":
         res["cublas_products_ms"] = cublas_products_ms(a)
     return res
-
-
-def kernel_breakdown(fn, reps: int) -> dict:
-    """Device time per call of ``fn`` by kernel (torch.profiler over
-    ``reps`` calls after a warm-up): {name: [ms per call, launches per
-    call]}, the name cut at its argument list and to 60 characters."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    out = {}
-    # a trace of a short run can come back with no device event at all
-    # (seen once on the H100 over K6's 5 calls of 0.1 ms); such a trace is
-    # taken again, up to twice, and a trace with events is read as it is
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        for start, end, name in device_events(prof):
-            name = name.replace("(anonymous namespace)::", "")
-            tot = out.setdefault(name.split("(")[0][:60], [0.0, 0])
-            tot[0] += (end - start) / 1e3 / reps
-            tot[1] += 1
-        if out:
-            break
-        log(f"[profile] trace {attempt + 1} holds no device event")
-    return {k: [ms, n / reps] for k, (ms, n) in
-            sorted(out.items(), key=lambda kv: -kv[1][0])}
 
 
 def cublas_products_ms(a) -> float:
@@ -783,7 +714,7 @@ def check_plms_ladder(device, dtype_name, batch: int = 1, geo="44k"):
         with lo_planes_dropped():
             fault_rel["lo products dropped"] = rel_l2(kern() - base,
                                                       ref - base)
-    ms, plain_ms = time_in_turns(kern, plain, reps=2)
+    ms, plain_ms = time_in_turns(kern, plain, reps=1)
     extra = {} if batch > 1 else {
         "breakdown": kernel_breakdown(kern, reps=1),
         "plan": plan_ctas(dtype_name, m, c)}
@@ -1004,7 +935,7 @@ def check_residual_stack_train_batched(device, dtype_name):
     del faults
     if dtype_name == "f32":
         fault_rel["lo products dropped"] = lo_fault_rel(kern, ref)
-    ms, plain_ms = time_in_turns(kern, plain, reps=2)
+    ms, plain_ms = time_in_turns(kern, plain, reps=1)
     return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
             "rel_l2": max(v["rel_l2"] for v in per.values()),
             "per_output": per, "fault_rel_l2": fault_rel, "batch": TRAIN_B,
@@ -1085,7 +1016,7 @@ def check_residual_stack_train(device, dtype_name):
     exact = exact and all(torch.equal(x, s) for x, s in zip(full[3:], sums))
     vs_k4 = per_output(got, (got[0], *k4.residual_stack_train_batched_bwd(
         xsave, *ops, dout, cycle=4)))
-    ms, plain_ms = time_in_turns(kern, plain, reps=2)
+    ms, plain_ms = time_in_turns(kern, plain, reps=1)
     return {"max_abs_err": max(v["max_abs_err"] for v in per.values()),
             "rel_l2": max(v["rel_l2"] for v in per.values()),
             "per_output": per, "fault_rel_l2": fault_rel, "batch": PS_B,
@@ -1454,55 +1385,6 @@ def profile_clip(svc, wav_fn, out_fn):
                                    use_crepe=False, thre=0.05,
                                    use_gt_mel=False, add_noise_step=500,
                                    file_path=wav_fn, out_path=out_fn))
-
-
-def device_events(prof) -> list:
-    """The card's events of a finished ``torch.profiler`` run as (start us,
-    end us, name), read from its kineto results as they are:
-    ``prof.events()`` first builds a record of every host event and their
-    tree, which a trace of a thousand sampler steps makes slow."""
-    from torch.autograd import DeviceType
-
-    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA
-            and not getattr(e, "is_hidden_event", lambda: False)()]
-
-
-def profile_run(label, fn):
-    """torch.profiler over one call of ``fn``.  Device busy time is the
-    union of the card's kernel and copy intervals; the busy share is that
-    over the profiled wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
-    spans, by_name = [], {}
-    for start, end, name in device_events(prof):
-        spans.append((start, end))
-        tot = by_name.setdefault(name, [0.0, 0])
-        tot[0] += (end - start) / 1e3
-        tot[1] += 1
-    busy_us, reach = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        busy_us += max(0.0, b - max(a, reach))
-        reach = max(reach, b)
-    res = {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
-           "busy_share": busy_us / 1e6 / wall, "device_events": len(spans),
-           "top": sorted(([k, v[0], v[1]] for k, v in by_name.items()),
-                         key=lambda r: -r[1])[:8], "names": sorted(by_name)}
-    log(f"[profile] {label}: wall={wall:.3f}s "
-        f"device_busy={res['device_busy_ms']:.1f}ms "
-        f"busy_share={res['busy_share']:.3f} ({len(spans)} device events)")
-    for name, ms, n in res["top"]:
-        log(f"[profile]   {ms:9.2f} ms {n:6d}x {name[:110]}")
-    return res
 
 
 @contextlib.contextmanager
@@ -2643,8 +2525,11 @@ CPU_SECS_CUT = 0.25
 # frames of the bucket's 256, so one capture a dtype)
 DDPM_CLIP = (2.5, 262.0, [])
 # the card-vs-CPU DDPM check: use_gt_mel from the input's mel q-sampled to
-# step 49, then 50 DDPM steps, on 0.5 s
-DDPM_CPU_STEPS = 50
+# step 34, then 35 DDPM steps, on 0.5 s (the denoiser's part of the
+# waveform, the check's denominator, grows with the steps: 2.1e-4 of it at
+# 20 steps put the f32 reading at 8.5e-3 of its 1e-2 limit, 4.8e-4 at 50 at
+# 3.6e-3)
+DDPM_CPU_STEPS = 35
 # the sampler's wall and profile: a use_gt_mel trajectory of this many
 # steps (the same step as a full trajectory's)
 DDPM_PROF_STEPS = 100
@@ -2708,7 +2593,7 @@ def phase_ddpm(project, workdir, launches):
     """(a) DDPM at acc=1 on phase 4's project: a 3 s clip through run_clip,
     modular and fused graph, in bf16 and f32 (K1 one launch per step, K2
     none); ms per step, launches per step, RTF, the acc=1 bucket's capture
-    and pool; a 0.5 s conversion card vs CPU with use_gt_mel at 50 steps."""
+    and pool; a 0.5 s conversion card vs CPU with use_gt_mel at 35 steps."""
     import torch
 
     from diffsvc_tpu_torch import infer_cli
@@ -5219,7 +5104,7 @@ SEQ_FAULT_LAYERS = 4
 # the plain versions at DIST_TOL; the K4 route at phase 5's limit on a
 # step through the kernels against the plain versions.
 SEQ_K4_TOL = TRAIN_STEP_TOL
-SEQ_RUN_STEPS = 3
+SEQ_RUN_STEPS = 2
 SEQ_RUN_B = 8            # (c)'s max_sentences (per data block)
 SEQ_HEAD_SEED = 11
 
@@ -5471,7 +5356,8 @@ def seq_in_process(device, hp, batch, launches) -> dict:
 def seq_job(b: dict, device, rank: int, world: int) -> dict:
     """A rank of phase 12's (b) and (c) (``chip_smoke.py --dist-job seq``):
     two steps of the grid against rank 0's in-process share sum, then
-    ``run_task`` for 3 steps, then one FS2-full step with dropout."""
+    ``run_task`` for SEQ_RUN_STEPS steps, then one FS2-full step with
+    dropout."""
     import numpy as np
     import torch
 
@@ -6292,7 +6178,7 @@ def phase_pt2(device, workdir, project):
 # ---------------------------------------------------------------------------
 # Phase 15: the learned-score evidence (tools/train_demo, tools/sampler_quality)
 
-LEARN_STEPS, LEARN_RESUME = 200, 100     # the demo's fit and its resume
+LEARN_STEPS, LEARN_RESUME = 100, 50      # the demo's fit and its resume
 # the clipped DPM-Solver++ rows' range (ordering 3 of
 # tests/test_sampler_quality_artifacts.py)
 LEARN_RANGE = (-8.0, 3.0)
@@ -6405,7 +6291,7 @@ def phase_learn(device, workdir):
     scratch = os.path.join(workdir, "learn")
     os.makedirs(scratch)
     args = td.parse_args(["--steps", str(LEARN_STEPS), "--resume-steps",
-                          str(LEARN_RESUME), "--val-interval", "100",
+                          str(LEARN_RESUME), "--val-interval", "50",
                           "--out", os.path.join(scratch, "out")])
     with counted("train_demo", res["launches"],
                  moved=("plms_ladder", "vocoder_tail",
@@ -6537,7 +6423,7 @@ def phase_learn(device, workdir):
 # Depth of the phase (the tools' own defaults: 400 steps on 8 clips for
 # train_istft, 1,500 steps on 16 clips for ab_vocoder, 200 steps for
 # ab_train_stream): full width, fewer steps
-VOCLEARN_STEPS = 40
+VOCLEARN_STEPS = 30
 VOCLEARN_CLIPS = 8
 STREAM_STEPS = 20
 # the trained NSF generator through K3 against its plain apply: K3's f32
@@ -6973,6 +6859,207 @@ def phase_drive(device, workdir, drive):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the device-time and serving-soak tools
+# ---------------------------------------------------------------------------
+
+DECOMPOSE_SOAK_S = 10.0     # each soak leg's seconds
+DECOMPOSE_FAULT_SOAK_S = 1.0
+PARITY_LIMIT = 2e-2         # train_decompose's, the JAX tool's
+
+
+def early_cuda_time_ms(fn, reps: int) -> float:
+    """A planted timing fault: the end event is recorded before the
+    launches are queued, so the window holds none of them."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    end.record()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def cotangent_dropped_bf16(bwd):
+    """K4's backward with the last sample's cotangent dropped at the bf16
+    stream (phase 3's fault, on the leg that parity checks)."""
+    import torch
+
+    def fn(xsave, sb, cp, wd, bd, wo, dout, *, cycle):
+        if wd.dtype == torch.bfloat16:
+            dout = dout.clone()
+            dout[-1] = 0
+        return bwd(xsave, sb, cp, wd, bd, wo, dout, cycle=cycle)
+    return fn
+
+
+def share_failures(label: str, shares: dict) -> list:
+    return [f"{label} {k} share {v}" for k, v in shares.items()
+            if not (v is not None and 0 < v <= 100)]
+
+
+def phase_decompose(device):
+    """The five tools on the card in this process (``[decompose]`` lines):
+    ``mfu_decompose`` at production width (2 rounds), ``train_decompose``
+    at B=24 x 1024 (one round), ``bench_pipe_stages`` once,
+    ``bench_realtime`` (prod, 5 runs per length) and ``soak_serving`` (10 s
+    per leg).  Gates: every share in (0, 100%], the train parity below 2e-2,
+    the soak's 0 errors and 0 programs built after warm-up, K1-K5 moving;
+    each with its planted fault above it (a timing window that ends early,
+    the last sample's cotangent dropped at the bf16 stream, a warm-up to
+    0.2 s for a mix of 0.2 and 0.5 s buffers)."""
+    import torch
+
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack as k1
+    from diffsvc_tpu_torch.ops.hopper import diffnet_stack_train as k4
+    from diffsvc_tpu_torch.tools import (bench_pipe_stages, bench_realtime,
+                                         mfu_decompose, soak_serving,
+                                         train_decompose)
+    from diffsvc_tpu_torch.utils import devtime
+    from diffsvc_tpu_torch.utils.synth import stack_inputs
+
+    t0 = time.time()
+    res, launches, failed, faults, secs = {}, {}, [], {}, {}
+    with counted("mfu_decompose", launches,
+                 moved=("residual_stack", "plms_ladder"), tag="decompose"):
+        t = time.time()
+        args = mfu_decompose.parse_args(["--iters", "16", "--loop-reps", "1",
+                                         "--rounds", "2"])
+        d = mfu_decompose.dims(False)
+        ms, mels, outs, _ = mfu_decompose.time_levels(d, device, args)
+        mfu = mfu_decompose.derive(ms, d, card=True)
+        mfu.update(mfu_decompose.cross_checks(mels, outs))
+        secs["mfu_decompose"] = time.time() - t
+    res["mfu_decompose"] = mfu
+    shares = {k: v for k, v in mfu.items() if k.startswith("mfu_")}
+    log(f"[decompose] mfu_decompose (T={d['T']}): us per unit "
+        f"{ {k: round(v, 1) for k, v in mfu.items() if k.endswith('_us')} }; "
+        f"shares % {shares}; cross-checks "
+        f"{ {k: v for k, v in mfu.items() if 'vs' in k} }")
+    failed += share_failures("mfu_decompose", shares)
+    a = stack_inputs(torch.bfloat16, device, 1, d["T"], d["C"], d["L"])
+    with swapped(devtime, cuda_time_ms=early_cuda_time_ms):
+        early = devtime.best_ms(lambda: k1.residual_stack(**a, cycle=4), 16,
+                                1, device)
+    del a
+    planted = 100 * mfu["flops"]["kernel_per_iter"] / (early * 1e-3) \
+        / devtime.PEAK_FLOPS["bf16"]
+    try:
+        mfu_decompose.derive(dict(ms, kernel_bf16=early), d, card=True)
+        faults["share guard"] = []
+    except devtime.TimingFault as e:
+        faults["share guard"] = [f"K1 bf16 {early:.3g} ms, {planted:.0f}%: "
+                                 f"{e}"]
+    log(f"[decompose] planted fault [a window that ends early]: K1 bf16 "
+        f"{early:.4g} ms, share {planted:.1f}% -> "
+        f"{'raised' if faults['share guard'] else 'NOT raised'}")
+
+    with counted("train_decompose", launches,
+                 moved=("residual_stack", "residual_stack_train_batched",
+                        "residual_stack_train"), tag="decompose"):
+        t = time.time()
+        args = train_decompose.parse_args(["--rounds", "1", "--reps", "2",
+                                           "--step-reps", "2"])
+        td = train_decompose.run(args)
+        secs["train_decompose"] = time.time() - t
+    res["train_decompose"] = td
+    for name, leg in td["legs"].items():
+        log(f"[decompose] train {name}: {leg['ms']:.2f} ms device, "
+            f"{leg['ms_wall']:.2f} ms wall, {leg['mfu_pct']}% "
+            f"({leg['flops_count']}) -- {leg['route']}")
+    failed += share_failures("train_decompose", {
+        f"{n}.{k}": leg[k] for n, leg in td["legs"].items()
+        for k in ("mfu_pct", "mfu_pct_hardware") if k in leg})
+    parity = max(td["parity_batched_vs_scan_relmax"].values())
+    if not parity < PARITY_LIMIT:
+        failed.append(f"train parity {parity:.3e}")
+    dt = train_decompose.dims(args, False)
+    *ops, dout = train_decompose.stack_operands(dt, device)
+    with swapped(k4, residual_stack_train_batched_bwd=cotangent_dropped_bf16(
+            k4.residual_stack_train_batched_bwd)):
+        fault = max(train_decompose.parity(tuple(ops), dout,
+                                           dt["CYC"]).values())
+    del ops, dout
+    faults["train parity"] = [f"{fault:.3e}"] if fault > PARITY_LIMIT else []
+    log(f"[decompose] train parity bf16 stream vs scan {parity:.3e} (limit "
+        f"{PARITY_LIMIT}); planted fault [last sample's cotangent dropped]: "
+        f"{fault:.3e}")
+    torch.cuda.empty_cache()
+
+    with counted("bench_pipe_stages", launches,
+                 moved=("residual_stack", "plms_ladder"), tag="decompose"):
+        t = time.time()
+        pipe = bench_pipe_stages.run(bench_pipe_stages.parse_args(
+            ["--runs", "1", "--k", "4"]))
+        secs["bench_pipe_stages"] = time.time() - t
+    res["bench_pipe_stages"] = pipe["rows"]
+    log(f"[decompose] pipe stages ms: "
+        f"{ {r['name']: round(r['ms'], 3) for r in pipe['rows']} }")
+
+    with counted("bench_realtime", launches, tag="decompose"):
+        t = time.time()
+        rt = bench_realtime.run(bench_realtime.parse_args(["--runs", "5"]))
+        secs["bench_realtime"] = time.time() - t
+    res["bench_realtime"] = rt
+    for row in rt["rows"]:
+        log(f"[decompose] realtime {row['dur_s']} s: cold {row['cold_s']:.2f}"
+            f" s, p50 {row['p50_ms']:.1f} ms, p95 {row['p95_ms']:.1f} ms, "
+            f"pipelined p50 {row['pipe_p50_ms']:.1f} ms, headroom "
+            f"{row['rt_headroom']:.1f}x")
+    log(f"[decompose] realtime buckets built: {rt['n_buckets']}")
+    torch.cuda.empty_cache()
+
+    with counted("soak_serving", launches, tag="decompose"):
+        t = time.time()
+        sargs = soak_serving.parse_args([])
+        w = soak_serving.widths(False)
+        fused = soak_serving.random_fused(
+            soak_serving.serving_hp(w, sargs.acc), w, device, sargs.acc)
+        # the planted fault first, on the same program cache: warmed to
+        # 0.2 s, a mix of 0.2 and 0.5 s buffers builds the second bucket
+        sargs.minutes, sargs.warmup_seconds = DECOMPOSE_FAULT_SOAK_S / 60, 0.2
+        short = soak_serving.soak(fused, sargs, [0.2, 0.5], [0, 3])
+        sargs.minutes, sargs.warmup_seconds = DECOMPOSE_SOAK_S / 60, None
+        durs = [float(x) for x in sargs.durs.split(",")]
+        keys = [int(x) for x in sargs.keys.split(",")]
+        sk = soak_serving.soak(fused, sargs, durs, keys)
+        secs["soak_serving"] = time.time() - t
+    del fused
+    res["soak_serving"] = sk
+    built = short["legs"]["nonstream"]["recompiles_after_warmup"]
+    faults["programs after warm-up"] = [f"{built}"] if built >= 1 else []
+    for name, leg in sk["legs"].items():
+        log(f"[decompose] soak {name}: {leg['requests']} requests, "
+            f"{leg['errors']} errors, {leg['recompiles_after_warmup']} "
+            f"programs built after warm-up, p50/p95/p99 "
+            f"{leg['overall']} ms; K2/K3 {leg['launches']}")
+        if leg["errors"] or leg["recompiles_after_warmup"]:
+            failed.append(f"soak {name}: {leg['errors']} errors, "
+                          f"{leg['recompiles_after_warmup']} programs")
+    log(f"[decompose] soak warm-up {sk['warmup_buckets']} buckets in "
+        f"{sk['warmup_s']:.1f} s, graph pools {sk['pool_bytes_total']} "
+        f"bytes; planted fault [warm-up to 0.2 s]: {built} programs built "
+        "after it")
+    counts = {k: sum(c[k] for c in launches.values())
+              for k in ALL_KERNELS[:5]}
+    if not all(counts.values()):
+        failed.append(f"K1-K5 over phase 18: {counts}")
+    secs["total"] = time.time() - t0
+    res.update(launches=launches, faults=faults, seconds=secs)
+    log(f"[decompose] phase 18 took { {k: round(v, 1) for k, v in secs.items()} }"
+        "s")
+    missed = [gate for gate, msgs in faults.items() if not msgs]
+    if missed:
+        raise SmokeError(f"phase 18 planted faults not caught: {missed}")
+    if failed:
+        raise SmokeError(f"phase 18 gates failed: {failed}")
+    return res
+
+
 def diffnet_apply_card(model, noise, t, cond, device):
     """``diffnet.apply`` (K1) on the card from the graph's layouts: noise
     [1, 1, M, T], t [1], cond [1, H, T] -> [1, 1, M, T], numpy."""
@@ -7100,6 +7187,8 @@ def main(argv=None) -> int:
                                                device, tmp)
                     record["drive"] = timed("17 drive", phase_drive, device,
                                             tmp, drive)
+                    record["decompose"] = timed("18 decompose",
+                                                phase_decompose, device)
                 finally:
                     if drive["proc"].poll() is None:
                         drive["proc"].kill()
@@ -7109,7 +7198,7 @@ def main(argv=None) -> int:
         log(f"[phases] seconds: { {k: round(v, 1) for k, v in seconds.items()} }")
         torch.cuda.synchronize()
         record["k6_path_launches"] = k6.launches
-        log(f"[paths] K6 launches over phases 4-17: {k6.launches}")
+        log(f"[paths] K6 launches over phases 4-18: {k6.launches}")
         if k6.launches != 0:
             raise SmokeError(f"K6 was launched {k6.launches} times on a path; "
                              "no path of the port runs it")
@@ -7133,7 +7222,8 @@ def main(argv=None) -> int:
     # grid at f32 and bf16; launches_voclearn: phase 16's tools
     # (train_istft, ab_vocoder, the trained NSF generator's K3 render
     # against its plain version, ab_train_stream's three legs);
-    # launches_drive: phase 17's drive, by step (its child process counts)
+    # launches_drive: phase 17's drive, by step (its child process counts);
+    # launches_decompose: phase 18's tools
     launches = dict(record["slice"]["launches"],
                     residual_stack_train_batched=record["train"]["launches"],
                     residual_stack_train=record["own_batch"]["launches"][
@@ -7189,6 +7279,9 @@ def main(argv=None) -> int:
                         "launches_drive": {
                             step: counts[name] for step, counts in
                             record["drive"]["launches"].items()},
+                        "launches_decompose": {
+                            tool: counts[name] for tool, counts in
+                            record["decompose"]["launches"].items()},
                         "by_dtype": {dt: {k: r[k] for k in measured}
                                      for dt, r in by_dt.items()}})
     if args.out:

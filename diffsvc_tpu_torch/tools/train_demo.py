@@ -130,6 +130,18 @@ def device_info(device) -> dict:
             "backend": "cuda", "card": out.stdout.strip().splitlines()[0]}
 
 
+def kernels_ready(device) -> float:
+    """Build (or load) the kernel library before anything is timed; its
+    seconds (0 on the CPU)."""
+    if device.type != "cuda":
+        return 0.0
+    from ..ops.hopper import _build
+
+    t0 = time.time()
+    _build.lib()
+    return time.time() - t0
+
+
 def launches() -> dict:
     """K2-K5's counters: K2's ladders, K3's tails, K4's backward calls (one
     per step on the batched route) and K5's (the per-sample route)."""

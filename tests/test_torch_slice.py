@@ -231,6 +231,13 @@ ab_train_stream.make_batch(dict(B=1, T=128, n_mel=16, H=256), 0)
 from diffsvc_tpu_torch.tools import compare_mel, step_repeat, verify_drive
 verify_drive.write_songs("drive_raw")
 mcd = compare_mel.mel_mcd(np.zeros((4, 16)), np.zeros((4, 16)))
+# the device-time and serving-soak tools and their shared timing module
+from diffsvc_tpu_torch.utils import devtime
+from diffsvc_tpu_torch.tools import (bench_pipe_stages, bench_realtime,
+                                     mfu_decompose, soak_serving,
+                                     train_decompose)
+soak_serving.make_wav_bytes(0.01, 8000, 0)
+devtime.eval_flops(128, 32, 4, 16)
 forbidden = sorted(m for m in sys.modules if m.split(".")[0] in (
     "onnx", "onnxscript") or m.startswith("google.protobuf"))
 ref_pkg = sorted(m for m in sys.modules if m.split(".")[0] == "diffsvc_tpu")
@@ -271,7 +278,11 @@ def test_port_never_imports_jax(tmp_path):
     ``ab_vocoder``, ``ab_train_stream``; a clip and a batch made), and the
     one-command drive, the mel-MCD metric and the step's repeat check
     (``tools.verify_drive``, ``compare_mel``, ``step_repeat``; the drive's
-    songs written, an MCD read), in a fresh process: neither
+    songs written, an MCD read), and the device-time and serving-soak tools
+    with their timing module (``utils.devtime``, ``tools.mfu_decompose``,
+    ``train_decompose``, ``bench_pipe_stages``, ``bench_realtime``,
+    ``soak_serving``; a wav made, a FLOP count read), in a fresh process:
+    neither
     jax nor any module of the JAX package ``diffsvc_tpu`` may be in
     sys.modules, nor ``onnx``, ``onnxscript`` or ``google.protobuf``."""
     env = dict(os.environ, PYTHONPATH=REPO)

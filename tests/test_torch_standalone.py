@@ -99,7 +99,10 @@ def test_port_sources_cover_this_slice():
                 "tools/train_demo.py", "tools/sampler_quality.py",
                 "tools/train_istft.py", "tools/ab_vocoder.py",
                 "tools/ab_train_stream.py", "tools/verify_drive.py",
-                "tools/compare_mel.py", "tools/step_repeat.py"):
+                "tools/compare_mel.py", "tools/step_repeat.py",
+                "utils/devtime.py", "tools/mfu_decompose.py",
+                "tools/train_decompose.py", "tools/bench_pipe_stages.py",
+                "tools/bench_realtime.py", "tools/soak_serving.py"):
         assert os.path.join("diffsvc_tpu_torch", mod) in PORT_SOURCES
 
 
