@@ -78,7 +78,8 @@ Phases, in order; any failure exits non-zero and no result line is printed:
    SIMT layer kernel instantiated for bf16 operands, the f32 one K1's
    3xTF32 kernels and no SIMT layer kernel at all, and both K3's
    tensor-core conv kernels and no SIMT ``conv1d_kernel``; the conversions
-   of each dtype must move K3's counter.
+   of each dtype must move K3's counter.  Each clip's host time is printed
+   by the innermost of the program's spans (``utils/trace.py``).
 5. The training path at the same widths (``diffnet_train_stream_dtype``
    bf16, ``max_sentences`` 24): 32 synthetic clips of 4-12 s binarized by
    the port's binarizer (HuBERT-soft on the card), then ``run.py``'s
@@ -413,6 +414,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1278,7 +1280,7 @@ def phase_slice(device, workdir):
         for fn, (secs, _, _) in zip(wavs, CLIPS):
             out_fn = fn[:-4] + f"_{dt or 'f32'}_out.wav"
             t0 = time.time()
-            with phase_sums(svc) as phases:
+            with phase_sums() as phases:
                 _, f0_pred, audio = infer_cli.run_clip(
                     svc, key=0, acc=ACC, use_pe=False, use_crepe=False,
                     thre=0.05, use_gt_mel=False, add_noise_step=500,
@@ -1291,13 +1293,10 @@ def phase_slice(device, workdir):
             rec = {"dtype": dt or "float32", "secs": secs, "wall_s": wall,
                    "rtf": wall / secs, "out_len": len(got),
                    "in_len": len(src), "peak": float(np.abs(audio).max()),
-                   "phases_s": phases,
-                   "outside_phases_s": wall - sum(phases.values())}
+                   "phases_s": phases}
             log(f"[slice] {rec['dtype']} clip {secs:.1f}s: wall={wall:.3f}s "
-                f"rtf={rec['rtf']:.4f} peak={rec['peak']:.3f} host phases "
-                f"summed over its chunks "
-                f"{ {k: round(v, 4) for k, v in phases.items()} }, outside "
-                f"them {rec['outside_phases_s']:.4f}s")
+                f"rtf={rec['rtf']:.4f} peak={rec['peak']:.3f} host time by "
+                f"span { {k: round(v, 4) for k, v in phases.items()} }")
             if got_sr != sr or len(got) != len(src) or len(audio) != len(src):
                 raise SmokeError(f"output length {len(got)} != input {len(src)}")
             if not np.isfinite(audio).all():
@@ -1357,22 +1356,26 @@ def phase_slice(device, workdir):
 
 
 @contextlib.contextmanager
-def phase_sums(svc):
-    """``Svc.timings`` (seconds per phase of one ``infer``) summed over every
-    ``infer`` inside the block, into the dict it yields."""
-    sums, real = {}, svc.infer
+def phase_sums():
+    """Host seconds inside the block by the innermost of the program's spans
+    (``utils/trace.py``: ``cli.*``, ``svc.*``) open at each moment on this
+    thread, into the dict it yields when the block ends; the time no span
+    covers is under ``"other"``."""
+    from diffsvc_tpu_torch.utils import trace
 
-    def summed(*args, **kwargs):
-        out = real(*args, **kwargs)
-        for k, v in svc.timings.items():
-            sums[k] = sums.get(k, 0.0) + v
-        return out
-
-    svc.infer = summed
+    was, sums = trace.TRACER.enabled, {}
+    trace.enable()
+    trace.reset()
+    t0 = time.perf_counter()
     try:
         yield sums
     finally:
-        del svc.infer
+        t1, me = time.perf_counter(), threading.get_ident()
+        split = trace.idle_split([s for s in trace.spans() if s.thread == me],
+                                 [(t0, t1)])
+        sums.update({k or "other": v for k, v in split.items()})
+        trace.reset()
+        trace.TRACER.enabled = was
 
 
 def profile_clip(svc, wav_fn, out_fn):

@@ -19,6 +19,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from ..config import HParams
+from ..utils import trace
 from . import features
 from .indexed_datasets import IndexedDataset
 from .batching import batch_by_size, ordered_indices
@@ -118,7 +119,12 @@ class BatchIterator:
 
 def prefetch(iterator: Iterator, prepare_fn=None, depth: int = 2) -> Iterator:
     """Run the (host-side) batch pipeline a few steps ahead in a background
-    thread — collation/padding/device transfer overlap device compute."""
+    thread — collation/padding/device transfer overlap device compute.
+
+    Spans and counters (``utils/trace.py``): the producer records
+    ``data.collate`` around each item (the iterator's step and
+    ``prepare_fn``); the consumer counts ``data.gets`` per item and
+    ``data.gets_empty`` where the queue held none when it asked."""
     import queue
     import threading
 
@@ -128,9 +134,15 @@ def prefetch(iterator: Iterator, prepare_fn=None, depth: int = 2) -> Iterator:
 
     def producer():
         try:
-            for item in iterator:
-                q.put(prepare_fn(item) if prepare_fn else item)
-            q.put(_END)
+            it = iter(iterator)
+            while True:
+                with trace.span("data.collate"):
+                    item = next(it, _END)
+                    if item is not _END and prepare_fn:
+                        item = prepare_fn(item)
+                q.put(item)
+                if item is _END:
+                    break
         except BaseException as e:  # re-raised in the consumer — a data
             # error must NOT be reported as a clean end-of-epoch
             q.put((_ERR, e))
@@ -138,11 +150,15 @@ def prefetch(iterator: Iterator, prepare_fn=None, depth: int = 2) -> Iterator:
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     while True:
+        empty = trace.on() and q.empty()
         item = q.get()
         if item is _END:
             break
         if isinstance(item, tuple) and len(item) == 2 and item[0] is _ERR:
             raise item[1]
+        trace.count("data.gets")
+        if empty:
+            trace.count("data.gets_empty")
         yield item
 
 

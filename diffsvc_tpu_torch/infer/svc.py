@@ -40,7 +40,7 @@ from ..models.diffusion import GaussianDiffusion
 from ..ops import mel as mel_ops
 from ..ops.pitch import denorm_f0
 from ..parallel import dist
-from ..utils import convert
+from ..utils import convert, trace
 from ..vocoders import generator as gen_mod
 from ..vocoders.base import get_vocoder_cls
 from .hubert_encoder import Hubertencoder
@@ -137,7 +137,6 @@ class Svc:
             if os.path.exists(smp):
                 with open(smp, encoding="utf-8") as f:
                     self.spk_map = json.load(f)
-        self.timings = {}   # seconds per phase of the last infer()
         self._fused = None
         self._fused_key = None
 
@@ -193,40 +192,42 @@ class Svc:
         """Convert one clip.  ``init_noise`` ([1, T, M]), ``step_noise``
         (DDPM's per-step noise, [t_start, 1, T, M]) and ``voc_randoms``
         (generator.draw_randoms output) may be passed to fix the sampler's
-        and the NSF source's noise; otherwise they come from ``seed``."""
-        self.timings = {}
-        batch = self.pre(in_path, acc, use_crepe, thre,
-                         spk_id=kwargs.get("spk_id"))
-        # key shift in log2 with ceiling zeroing (infer_tool.py:149-150)
-        batch["f0"] = batch["f0"] + (key / 12)
-        batch["f0"][batch["f0"] > np.log2(self.hp["f0_max"])] = 0
+        and the NSF source's noise; otherwise they come from ``seed``.
+
+        Spans (``utils/trace.py``): ``svc.pre`` (with ``svc.mel``,
+        ``svc.f0``, ``svc.units`` and ``svc.collate``), ``svc.upload``,
+        ``svc.sample``, ``svc.pe`` and ``svc.vocode``."""
+        with trace.span("svc.pre"):
+            batch = self.pre(in_path, acc, use_crepe, thre,
+                             spk_id=kwargs.get("spk_id"))
+            # key shift in log2 with ceiling zeroing (infer_tool.py:149-150)
+            batch["f0"] = batch["f0"] + (key / 12)
+            batch["f0"][batch["f0"] > np.log2(self.hp["f0_max"])] = 0
 
         dev = self.device
-        tb = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
-              for k in ("hubert", "mels", "mel2ph", "energy", "f0", "uv")}
-        if self.hp.get("use_spk_id") and "spk_ids" in batch:
-            tb["spk_embed"] = torch.from_numpy(batch["spk_ids"]).to(dev)
+        with trace.span("svc.upload"):
+            tb = {k: torch.from_numpy(np.asarray(batch[k])).to(dev)
+                  for k in ("hubert", "mels", "mel2ph", "energy", "f0", "uv")}
+            if self.hp.get("use_spk_id") and "spk_ids" in batch:
+                tb["spk_embed"] = torch.from_numpy(batch["spk_ids"]).to(dev)
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         noise = {k: None if kwargs.get(k) is None else torch.as_tensor(
             kwargs[k], dtype=torch.float32)
             for k in ("init_noise", "step_noise")}
-        t0 = time.time()
-        outputs = self.model.infer(
-            tb, speedup=int(acc),
-            use_gt_mel=bool(kwargs.get("use_gt_mel", False)),
-            add_noise_step=int(kwargs.get("add_noise_step", 500)),
-            generator=gen, **noise)
-        mel_out = outputs["mel_out"].cpu().numpy()
-        self.timings["diffusion"] = time.time() - t0
-        print(f"executing 'diff_infer' costed {self.timings['diffusion']:.3f}s")
+        with trace.span("svc.sample"):
+            outputs = self.model.infer(
+                tb, speedup=int(acc),
+                use_gt_mel=bool(kwargs.get("use_gt_mel", False)),
+                add_noise_step=int(kwargs.get("add_noise_step", 500)),
+                generator=gen, **noise)
+            mel_out = outputs["mel_out"].cpu().numpy()
 
         batch["outputs"] = mel_out
         batch["f0_gt"] = self._f0_gt(batch)
         f0_pred = outputs["f0_denorm"]
         if use_pe and self.pe is not None:
-            t0 = time.time()
-            f0_pred = self.pe(outputs["mel_out"])["f0_denorm_pred"]
-            self.timings["pe"] = time.time() - t0
+            with trace.span("svc.pe"):
+                f0_pred = self.pe(outputs["mel_out"])["f0_denorm_pred"]
         batch["f0_pred"] = f0_pred.cpu().numpy()
         return self.after_infer(batch, singer, in_path, seed=seed,
                                 voc_randoms=kwargs.get("voc_randoms"))
@@ -250,7 +251,12 @@ class Svc:
         weights.  The iSTFT head is refused: the JAX package's
         ``infer_batched`` takes any wrapper with ``params`` and ``cfg`` for
         a HiFi-GAN generator and fails on it
-        (``diffsvc_tpu/infer/svc.py:263-290``)."""
+        (``diffsvc_tpu/infer/svc.py:263-290``).
+
+        Spans (``utils/trace.py``): ``svc.batched``, and under it
+        ``svc.pre`` per input (with ``svc.mel``, ``svc.f0``, ``svc.units``,
+        ``svc.collate``) and per group ``svc.upload``, ``svc.sample``,
+        ``svc.pe``, ``svc.vocode`` and ``svc.download``."""
         hp, dev = self.hp, self.device
         if "istft" in str(hp.get("vocoder", "")).lower():
             raise ValueError(
@@ -258,21 +264,30 @@ class Svc:
                 "package's infer_batched runs it as a HiFi-GAN generator and "
                 "fails); convert with infer, infer_fused or "
                 "infer_fused_batched")
-        per_chunk = not hasattr(self.vocoder, "gen")
-        is_nsf = "nsf" in str(hp.get("vocoder", "")).lower()
-        samples = []
-        for in_path in inputs:
-            b1 = self.pre(in_path, acc, use_crepe, thre)
-            b1["f0"] = b1["f0"] + (key / 12)
-            b1["f0"][b1["f0"] > np.log2(hp["f0_max"])] = 0
-            samples.append(b1)
-        groups = {}
-        for i, b1 in enumerate(samples):
-            groups.setdefault((b1["mels"].shape[1], b1["hubert"].shape[1]),
-                              []).append(i)
-        gen = torch.Generator(device=dev).manual_seed(int(seed))
-        results = [None] * len(samples)
-        for idxs in groups.values():
+        with trace.span("svc.batched", inputs=len(inputs)):
+            samples = []
+            for in_path in inputs:
+                with trace.span("svc.pre"):
+                    b1 = self.pre(in_path, acc, use_crepe, thre)
+                    b1["f0"] = b1["f0"] + (key / 12)
+                    b1["f0"][b1["f0"] > np.log2(hp["f0_max"])] = 0
+                samples.append(b1)
+            groups = {}
+            for i, b1 in enumerate(samples):
+                groups.setdefault((b1["mels"].shape[1],
+                                   b1["hubert"].shape[1]), []).append(i)
+            gen = torch.Generator(device=dev).manual_seed(int(seed))
+            results = [None] * len(samples)
+            for idxs in groups.values():
+                self._batched_group(samples, idxs, results, acc, use_pe,
+                                    seed, gen, init_noise, voc_randoms)
+        return results
+
+    def _batched_group(self, samples, idxs, results, acc, use_pe, seed, gen,
+                       init_noise, voc_randoms) -> None:
+        """One group of :meth:`infer_batched`: its ``results``."""
+        hp, dev = self.hp, self.device
+        with trace.span("svc.upload", rows=len(idxs)):
             stack = {k: np.concatenate([samples[i][k] for i in idxs])
                      for k in ("hubert", "mels", "mel2ph", "energy", "f0",
                                "uv")}
@@ -283,21 +298,25 @@ class Svc:
             noise = None if init_noise is None else torch.from_numpy(
                 np.stack([np.asarray(init_noise[i], np.float32)
                           for i in idxs]))
+        with trace.span("svc.sample"):
             out = self.model.infer(tb, speedup=int(acc), init_noise=noise,
                                    generator=gen)
-            mel_out = out["mel_out"]
-            f0_pred_all = out["f0_denorm"]
-            if use_pe and self.pe is not None:
+        mel_out = out["mel_out"]
+        f0_pred_all = out["f0_denorm"]
+        if use_pe and self.pe is not None:
+            with trace.span("svc.pe"):
                 f0_pred_all = self.pe(mel_out)["f0_denorm_pred"]
-            if per_chunk:
-                f0_gt_all = self._f0_gt(stack)
-                for j, i in enumerate(idxs):
-                    results[i] = self.after_infer(
-                        {"mels": stack["mels"][j],
-                         "outputs": mel_out[j].cpu().numpy(),
-                         "f0_gt": f0_gt_all[j],
-                         "f0_pred": f0_pred_all[j].cpu().numpy()}, seed=seed)
-                continue
+        if not hasattr(self.vocoder, "gen"):
+            # a vocoder without generator weights: each input's spec2wav
+            f0_gt_all = self._f0_gt(stack)
+            for j, i in enumerate(idxs):
+                results[i] = self.after_infer(
+                    {"mels": stack["mels"][j],
+                     "outputs": mel_out[j].cpu().numpy(),
+                     "f0_gt": f0_gt_all[j],
+                     "f0_pred": f0_pred_all[j].cpu().numpy()}, seed=seed)
+            return
+        with trace.span("svc.vocode"):
             # collate-padding frames are exact-0 mel: as log-mel that is
             # loud broadband energy that would bleed into the kept frames
             # through the generator's receptive field, so floor them to the
@@ -317,9 +336,11 @@ class Svc:
                 randoms = tuple(torch.from_numpy(np.stack(
                     [np.asarray(voc_randoms[i][k], np.float32)
                      for i in idxs])).to(dev) for k in (0, 1))
+            is_nsf = "nsf" in str(hp.get("vocoder", "")).lower()
             wavs = gen_mod.apply_serving(
                 self.vocoder.gen, mel_clip * (mel_ops.LN_10 if is_nsf else 1.0),
                 f0_pred_all if hp.get("use_nsf") else None, randoms)
+        with trace.span("svc.download"):
             mel_out, wavs = mel_out.cpu().numpy(), wavs.cpu().numpy()
             f0_pred_all = f0_pred_all.cpu().numpy()
             f0_gt_all = self._f0_gt(stack)
@@ -329,7 +350,6 @@ class Svc:
                 mask = np.abs(mel_out[j]).sum(-1) > 0
                 results[i] = (f0_gt_all[j][mask], f0_pred_all[j][mask],
                               wavs[j][: int(mask.sum()) * hop_up])
-        return results
 
     def _f0_gt(self, batch) -> np.ndarray:
         """The conditioner's f0 in Hz from a batch's normalized f0 and uv."""
@@ -361,11 +381,9 @@ class Svc:
             data_path = str(in_path).replace("batch", "singer_data")
             np.save(data_path[:-4] + "_mel.npy", mel_pred)
             np.save(data_path[:-4] + "_f0.npy", f0_pred)
-        t0 = time.time()
-        wav_pred = self.vocoder.spec2wav(mel_pred, f0=f0_pred, seed=seed,
-                                         randoms=voc_randoms)
-        self.timings["vocoder"] = time.time() - t0
-        print(f"executing 'after_infer' costed {self.timings['vocoder']:.3f}s")
+        with trace.span("svc.vocode"):
+            wav_pred = self.vocoder.spec2wav(mel_pred, f0=f0_pred, seed=seed,
+                                             randoms=voc_randoms)
         return f0_gt, f0_pred, wav_pred
 
     # ------------------------------------------------------------------
@@ -395,24 +413,20 @@ class Svc:
     def temporary_dict2processed_input(self, item_name, temp_dict,
                                        use_crepe=True, thre=0.05):
         hp = self.hp
-        t0 = time.time()
-        wav, mel = features.wav2spec_for(hp, temp_dict["wav_fn"], self.device)
-        self.timings["mel"] = time.time() - t0
+        with trace.span("svc.mel"):
+            wav, mel = features.wav2spec_for(hp, temp_dict["wav_fn"],
+                                             self.device)
         processed = {"item_name": item_name, "mel": mel,
                      "sec": len(wav) / hp["audio_sample_rate"],
                      "len": mel.shape[0], **temp_dict}
         ba = hp.get("binarization_args", {})
         if ba.get("with_f0", True):
-            t0 = time.time()
-            processed["f0"], processed["pitch"] = self._cached_pitch(
-                wav, mel, use_crepe, thre)
-            self.timings["f0"] = time.time() - t0
-            print(f"executing 'get_pitch' costed {self.timings['f0']:.3f}s")
+            with trace.span("svc.f0"):
+                processed["f0"], processed["pitch"] = self._cached_pitch(
+                    wav, mel, use_crepe, thre)
         if ba.get("with_hubert", True):
-            t0 = time.time()
-            processed["hubert"] = self.hubert.encode(temp_dict["wav_fn"])
-            self.timings["hubert"] = time.time() - t0
-            print(f"hubert time used {self.timings['hubert']:.3f}")
+            with trace.span("svc.units"):
+                processed["hubert"] = self.hubert.encode(temp_dict["wav_fn"])
             if ba.get("with_align", True):
                 processed["mel2ph"] = features.get_align_uniform(
                     mel.shape[0], processed["hubert"].shape[0])
@@ -441,6 +455,7 @@ class Svc:
         processed = self.temporary_dict2processed_input(
             item_name, temp_dict, use_crepe, thre)
         self.hp["pndm_speedup"] = accelerate
-        sample = features.getitem(processed, self.hp)
-        return features.processed_input2batch(
-            [sample], self.hp, pad_multiple=self.pad_multiple)
+        with trace.span("svc.collate"):
+            sample = features.getitem(processed, self.hp)
+            return features.processed_input2batch(
+                [sample], self.hp, pad_multiple=self.pad_multiple)

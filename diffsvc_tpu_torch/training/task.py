@@ -59,6 +59,7 @@ import torch
 from ..infer.svc import default_device
 from ..models.diffusion import GaussianDiffusion
 from ..parallel import dist
+from ..utils import trace
 from ..utils.convert import strip_prefix
 from .scheduler import build_lr_schedule
 
@@ -328,7 +329,8 @@ class SVCTask(Optimized):
         global loss and gradient.  ``rows`` and ``frames`` take another
         cell's rows and own frames (the checks sum every cell's share in
         one process)."""
-        t, noise = self.draws(batch, t, noise)
+        with trace.span("train.draws"):
+            t, noise = self.draws(batch, t, noise)
         n, t_len = np.shape(batch["mels"])[:2]
         d, s = self.grid
         i, j = self.grid.cell(dist.rank())
@@ -356,12 +358,16 @@ class SVCTask(Optimized):
         # FS2-full's dropout: one draw per data block, so that the seq ranks
         # of a block run the same encoder
         block_index = rows.start // max(rows.stop - rows.start, 1)
-        loss, _ = self.model.training_loss(
-            self.prepare_batch(local), t=t[rows], noise=noise,
-            generator=draw_generator(self.device, self.seed, DROPOUT,
-                                     self.step, block_index),
-            count=real_rows(batch), own=own, frames=t_len, seq=s)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        with trace.span("train.upload"):
+            inputs = self.prepare_batch(local)
+        with trace.span("train.forward"):
+            loss, _ = self.model.training_loss(
+                inputs, t=t[rows], noise=noise,
+                generator=draw_generator(self.device, self.seed, DROPOUT,
+                                         self.step, block_index),
+                count=real_rows(batch), own=own, frames=t_len, seq=s)
+        with trace.span("train.backward"):
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g
                                for p, g in zip(self.params, grads)]
 
@@ -371,22 +377,31 @@ class SVCTask(Optimized):
         accumulation window.  ``t`` [B] and ``noise`` [B, T, M] (global)
         override the step's draws.  Returns metrics loss, mel, lr,
         grad_norm (tensors stay on the device; read them only when
-        logging)."""
-        loss, grads = self.loss_and_grads(batch, t=t, noise=noise)
-        *grads, loss = dist.all_reduce_sum([*grads, loss])
-        grad_norm = global_norm(grads)
-        if self.hp.get("print_nan_grads"):
-            for name, g in zip(self.names, grads):
-                if not bool(torch.isfinite(g).all()):
-                    print(f"| WARNING: non-finite grad in {name} at step "
-                          f"{self.step} (loss={float(loss)})")
-        lr = self.apply_grads(grads)
-        if self.ema is not None:
-            d = self.ema_decay
-            with torch.no_grad():
-                for e, p in zip(self.ema.parameters(), self.params):
-                    e.copy_(d * e + (1.0 - d) * p)
-        return {"loss": loss, "mel": loss, "lr": lr, "grad_norm": grad_norm}
+        logging).
+
+        Spans (``utils/trace.py``): ``train.step``, and under it
+        ``train.draws``, ``train.upload``, ``train.forward``,
+        ``train.backward``, ``train.reduce``, ``train.optimizer`` and
+        ``train.ema``."""
+        with trace.span("train.step"):
+            loss, grads = self.loss_and_grads(batch, t=t, noise=noise)
+            with trace.span("train.reduce"):
+                *grads, loss = dist.all_reduce_sum([*grads, loss])
+                grad_norm = global_norm(grads)
+            if self.hp.get("print_nan_grads"):
+                for name, g in zip(self.names, grads):
+                    if not bool(torch.isfinite(g).all()):
+                        print(f"| WARNING: non-finite grad in {name} at step "
+                              f"{self.step} (loss={float(loss)})")
+            with trace.span("train.optimizer"):
+                lr = self.apply_grads(grads)
+            if self.ema is not None:
+                d = self.ema_decay
+                with trace.span("train.ema"), torch.no_grad():
+                    for e, p in zip(self.ema.parameters(), self.params):
+                        e.copy_(d * e + (1.0 - d) * p)
+            return {"loss": loss, "mel": loss, "lr": lr,
+                    "grad_norm": grad_norm}
 
     @torch.no_grad()
     def val_step(self, batch: Dict) -> float:

@@ -1,18 +1,16 @@
 """Shared small utilities (reference utils/__init__.py:28-250): loss meters,
-timers with named profiler spans, parameter counting, checkpoint globbing.
+parameter counting, checkpoint globbing.
 
-Counterpart of ``diffsvc_tpu/utils/misc.py``: ``Timer``'s span is a
-``torch.profiler.record_function`` range, ``num_params`` counts an
+Counterpart of ``diffsvc_tpu/utils/misc.py``: ``num_params`` counts an
 ``nn.Module``'s parameters or a state dict's tensors, and
-``get_last_checkpoint`` is the port's ``training.checkpoint``.  JAX's
+``get_last_checkpoint`` is the port's ``training.checkpoint``.  The
+timers are the port's spans (``utils/trace.py``); JAX's
 ``start_profiler_server`` has no PyTorch counterpart and is not ported.
 """
 
 from __future__ import annotations
 
-import time
-from collections import defaultdict
-from typing import Dict, Optional
+from typing import Optional
 
 
 class AvgrageMeter:
@@ -30,49 +28,6 @@ class AvgrageMeter:
         self.sum += val * n
         self.cnt += n
         self.avg = self.sum / self.cnt
-
-
-class Timer:
-    """Context-manager timer with a global accumulation map and, with
-    ``trace``, a ``torch.profiler.record_function`` span of the same name
-    (visible in a ``torch.profiler`` trace)."""
-
-    timer_map: Dict[str, float] = defaultdict(float)
-
-    def __init__(self, name: str, print_time: bool = False, trace: bool = True):
-        self.name = name
-        self.print_time = print_time
-        self.trace = trace
-        self._span = None
-
-    def __enter__(self):
-        if self.trace:
-            import torch
-
-            self._span = torch.profiler.record_function(self.name)
-            self._span.__enter__()
-        self.t = time.time()
-        return self
-
-    def __exit__(self, exc_type, exc_val, exc_tb):
-        dt = time.time() - self.t
-        Timer.timer_map[self.name] += dt
-        if self._span is not None:
-            self._span.__exit__(exc_type, exc_val, exc_tb)
-        if self.print_time:
-            print(self.name, Timer.timer_map[self.name])
-
-
-def timeit(func):
-    """Wall-time print decorator (reference infer_tool.py:60-67)."""
-
-    def run(*args, **kwargs):
-        t = time.time()
-        res = func(*args, **kwargs)
-        print(f"executing '{func.__name__}' costed {time.time() - t:.3f}s")
-        return res
-
-    return run
 
 
 def num_params(params, print_out: bool = True, model_name: str = "model") -> float:

@@ -9,10 +9,12 @@ its own sources: it writes chip_smoke.py's random-weight config_44k
 project (the same seeds), loads ``Svc`` in bf16 and in f32, converts the
 first clip once to warm up, then converts chip_smoke.py's three clips
 (6.5, 9 and 14 s) through ``infer_cli.run_clip`` ``--reps`` times.  Per
-clip and dtype it reports the wall (host clock ending in a sync), the
-seconds ``Svc.timings`` gathers per phase summed over the clip's chunks
-(mel, f0, hubert, diffusion, vocoder) and the rest of the wall outside
-them (slicing, wav I/O, collate, transfers).  The sides run in the order
+clip and dtype it reports the wall (host clock ending in a sync) and the
+host seconds by the innermost of the program's spans open at each moment
+(``chip_smoke.phase_sums``: ``cli.read``, ``cli.slice``, ``svc.mel``,
+``svc.f0``, ``svc.units``, ``svc.sample``, ``svc.vocode``, ...; ``other``
+outside every span); a checkout from before the spans reports the
+seconds its ``Svc.timings`` gathered instead.  The sides run in the order
 base, head, head, base; one JSON line at the end holds each side's runs.
 Needs an NVIDIA GPU.
 """
@@ -20,6 +22,7 @@ Needs an NVIDIA GPU.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -42,6 +45,10 @@ def child(root: str, reps: int) -> int:
     from diffsvc_tpu_torch.utils import synth
     from diffsvc_tpu_torch.utils.audio_io import save_wav
 
+    # a checkout from before the program's spans sums its Svc.timings
+    old = not os.path.exists(os.path.join(root, "diffsvc_tpu_torch", "utils",
+                                          "trace.py"))
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with tempfile.TemporaryDirectory() as tmp:
@@ -60,15 +67,8 @@ def child(root: str, reps: int) -> int:
         for dt in ("bfloat16", ""):
             svc = Svc("proj", cfg_fn, True, ckpt, device="cuda")
             svc.hp["diff_compute_dtype"] = dt
-            sums, real = {}, svc.infer
-
-            def summed(*args, _real=real, _sums=sums, _svc=svc, **kwargs):
-                out = _real(*args, **kwargs)
-                for k, v in _svc.timings.items():
-                    _sums[k] = _sums.get(k, 0.0) + v
-                return out
-
-            svc.infer = summed
+            phases = functools.partial(cs.phase_sums, svc) if old \
+                else cs.phase_sums
 
             def convert(fn):
                 return infer_cli.run_clip(
@@ -79,17 +79,15 @@ def child(root: str, reps: int) -> int:
             convert(wavs[0])
             for _ in range(reps):
                 for fn, (secs, _, _) in zip(wavs, cs.CLIPS):
-                    sums.clear()
                     torch.cuda.synchronize()
                     t0 = time.time()
-                    convert(fn)
-                    torch.cuda.synchronize()
+                    with phases() as sums:
+                        convert(fn)
+                        torch.cuda.synchronize()
                     wall = time.time() - t0
                     print(MARK + json.dumps({
                         "dtype": dt or "float32", "secs": secs,
-                        "wall_s": wall, "phases_s": dict(sums),
-                        "outside_s": wall - sum(sums.values())}),
-                        flush=True)
+                        "wall_s": wall, "phases_s": sums}), flush=True)
             del svc
             torch.cuda.empty_cache()
     return 0
@@ -121,9 +119,9 @@ def main(argv=None) -> int:
     for side in ("base", "head", "head", "base"):
         for rec in run(sides[side], args.reps):
             print(f"[turns] {side} {rec['dtype']} {rec['secs']:.1f}s: wall="
-                  f"{rec['wall_s']:.4f}s phases "
-                  f"{ {k: round(v, 4) for k, v in rec['phases_s'].items()} }"
-                  f" outside {rec['outside_s']:.4f}s", flush=True)
+                  f"{rec['wall_s']:.4f}s host time "
+                  f"{ {k: round(v, 4) for k, v in rec['phases_s'].items()} }",
+                  flush=True)
             runs[side].append(rec)
     print(json.dumps(runs))
     return 0
